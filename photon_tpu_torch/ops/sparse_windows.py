@@ -196,6 +196,60 @@ def windowed_rmatvec_plain(
     return out[:dim]
 
 
+#: threads per CTA (at most) and consecutive slots per thread of the
+#: kernel (kMaxThreads, kItems in csrc/windowed_rmatvec.cu)
+KERNEL_THREADS, KERNEL_ITEMS = 256, 8
+
+
+def kernel_tile(length: int) -> int:
+    """Slots in one of the kernel's tiles: its CTA's threads × 8, with
+    min(256, L/8 rounded up to a warp) threads. An instance of L slots is
+    ⌈L / tile⌉ tiles, the last one ragged."""
+    return min(KERNEL_THREADS, -(-length // (KERNEL_ITEMS * 32)) * 32) * KERNEL_ITEMS
+
+
+def tile_windows(inst2win: np.ndarray, length: int) -> np.ndarray:
+    """Window id of each tile the kernel walks, in order."""
+    return np.repeat(np.asarray(inst2win), -(-length // kernel_tile(length)))
+
+
+def work_partition(n_tiles: int, grid: int) -> np.ndarray:
+    """Tile ranges of the kernel's persistent grid: CTA b takes the tiles
+    [bounds[b], bounds[b+1]). The grid is capped at n_tiles, so no range is
+    empty; the kernel computes the same bounds on the card (``range_lo``
+    in csrc/windowed_rmatvec.cu)."""
+    grid = min(grid, n_tiles)
+    return np.arange(grid + 1, dtype=np.int64) * n_tiles // grid
+
+
+def fixup_plan(tile_win: np.ndarray, bounds: np.ndarray) -> tuple[np.ndarray, dict]:
+    """Where the kernel's per-(CTA, window) sums go, as the kernel decides
+    it on the card from the window of each tile (:func:`tile_windows`). A
+    window whose tiles all lie in one CTA's range is written straight to
+    the output. A window split across CTAs leaves one partial per CTA in
+    scratch[b, slot] — slot 0 for a CTA's first window, 1 for its last —
+    and the fix-up sums them in CTA order.
+
+    Returns ``dest`` ([grid, 2] window id of scratch[b, slot], -1 unused)
+    and ``split`` {window: [(b, slot), ...] in CTA order}."""
+    tile_win = np.asarray(tile_win)
+    n_tiles, grid = len(tile_win), len(bounds) - 1
+    dest = np.full((grid, 2), -1, dtype=np.int64)
+    split: dict[int, list[tuple[int, int]]] = {}
+    for b in range(grid):
+        lo, hi = int(bounds[b]), int(bounds[b + 1])
+        first, last = int(tile_win[lo]), int(tile_win[hi - 1])
+        cont_before = lo > 0 and tile_win[lo - 1] == first
+        cont_after = hi < n_tiles and tile_win[hi] == last
+        if cont_before or (first == last and cont_after):
+            dest[b, 0] = first
+            split.setdefault(first, []).append((b, 0))
+        if last != first and cont_after:
+            dest[b, 1] = last
+            split.setdefault(last, []).append((b, 1))
+    return dest, split
+
+
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
     if t.dtype != dtype:
         raise TypeError(f"windowed_rmatvec: {name} must be {dtype}, got {t.dtype}")
@@ -211,59 +265,109 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 #: widest window the kernel's shared-memory accumulator takes
 MAX_KERNEL_WINDOW = 8192
+#: value types the kernel takes (it sums in the same type)
+KERNEL_DTYPES = (torch.float32, torch.float64)
+#: what :func:`windowed_rmatvec_probe` leaves of the kernel's work
+PROBE_MODES = {"stream": 1, "stream_gather": 2, "gather": 3}
 
 
 def _kernel_lib():
     from photon_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("windowed_rmatvec")
-    fn = lib.windowed_rmatvec_f32
-    if fn.argtypes is None:
+    if lib.windowed_rmatvec.argtypes is None:
         # without argtypes ctypes would pass each pointer as a 32-bit int
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+        ll, ptr = ctypes.c_longlong, ctypes.c_void_p
+        lib.windowed_rmatvec_grid.restype = ctypes.c_int
+        lib.windowed_rmatvec_grid.argtypes = [
+            ctypes.c_int, ll, ll, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
         ]
-    return fn
+        lib.windowed_rmatvec.restype = ctypes.c_int
+        lib.windowed_rmatvec.argtypes = [ctypes.c_int] + [ptr] * 7 + [
+            ll, ll, ctypes.c_int, ll, ctypes.c_int, ptr,
+        ]
+        lib.windowed_rmatvec_probe.restype = ctypes.c_int
+        lib.windowed_rmatvec_probe.argtypes = [ctypes.c_int, ctypes.c_int] + [ptr] * 7 + [
+            ll, ll, ctypes.c_int, ll, ll, ctypes.c_int, ptr,
+        ]
+    return lib
+
+
+def _launch(windows: ColumnWindows, per_row: torch.Tensor, dim: int, probe: int = 0):
+    if per_row.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"windowed_rmatvec: per_row must be float32 or float64, got {per_row.dtype}"
+        )
+    w_inst, length = windows.rows.shape
+    w = windows.window
+    if w > MAX_KERNEL_WINDOW:
+        raise ValueError(f"windowed_rmatvec: window {w} > {MAX_KERNEL_WINDOW}")
+    if w_inst == 0 or length == 0:
+        raise ValueError("windowed_rmatvec: empty layout")
+    if length % 4:
+        # the bulk copies move whole 16-byte groups; the build keeps L a
+        # multiple of 8 unless ``chunk`` is not
+        raise ValueError(f"windowed_rmatvec: instance length {length} is not a multiple of 4")
+    if per_row.dim() != 1:
+        raise ValueError("windowed_rmatvec: per_row must be 1-D")
+    dev = per_row.device
+    if dev.type != "cuda":
+        raise ValueError(f"windowed_rmatvec_cuda needs CUDA tensors, got {dev}")
+    dtype = per_row.dtype
+    _check("per_row", per_row, dtype, per_row.shape, dev)
+    _check("rows", windows.rows, torch.int32, (w_inst, length), dev)
+    _check("lcols", windows.lcols, torch.int32, (w_inst, length), dev)
+    _check("vals", windows.vals, dtype, (w_inst, length), dev)
+    _check("inst2win", windows.inst2win, torch.int32, (w_inst,), dev)
+    if any(t.data_ptr() % 16 for t in (windows.rows, windows.lcols, windows.vals)):
+        raise ValueError("windowed_rmatvec: rows, lcols and vals must be 16-byte aligned")
+    f64 = int(dtype == torch.float64)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        g = ctypes.c_int(0)
+        rc = lib.windowed_rmatvec_grid(f64, w_inst, length, w, ctypes.byref(g))
+        if rc != 0:
+            raise RuntimeError(f"windowed_rmatvec: occupancy query failed: cudaError {rc}")
+        grid = g.value
+        scratch = torch.empty((grid, 2, w), dtype=dtype, device=dev)
+        out = torch.empty((dim,), dtype=dtype, device=dev)
+        ptrs = (
+            windows.rows.data_ptr(), windows.lcols.data_ptr(), windows.vals.data_ptr(),
+            windows.inst2win.data_ptr(), per_row.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(),
+        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if probe:
+            rc = lib.windowed_rmatvec_probe(
+                probe, f64, *ptrs, w_inst, length, w, dim, per_row.shape[0], grid, stream
+            )
+        else:
+            rc = lib.windowed_rmatvec(f64, *ptrs, w_inst, length, w, dim, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"windowed_rmatvec kernel launch failed: cudaError {rc}")
+    return out
 
 
 def windowed_rmatvec_cuda(
     windows: ColumnWindows, per_row: torch.Tensor, dim: int
 ) -> torch.Tensor:
-    """Launch the CUDA kernel pair (instance partials, then the per-window
-    combine) on the current stream. float32 only; anything the kernel
-    cannot take raises."""
-    dev = per_row.device
-    if dev.type != "cuda":
-        raise ValueError(f"windowed_rmatvec_cuda needs CUDA tensors, got {dev}")
-    w_inst, length = windows.rows.shape
-    w = windows.window
-    num_windows = max(1, -(-dim // w))
-    if w > MAX_KERNEL_WINDOW:
-        raise ValueError(f"windowed_rmatvec: window {w} > {MAX_KERNEL_WINDOW}")
-    if w_inst == 0 or length == 0:
-        raise ValueError("windowed_rmatvec: empty layout")
-    if per_row.dim() != 1:
-        raise ValueError("windowed_rmatvec: per_row must be 1-D")
-    _check("per_row", per_row, torch.float32, per_row.shape, dev)
-    _check("rows", windows.rows, torch.int32, (w_inst, length), dev)
-    _check("lcols", windows.lcols, torch.int32, (w_inst, length), dev)
-    _check("vals", windows.vals, torch.float32, (w_inst, length), dev)
-    _check("inst2win", windows.inst2win, torch.int32, (w_inst,), dev)
-    out_inst = torch.empty((w_inst, w), dtype=torch.float32, device=dev)
-    out = torch.empty((dim,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel_lib()(
-        windows.rows.data_ptr(), windows.lcols.data_ptr(),
-        windows.vals.data_ptr(), windows.inst2win.data_ptr(),
-        per_row.data_ptr(), out_inst.data_ptr(), out.data_ptr(),
-        w_inst, length, w, num_windows, dim, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"windowed_rmatvec kernel launch failed: cudaError {rc}")
+    """Launch the CUDA kernel (per-window partials over a persistent grid,
+    then the fix-up of windows split across CTAs) on the current stream.
+    float32 or float64; anything the kernel cannot take raises."""
+    out = _launch(windows, per_row, dim)
     windowed_rmatvec.launches += 1
     return out
+
+
+def windowed_rmatvec_probe(
+    windows: ColumnWindows, per_row: torch.Tensor, dim: int, mode: str
+) -> None:
+    """The kernel with part of its work left out, to time on the card what
+    bounds it (``mode`` in :data:`PROBE_MODES`: the triple stream alone;
+    the stream and the r[rows] reads without the scan; r read at uniformly
+    random rows alone). It computes nothing useful and is not counted in
+    ``windowed_rmatvec.launches``."""
+    _launch(windows, per_row, dim, probe=PROBE_MODES[mode])
 
 
 def windowed_rmatvec(
@@ -276,5 +380,6 @@ def windowed_rmatvec(
     return windowed_rmatvec_cuda(windows, per_row, dim)
 
 
-#: kernel launches through the wrapper (each launch of the A+B pair is one)
+#: kernel launches through the wrapper (one per call: the partials kernel
+#: and its fix-up)
 windowed_rmatvec.launches = 0
