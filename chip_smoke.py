@@ -22,7 +22,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    that the kernel ran, every value is finite, grouped AUC ≥ 0.8, the
    scorer agrees with the fit's final scores, and a small fit on the card
    agrees with the same fit on the CPU, at float32 and at float64;
-5. print one ``{"kernels": [...]}`` line and, last, the ok line.
+5. the single-GLM path, ``train_glm_grid(device="cuda")``, at the widths
+   of bench configs 1-3: ``glm_a1a`` (a1a's shape, L-BFGS over a 3-λ grid
+   with STANDARDIZATION and SIMPLE variances; bands, AUC > 0.5, float64
+   card vs CPU within 1e-9), ``glm_tron`` (2^19 × 2048 float32 made on the
+   card, TRON; band, achieved bandwidth, float64 card vs CPU on a small
+   problem) and ``glm_owlqn`` (a DataSet of 2^20 × 2^20 with 56 slots per
+   row, OWL-QN elastic-net Poisson through the window layout; the kernel
+   launched, exact zeros, band, float64 card vs CPU on a small problem);
+   then the kernel held and timed on the config-3 layout;
+6. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -201,14 +210,15 @@ def time_ms(fns, reps=20, rounds=5, warmup=3):
 
 
 def kernel_case(label, idx, val, dim, *, dtype=None, window=128, cap=4096, chunk=1024,
-                seed=0, probes=False):
+                seed=0, probes=False, layout=None):
     """Hold the windowed Xᵀr kernel against its plain version on one layout:
     bit-identical across two runs, and within a stated bound of the plain
     version computed in float64 from the same inputs. Then time kernel,
     plain version (in the working type) and the library call; with
     ``probes``, also the kernel with part of its work left out (the triple
     stream alone, the stream with the r[rows] reads, the r reads alone at
-    uniformly random rows), to show what bounds it."""
+    uniformly random rows), to show what bounds it. ``layout`` is the host
+    layout of (idx, val) when the caller has built it already."""
     import numpy as np
     import torch
 
@@ -216,10 +226,11 @@ def kernel_case(label, idx, val, dim, *, dtype=None, window=128, cap=4096, chunk
 
     dtype = dtype or torch.float32
     dev = torch.device("cuda")
-    win = sw.build_column_windows(
-        idx, val, dim, window=window, instance_cap=cap, chunk=chunk,
-        device=dev, dtype=dtype,
-    )
+    if layout is None:
+        layout = sw.build_column_windows_numpy(
+            idx, val, dim, window=window, instance_cap=cap, chunk=chunk
+        )
+    win = sw.column_windows_from_numpy(layout, device=dev, dtype=dtype)
     n = idx.shape[0]
     r = torch.as_tensor(np.random.default_rng(seed).standard_normal(n), device=dev).to(dtype)
     got = sw.windowed_rmatvec_cuda(win, r, dim)
@@ -267,7 +278,7 @@ def kernel_case(label, idx, val, dim, *, dtype=None, window=128, cap=4096, chunk
         "dtype": str(dtype).removeprefix("torch."),
         "w_inst": int(w_inst),
         "instance_len": int(length),
-        "window": int(window),
+        "window": int(win.window),
         "dim": int(dim),
         "rows": int(n),
         "nnz": nnz,
@@ -511,6 +522,304 @@ def main_path(data, seed):
     return launches, sum(r["sweep_seconds"] for r in sweeps)
 
 
+# --- the single-GLM path (bench configs 1-3) ---------------------------------
+
+A1A_N, A1A_D = 1605, 124  # bench config 1: a1a's shape, intercept included
+TRON_N, TRON_D = 1 << 19, 2048  # bench config 2, full size
+OWLQN_N, OWLQN_D, OWLQN_K = 1 << 20, 1 << 20, 56  # bench config 3, full size
+#: bench.py QUALITY_BANDS: gradient-norm ceilings when the solve converged
+GNORM_BANDS = {"glm_a1a": 1.0, "glm_tron": 100.0, "glm_owlqn": 5000.0}
+
+
+def glm_config(task, optimizer, reg, *, variance="NONE", **opt_kw):
+    from photon_tpu_torch.optimize.common import OptimizerConfig
+    from photon_tpu_torch.optimize.problem import (
+        GLMProblemConfig,
+        RegularizationContext,
+        RegularizationType,
+        VarianceComputationType,
+    )
+    from photon_tpu_torch.types import OptimizerType, TaskType
+
+    return GLMProblemConfig(
+        task=TaskType[task],
+        optimizer=OptimizerType[optimizer],
+        optimizer_config=OptimizerConfig(**opt_kw),
+        regularization=RegularizationContext(RegularizationType[reg], elastic_net_alpha=0.5),
+        variance_computation=VarianceComputationType[variance],
+    )
+
+
+def check_bands(phase, models):
+    """Finite coefficients (and variances), and the bench's gradient-norm
+    band on every λ whose solve stopped on a tolerance (reasons 2, 3)."""
+    import torch
+
+    for m in models:
+        c = m.model.coefficients
+        if not bool(torch.isfinite(c.means).all()):
+            fail(f"{phase}: coefficients are not finite (λ={m.regularization_weight})")
+        if c.variances is not None and not bool(torch.isfinite(c.variances).all()):
+            fail(f"{phase}: variances are not finite (λ={m.regularization_weight})")
+        gnorm = float(torch.linalg.vector_norm(m.result.gradient))
+        if int(m.result.reason) in (2, 3) and not gnorm <= GNORM_BANDS[phase]:
+            fail(f"{phase}: gradient norm {gnorm} > {GNORM_BANDS[phase]} at λ="
+                 f"{m.regularization_weight} (reason {int(m.result.reason)})")
+
+
+def card_vs_cpu(phase, fit, tol=1e-9, zeros=False):
+    """``fit(device)`` → list of TrainedModel at float64; the card's
+    coefficients, variances and objective values must agree with the
+    CPU's within ``tol`` (and, with ``zeros``, have the same zero
+    pattern)."""
+    import numpy as np
+
+    out = {dev: fit(dev) for dev in ("cpu", "cuda")}
+    worst = 0.0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        pairs = [(a.model.coefficients.means, b.model.coefficients.means),
+                 (a.result.value, b.result.value)]
+        if b.model.coefficients.variances is not None:
+            pairs.append((a.model.coefficients.variances, b.model.coefficients.variances))
+        for got, want in pairs:
+            got, want = got.cpu().numpy(), want.cpu().numpy()
+            worst = max(worst, float(np.abs(got - want).max()))
+            if not np.allclose(got, want, rtol=tol, atol=tol):
+                fail(f"{phase}: card vs cpu at float64 max_abs_err="
+                     f"{float(np.abs(got - want).max())} (tolerance {tol})")
+        if zeros:
+            za = a.model.coefficients.means.cpu().numpy() == 0
+            zb = b.model.coefficients.means.cpu().numpy() == 0
+            if not np.array_equal(za, zb):
+                fail(f"{phase}: card and cpu zero patterns differ")
+        if int(a.result.iterations) != int(b.result.iterations):
+            log(f"{phase}: note: iterations differ card {int(a.result.iterations)} "
+                f"vs cpu {int(b.result.iterations)}")
+    return worst
+
+
+def a1a_data(seed):
+    """Bench config 1's data (bench.py config_a1a): ~14 active binary
+    features per row, the intercept in column 0, logistic labels."""
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import DataSet
+
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(size=(A1A_N, A1A_D)) < 14.0 / A1A_D).astype(np.float64)
+    x[:, 0] = 1.0
+    w_true = 0.5 * rng.standard_normal(A1A_D)
+    labels = (rng.uniform(size=A1A_N) < 1.0 / (1.0 + np.exp(-(x @ w_true)))).astype(np.float64)
+    return DataSet.from_dense(x, labels)
+
+
+def glm_a1a(seed):
+    """train_glm_grid over λ = 10, 1, 0.1 with warm starts, STANDARDIZATION
+    and SIMPLE variances, at float32 on the card; then the same call at
+    float64 on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_tpu_torch.evaluation.evaluators import area_under_roc_curve
+    from photon_tpu_torch.model_training import train_glm_grid
+    from photon_tpu_torch.ops.normalization import NormalizationContext
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import NormalizationType
+
+    data = a1a_data(seed)
+    stats = BasicStatisticalSummary.of(data)
+    cfg = glm_config("LOGISTIC_REGRESSION", "LBFGS", "L2", variance="SIMPLE")
+
+    def fit(device, dtype):
+        norm = NormalizationContext.build(
+            NormalizationType.STANDARDIZATION, mean=stats.mean, variance=stats.variance,
+            intercept_index=0, dtype=dtype,
+        )
+        return train_glm_grid(data, cfg, [10.0, 1.0, 0.1], normalization=norm,
+                              dtype=dtype, device=device)
+
+    windowed_rmatvec.launches = 0
+    t0 = time.perf_counter()
+    models = fit("cuda", torch.float32)
+    wall = time.perf_counter() - t0
+    launches = windowed_rmatvec.launches
+    check_bands("glm_a1a", models)
+    x = torch.as_tensor(data.to_dense(np.float32), device="cuda")
+    y = torch.as_tensor(data.labels, device="cuda")
+    auc = float(area_under_roc_curve(models[-1].model.compute_margin(x), y))
+    if not auc > 0.5:
+        fail(f"glm_a1a: training AUC {auc} ≤ 0.5")
+    err = card_vs_cpu("glm_a1a", lambda dev: fit(dev, torch.float64))
+    log(json.dumps({
+        "phase": "glm_a1a", "n": A1A_N, "d": A1A_D, "grid": [10.0, 1.0, 0.1],
+        "wall_s": wall, "solve_s": [m.wall_time_s for m in models],
+        "iterations": [int(m.result.iterations) for m in models],
+        "reasons": [int(m.result.reason) for m in models],
+        "n_feature_passes": [int(m.result.n_feature_passes) for m in models],
+        "gnorm": [float(torch.linalg.vector_norm(m.result.gradient)) for m in models],
+        "auc_train": auc, "kernel_launches": launches,
+        "card_vs_cpu_f64_max_abs_err": err,
+    }))
+
+
+def glm_tron(seed):
+    """Bench config 2 at full size: 2^19 × 2048 float32 generated on the
+    card, squared loss, L2 λ = 1, TRON with its defaults, through
+    train_glm_grid; a small TRON problem card vs CPU at float64 first
+    (it also warms cuBLAS)."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.model_training import train_glm_grid
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import LabeledBatch
+
+    cfg = glm_config("LINEAR_REGRESSION", "TRON", "L2")
+    rng = np.random.default_rng(seed + 2)
+    xs = rng.standard_normal((4096, 64))
+    ys = xs @ (0.1 * rng.standard_normal(64)) + 0.1 * rng.standard_normal(4096)
+
+    def small(dev):
+        batch = LabeledBatch(*(torch.as_tensor(a, device=dev) for a in (
+            xs, ys, np.zeros(4096), np.ones(4096))))
+        return train_glm_grid(batch, cfg, [1.0], device=dev)
+
+    err = card_vs_cpu("glm_tron", small)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    n, d = TRON_N, TRON_D
+    x = torch.randn((n, d), generator=g, device="cuda")
+    w_true = 0.1 * torch.randn(d, generator=g, device="cuda")
+    y = x @ w_true + 0.1 * torch.randn(n, generator=g, device="cuda")
+    batch = LabeledBatch(x, y, torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windowed_rmatvec.launches = 0
+    (model,) = train_glm_grid(batch, cfg, [1.0], device="cuda")
+    launches = windowed_rmatvec.launches
+    check_bands("glm_tron", [model])
+    res = model.result
+    passes = int(res.n_feature_passes)
+    wall = model.wall_time_s
+    log(json.dumps({
+        "phase": "glm_tron", "n": n, "d": d, "dtype": "float32",
+        "solve_wall_s": wall, "iterations": int(res.iterations),
+        "reason": int(res.reason), "n_evals": int(res.n_evals), "n_hvp": int(res.n_hvp),
+        "n_feature_passes": passes,
+        "achieved_bytes_per_s": 4.0 * n * d * passes / wall,
+        "hbm_bytes_per_s": HBM_BYTES_PER_S,
+        "gnorm": float(torch.linalg.vector_norm(res.gradient)),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kernel_launches": launches,
+        "card_vs_cpu_f64_max_abs_err": err,
+    }))
+
+
+def config3_arrays(seed, n, d, k):
+    """Bench config 3's data (bench.py config_sparse_poisson): k slots per
+    row with the intercept in slot 0, values N(0, 1/k), Poisson labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(1, d, size=(n, k)).astype(np.int32)
+    idx[:, 0] = 0
+    vals = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    vals[:, 0] = 1.0
+    w_true = (rng.standard_normal(d) * 0.3).astype(np.float32)
+    margin = np.sum(vals * w_true[idx], axis=-1)
+    labels = rng.poisson(np.exp(np.clip(margin - 0.5, -4.0, 3.0))).astype(np.float64)
+    return idx, vals, labels
+
+
+def ell_dataset(idx, vals, labels, d):
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import DataSet
+
+    n, k = idx.shape
+    return DataSet(
+        indptr=np.arange(n + 1, dtype=np.int64) * k, indices=idx.reshape(-1),
+        values=vals.reshape(-1), labels=labels, offsets=np.zeros(n), weights=np.ones(n),
+        num_features=d,
+    )
+
+
+def glm_owlqn(seed):
+    """Bench config 3 at full width: a DataSet of 2^20 rows × 2^20 columns
+    with 56 slots per row through train_glm_grid (choose_sparse →
+    to_device_sparse_batch → the window layout → OWL-QN elastic net, whose
+    every gradient runs the windowed Xᵀr kernel); a small sparse OWL-QN
+    with windows card vs CPU at float64 first. Returns the host arrays for
+    the config-3 kernel case and the fit's kernel launches."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.data.dataset import to_device_sparse_batch
+    from photon_tpu_torch.model_training import train_glm_grid
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    cfg = glm_config("POISSON_REGRESSION", "OWLQN", "ELASTIC_NET",
+                     max_iterations=100, tolerance=1e-7)
+    ds_small = ell_dataset(*config3_arrays(seed + 5, 8192, 2048, 16), 2048)
+
+    def small(dev):
+        batch = to_device_sparse_batch(ds_small, dtype=torch.float64, device=dev,
+                                       column_windows=True)
+        # λ = 1 keeps the solve well conditioned: at λ = 1e-2 a float64
+        # roundoff difference grows along the OWL-QN path to ~1e-7 in x
+        return train_glm_grid(batch, cfg, [1.0], num_features=2048, device=dev)
+
+    err = card_vs_cpu("glm_owlqn", small, zeros=True)
+
+    t0 = time.perf_counter()
+    idx, vals, labels = config3_arrays(seed + 3, OWLQN_N, OWLQN_D, OWLQN_K)
+    ds = ell_dataset(idx, vals, labels, OWLQN_D)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windowed_rmatvec.launches = 0
+    t0 = time.perf_counter()
+    (model,) = train_glm_grid(ds, cfg, [1e-3], device="cuda")
+    wall = time.perf_counter() - t0
+    launches = windowed_rmatvec.launches
+    if launches <= 0:
+        fail("glm_owlqn: the fit never launched the windowed Xᵀr kernel")
+    check_bands("glm_owlqn", [model])
+    res, means = model.result, model.model.coefficients.means
+    n_zero = int((means == 0).sum())
+    if n_zero == 0:
+        fail("glm_owlqn: the elastic-net fit has no exact zeros")
+    log(json.dumps({
+        "phase": "glm_owlqn", "n": OWLQN_N, "d": OWLQN_D, "slots": OWLQN_K,
+        "nnz": int(idx.size), "dtype": "float32", "l1": 5e-4, "l2": 5e-4,
+        "data_gen_s": gen_s, "fit_wall_s": wall,
+        "host_build_s": wall - model.wall_time_s, "solve_wall_s": model.wall_time_s,
+        "iterations": int(res.iterations), "reason": int(res.reason),
+        "n_evals": int(res.n_evals), "n_feature_passes": int(res.n_feature_passes),
+        "kernel_launches": launches, "zero_coefficients": n_zero,
+        "gnorm": float(torch.linalg.vector_norm(res.gradient)),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card_vs_cpu_f64_max_abs_err": err,
+    }))
+    return idx, vals, launches
+
+
+def config3_kernel_rows(idx, vals):
+    """The kernel on the config-3 layout at float32 and float64 (one host
+    layout build for both)."""
+    import torch
+
+    from photon_tpu_torch.ops import sparse_windows as sw
+
+    layout = sw.build_column_windows_numpy(idx, vals, OWLQN_D)
+    return {
+        dtype: kernel_case("config3_fe", idx, vals, OWLQN_D, dtype=dtype, layout=layout)
+        for dtype in (torch.float32, torch.float64)
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -570,6 +879,16 @@ def main() -> None:
     if args.profile:
         profile_sweeps(data, args.seed, sweeps_s)
         sync_census(data, args.seed)
+    del data
+
+    glm_a1a(args.seed)
+    glm_tron(args.seed)
+    idx3, vals3, owlqn_launches = glm_owlqn(args.seed)
+    k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
+
+    def timings(row):
+        return {key: row[key] for key in (
+            "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     log(json.dumps({"kernels": [{
         "name": "windowed_rmatvec",
@@ -583,6 +902,11 @@ def main() -> None:
         "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
+        "launches_by_path": {"main_path": launches, "glm_owlqn": owlqn_launches},
+        "layouts": {
+            "config5_fe": {"launches": launches, **timings(kmain)},
+            "config3_fe": {"launches": owlqn_launches, **timings(k3)},
+        },
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

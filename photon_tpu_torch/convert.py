@@ -1,15 +1,16 @@
 """Carry parameters across from the JAX package's arrays, as numpy.
 
 The port imports nothing of photon_tpu; a caller that holds a JAX
-``GameModel`` or ``ColumnWindows`` turns its arrays into numpy and hands
-them over here, so both packages score (or take a gradient step) from the
-same parameters.
+``GameModel``, GLM or ``ColumnWindows`` turns its arrays into numpy and
+hands them over here, so both packages score (or take a gradient step)
+from the same parameters.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from photon_tpu_torch.game.model import (
     BucketCoefficients,
@@ -18,8 +19,10 @@ from photon_tpu_torch.game.model import (
     GameModel,
     RandomEffectModel,
 )
+from photon_tpu_torch.models.coefficients import Coefficients as GLMCoefficients
+from photon_tpu_torch.models.glm import GeneralizedLinearModel, model_for_task
 from photon_tpu_torch.ops.sparse_windows import column_windows_from_numpy
-from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.types import TaskType, resolve_device
 
 
 def game_model_from_numpy(task: TaskType, coordinates: Mapping[str, Mapping]) -> GameModel:
@@ -57,4 +60,17 @@ def game_model_from_numpy(task: TaskType, coordinates: Mapping[str, Mapping]) ->
     return GameModel(coordinates=out, task=task)
 
 
-__all__ = ["game_model_from_numpy", "column_windows_from_numpy"]
+def glm_from_numpy(
+    task: TaskType, means, variances=None, *, device="cuda"
+) -> GeneralizedLinearModel:
+    """The port's GLM for ``task`` from a model's coefficient means (and
+    variances), float64 tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.as_tensor(np.array(a, dtype=np.float64)).to(dev)
+
+    return model_for_task(task, GLMCoefficients(means=t(means), variances=t(variances)))
+
+
+__all__ = ["game_model_from_numpy", "glm_from_numpy", "column_windows_from_numpy"]

@@ -24,7 +24,8 @@ from photon_tpu_torch.game.config import (
     FixedEffectCoordinateConfig,
     RandomEffectCoordinateConfig,
 )
-from photon_tpu_torch.game.data import GameData, RandomEffectDataset, choose_sparse
+from photon_tpu_torch.data.dataset import choose_sparse
+from photon_tpu_torch.game.data import GameData, RandomEffectDataset
 from photon_tpu_torch.game.model import (
     BucketCoefficients,
     Coefficients,
@@ -34,13 +35,9 @@ from photon_tpu_torch.game.model import (
 from photon_tpu_torch.ops.objective import matvec
 from photon_tpu_torch.ops.sparse_windows import maybe_build_windows
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
-from photon_tpu_torch.types import LabeledBatch, SparseBatch
+from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype
 
 Tensor = torch.Tensor
-
-
-def numpy_dtype(dtype: torch.dtype):
-    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def _use_sparse(representation: FeatureRepresentation, shard, dtype) -> bool:

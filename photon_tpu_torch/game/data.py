@@ -14,47 +14,11 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
+from photon_tpu_torch.data.dataset import csr_to_ell
 from photon_tpu_torch.game.config import RandomEffectCoordinateConfig
 
 #: entity key of padding rows: weight 0, no random-effect entity
 PAD_ENTITY_KEY = "__photon_pad__"
-
-#: dense-vs-sparse AUTO rule (photon_tpu/data/dataset.py choose_sparse)
-AUTO_SPARSE_DENSE_BYTES = 1 << 28
-AUTO_SPARSE_MAX_DENSITY = 0.25
-
-
-def choose_sparse(num_rows: int, num_cols: int, nnz: int, itemsize: int = 4) -> bool:
-    cells = num_rows * num_cols
-    if cells == 0:
-        return False
-    return (
-        itemsize * cells > AUTO_SPARSE_DENSE_BYTES
-        and nnz / cells < AUTO_SPARSE_MAX_DENSITY
-    )
-
-
-def csr_to_ell(
-    indptr: np.ndarray,
-    indices: np.ndarray,
-    values: np.ndarray,
-    dtype=np.float32,
-    nnz_pad_multiple: int = 8,
-) -> tuple[np.ndarray, np.ndarray]:
-    """CSR → padded ELL (indices [N, K] int32, values [N, K]); K is the max
-    row nnz rounded up to ``nnz_pad_multiple``; padding is (0, 0.0)."""
-    n = indptr.shape[0] - 1
-    counts = np.diff(indptr)
-    k_raw = max(int(counts.max()) if n else 1, 1)
-    k = -(-k_raw // nnz_pad_multiple) * nnz_pad_multiple
-    out_idx = np.zeros((n, k), dtype=np.int32)
-    out_val = np.zeros((n, k), dtype=dtype)
-    rows = np.repeat(np.arange(n), counts)
-    slots = np.arange(int(indptr[-1])) - np.repeat(indptr[:-1], counts)
-    out_idx[rows, slots] = indices
-    out_val[rows, slots] = values
-    return out_idx, out_val
-
 
 @dataclasses.dataclass
 class CSRMatrix:

@@ -13,7 +13,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from photon_tpu_torch.game.coordinate import numpy_dtype
 from photon_tpu_torch.game.data import (
     GameData,
     _ceil_pow2,
@@ -22,7 +21,7 @@ from photon_tpu_torch.game.data import (
     slice_game_data,
 )
 from photon_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
-from photon_tpu_torch.types import resolve_device
+from photon_tpu_torch.types import numpy_dtype, resolve_device
 
 DEFAULT_BATCH_ROWS = 8192
 #: widest RE feature shard the scorer densifies per batch

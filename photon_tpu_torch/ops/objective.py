@@ -1,4 +1,4 @@
-"""GLM objective: value, gradient, margin-space line-search oracle, diag(H).
+"""GLM objective: value, gradient, line-search oracles, Hessian products.
 
 Counterpart of photon_tpu/ops/objective.py. Every function works over a
 leading lane shape: a dense batch [E, N, D] with coefficients [E, D] is E
@@ -6,6 +6,7 @@ independent objectives (the random-effect solves), a batch without lanes
 takes coefficients [D]. Reductions are weighted sums:
 
     value = Σᵢ wᵢ·l(zᵢ, yᵢ) + λ/2·‖w‖²        grad = Xᵀ(wᵢ·l′) + λw
+    Hv    = Xᵀ(wᵢ·l″·(X v)) + λv              H    = Xᵀ diag(wᵢ·l″) X + λI
 
 with margins zᵢ = x·(w .* factor) + margin_shift + offsetᵢ under a
 NormalizationContext. The sparse backward pass runs through the windowed
@@ -21,7 +22,7 @@ from photon_tpu_torch.ops.gather import take_1d
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
-from photon_tpu_torch.optimize.common import DirectionalOracle
+from photon_tpu_torch.optimize.common import DirectionalOracle, SmoothMarginOracle
 from photon_tpu_torch.types import SparseBatch
 
 Tensor = torch.Tensor
@@ -59,8 +60,12 @@ def rmatvec(batch, per_row: Tensor, dim: int) -> Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class GLMObjective:
+    """``l1_weight`` is carried for OWL-QN, which applies it through the
+    pseudo-gradient; the smooth value and gradient here never include it."""
+
     loss: PointwiseLoss
     l2_weight: float = 0.0
+    l1_weight: float = 0.0
     normalization: NormalizationContext = NormalizationContext()
 
     def margins(self, coef: Tensor, batch) -> Tensor:
@@ -83,6 +88,9 @@ class GLMObjective:
         z = self.margins(coef, batch)
         raw = (batch.weights * self.loss.loss(z, batch.labels)).sum(-1)
         return raw + 0.5 * self.l2_weight * _dot(coef, coef)
+
+    def gradient(self, coef: Tensor, batch) -> Tensor:
+        return self.value_and_gradient(coef, batch)[1]
 
     def value_and_gradient(self, coef: Tensor, batch) -> tuple[Tensor, Tensor]:
         return self._value_grad_margins(coef, batch)[:2]
@@ -140,6 +148,74 @@ class GLMObjective:
 
         return DirectionalOracle(full=full, dir_setup=dir_setup)
 
+    def smooth_margin_oracle(self, batch) -> SmoothMarginOracle:
+        """Value-only trial oracle for OWL-QN (optimize/owlqn.py): a trial
+        is one forward pass; the backward pass runs once, on the accepted
+        point's margins."""
+
+        def value_margins(x: Tensor):
+            z = self.margins(x, batch)
+            f = (batch.weights * self.loss.loss(z, batch.labels)).sum(-1)
+            return f + 0.5 * self.l2_weight * _dot(x, x), z
+
+        def grad_from_margins(x: Tensor, z: Tensor):
+            _, d1 = self.loss.loss_and_d1(z, batch.labels)
+            return self._back(batch.weights * d1, batch, x.shape[-1]) + self.l2_weight * x
+
+        return SmoothMarginOracle(
+            full=lambda x: self._value_grad_margins(x, batch),
+            value_margins=value_margins,
+            grad_from_margins=grad_from_margins,
+        )
+
+    def hessian_vector(self, coef: Tensor, v: Tensor, batch) -> Tensor:
+        """H·v: one forward and one backward pass, no [D, D] memory."""
+        return self.hessian_operator(coef, batch)(v)
+
+    def hessian_operator(self, coef: Tensor, batch):
+        """H(coef)·v closure with the loss curvature computed once: the
+        margin pass depends on the center only, so TRON's CG steps at one
+        center each cost a forward and a backward pass."""
+        z = self.margins(coef, batch)
+        d2w = batch.weights * self.loss.d2(z, batch.labels)
+        dim = coef.shape[-1]
+
+        def hv(v: Tensor) -> Tensor:
+            xv = matvec(batch, self.normalization.effective_coefficients(v))
+            if self.normalization.shifts is not None:
+                xv = xv + self.normalization.margin_shift(v).unsqueeze(-1)
+            return self._back(d2w * xv, batch, dim) + self.l2_weight * v
+
+        return hv
+
+    def hessian_matrix(self, coef: Tensor, batch) -> Tensor:
+        """Dense [..., D, D] Hessian, for FULL variances at small D (a
+        sparse batch is densified)."""
+        z = self.margins(coef, batch)
+        d2 = batch.weights * self.loss.d2(z, batch.labels)
+        x = self._transformed_features(batch, coef.shape[-1])
+        h = torch.matmul(x.transpose(-1, -2), d2.unsqueeze(-1) * x)
+        eye = torch.eye(coef.shape[-1], dtype=h.dtype, device=h.device)
+        return h + self.l2_weight * eye
+
+    def _transformed_features(self, batch, dim: int) -> Tensor:
+        """Materialized x' = (x − shift) .* factor (dense-Hessian paths
+        only, where D is small)."""
+        if isinstance(batch, SparseBatch):
+            n = batch.indices.shape[0]
+            rows = torch.arange(n, device=batch.indices.device)[:, None].expand_as(
+                batch.indices
+            )
+            x = torch.zeros((n, dim), dtype=batch.values.dtype, device=batch.values.device)
+            x.index_put_((rows, batch.indices.long()), batch.values, accumulate=True)
+        else:
+            x = batch.features
+        if self.normalization.shifts is not None:
+            x = x - self.normalization.shifts
+        if self.normalization.factors is not None:
+            x = x * self.normalization.factors
+        return x
+
     def hessian_diagonal(self, coef: Tensor, batch) -> Tensor:
         """diag(H) without materializing H. Sparse: Σᵢ sᵢ(xᵢⱼ−shiftⱼ)² by
         the binomial expansion; with windows, Σᵢ sᵢxᵢⱼ² is the windowed
@@ -173,9 +249,11 @@ class GLMObjective:
             if norm.factors is not None:
                 sq = sq * torch.square(norm.factors)
             return sq + self.l2_weight
-        x = batch.features
-        if norm.shifts is not None:
-            x = x - norm.shifts
-        if norm.factors is not None:
-            x = x * norm.factors
+        x = self._transformed_features(batch, dim)
         return (d2.unsqueeze(-1) * torch.square(x)).sum(-2) + self.l2_weight
+
+    def with_l2(self, l2_weight: float) -> "GLMObjective":
+        return dataclasses.replace(self, l2_weight=l2_weight)
+
+    def with_l1(self, l1_weight: float) -> "GLMObjective":
+        return dataclasses.replace(self, l1_weight=l1_weight)

@@ -22,15 +22,28 @@ class ConvergenceReason(enum.IntEnum):
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    """L-BFGS hyperparameters (reference defaults: maxIter 100, tol 1e-7,
-    m 10)."""
+    """Optimizer hyperparameters. Defaults are the reference's L-BFGS
+    (maxIter 100, tol 1e-7, m 10); ``tron_defaults`` gives TRON's (maxIter
+    15, tol 1e-5, CG ≤ 20). ``lower_bounds``/``upper_bounds`` are box
+    constraints ([D] arrays or tensors, broadcast over lanes) or None."""
 
     max_iterations: int = 100
     tolerance: float = 1e-7
     num_corrections: int = 10
+    lower_bounds: object = None
+    upper_bounds: object = None
     ls_max_iterations: int = 25
     ls_c1: float = 1e-4
     ls_c2: float = 0.9
+    max_cg_iterations: int = 20
+    cg_tolerance: float = 0.1
+
+    @property
+    def has_box(self) -> bool:
+        return self.lower_bounds is not None or self.upper_bounds is not None
+
+    def tron_defaults(self) -> "OptimizerConfig":
+        return dataclasses.replace(self, max_iterations=15, tolerance=1e-5)
 
 
 class DirectionalOracle(NamedTuple):
@@ -43,10 +56,23 @@ class DirectionalOracle(NamedTuple):
     dir_setup: object
 
 
+class SmoothMarginOracle(NamedTuple):
+    """Value-only line-search trials (OWL-QN): ``value_margins(x) -> (f,
+    z)`` is one forward pass; ``grad_from_margins(x, z) -> g`` one backward
+    pass from the accepted trial's margins; ``full(x) -> (f, g, z)``.
+    ``value_margins`` None means black-box trials through ``full``."""
+
+    full: object
+    value_margins: object
+    grad_from_margins: object
+
+
 class OptimizeResult(NamedTuple):
     """Terminal state + history. ``loss_history[..., i]`` is the state after
     iteration i, padded past ``iterations`` with the final value;
-    ``n_feature_passes`` counts passes over the feature block."""
+    ``n_evals`` counts objective evaluations (line-search trials),
+    ``n_hvp`` Hessian-vector products and ``n_feature_passes`` passes over
+    the feature block."""
 
     x: torch.Tensor
     value: torch.Tensor
@@ -56,7 +82,29 @@ class OptimizeResult(NamedTuple):
     loss_history: torch.Tensor
     grad_norm_history: torch.Tensor
     n_evals: torch.Tensor
+    n_hvp: torch.Tensor
     n_feature_passes: torch.Tensor
+
+
+def select_lanes(cond: torch.Tensor, new, old):
+    """Per-lane select over tensors (or tuples of them) whose axis 0 is the
+    lane axis of ``cond``: the lane-batched loops keep a finished lane's
+    state with it."""
+    if isinstance(new, tuple):
+        return tuple(select_lanes(cond, a, b) for a, b in zip(new, old))
+    return torch.where(cond.view(cond.shape + (1,) * (new.dim() - cond.dim())), new, old)
+
+
+def project_to_box(x: torch.Tensor, lower, upper) -> torch.Tensor:
+    """Clamp coefficients into the box (reference
+    OptimizationUtils.projectCoefficientsToSubspace, after every step).
+    Bounds are cast to the coefficients' dtype and device; [D] bounds
+    broadcast over a leading lane axis."""
+    if lower is not None:
+        x = torch.maximum(x, torch.as_tensor(lower, dtype=x.dtype, device=x.device))
+    if upper is not None:
+        x = torch.minimum(x, torch.as_tensor(upper, dtype=x.dtype, device=x.device))
+    return x
 
 
 def convergence_check(

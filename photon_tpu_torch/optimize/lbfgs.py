@@ -11,6 +11,11 @@ state is [B, ...], a converged lane keeps its state through
 With a DirectionalOracle every iteration costs exactly two feature passes
 (the direction's margins and the accepted point's gradient), whatever the
 number of line-search trials.
+
+Box bounds in the config make it L-BFGS-B as the reference runs it: the
+iterate is projected into the box after every step and evaluated there in
+full (the margin-space trials stay, the accepted gradient is not computed
+only to be discarded).
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from photon_tpu_torch.optimize.common import (
     OptimizeResult,
     OptimizerConfig,
     convergence_check,
+    project_to_box,
+    select_lanes,
 )
 from photon_tpu_torch.optimize.linesearch import wolfe_search_phi
 
@@ -143,7 +150,9 @@ def minimize_lbfgs(
     loss_abs_tol = torch.abs(f_zero) * config.tolerance
     grad_abs_tol = torch.linalg.vector_norm(g_zero, dim=-1) * config.tolerance
 
-    x, (f, g, carry) = x0, eval_at(x0)
+    has_box = config.has_box
+    x = project_to_box(x0, config.lower_bounds, config.upper_bounds)
+    f, g, carry = eval_at(x)
     it = torch.zeros(b, dtype=torch.int32, device=dev)
     s_hist = torch.zeros((b, m, d), dtype=dtype, device=dev)
     y_hist = torch.zeros_like(s_hist)
@@ -155,11 +164,6 @@ def minimize_lbfgs(
     gnorm_hist = torch.linalg.vector_norm(g, dim=-1).unsqueeze(-1).repeat(1, t + 1)
     n_evals = torch.full_like(it, 2)  # zero-state + initial point
     n_passes = torch.full_like(it, 4)  # 2 full evals × 2 passes
-
-    def keep(active, new, old):
-        if isinstance(new, tuple):
-            return tuple(keep(active, a, o) for a, o in zip(new, old))
-        return torch.where(active.view((b,) + (1,) * (new.dim() - 1)), new, old)
 
     for _ in range(t):
         active = reason == ConvergenceReason.NOT_CONVERGED
@@ -201,9 +205,20 @@ def minimize_lbfgs(
             )
             x_new = x + res.step.unsqueeze(-1) * direction
             f_new = res.value
-            g_new, carry_new = accept(res.step)
-            g_new = g_new.to(dtype)
-            passes = torch.full_like(it, 2)  # direction margins + gradient
+            if has_box:
+                # the projected point is evaluated in full below
+                g_new, carry_new = g, carry
+                passes = torch.full_like(it, 1)  # direction margins
+            else:
+                g_new, carry_new = accept(res.step)
+                g_new = g_new.to(dtype)
+                passes = torch.full_like(it, 2)  # direction margins + gradient
+        num_trials = res.num_evals
+        if has_box:
+            x_new = project_to_box(x_new, config.lower_bounds, config.upper_bounds)
+            f_new, g_new, carry_new = eval_at(x_new)
+            num_trials = num_trials + 1
+            passes = passes + 2
         step_failed = ~res.success
 
         # curvature pair update
@@ -231,16 +246,16 @@ def minimize_lbfgs(
         gnorm_hist[lanes, slot] = torch.where(
             active, gnorm_new, gnorm_hist[lanes, slot]
         )
-        n_evals = torch.where(active, n_evals + res.num_evals, n_evals)
+        n_evals = torch.where(active, n_evals + num_trials, n_evals)
         n_passes = torch.where(active, n_passes + passes, n_passes)
-        x, f, g = keep(active, x_new, x), keep(active, f_new, f), keep(active, g_new, g)
-        carry = keep(active, carry_new, carry)
+        x, f, g, carry = select_lanes(active, (x_new, f_new, g_new, carry_new), (x, f, g, carry))
         it = torch.where(active, it_new, it)
         reason = torch.where(active, reason_new, reason)
 
-    if oracle.dir_setup is not None:
+    if oracle.dir_setup is not None and not has_box:
         # the carried margins drift with iteration count; one exact
-        # re-evaluation at the final point bounds what callers see
+        # re-evaluation at the final point bounds what callers see (the box
+        # path re-evaluates every iteration)
         f, g, _ = eval_at(x)
         n_evals = n_evals + 1
         n_passes = n_passes + 2
@@ -254,7 +269,7 @@ def minimize_lbfgs(
     out = OptimizeResult(
         x=x, value=f, gradient=g, iterations=it, reason=reason,
         loss_history=loss_hist, grad_norm_history=gnorm_hist,
-        n_evals=n_evals, n_feature_passes=n_passes,
+        n_evals=n_evals, n_hvp=torch.zeros_like(n_evals), n_feature_passes=n_passes,
     )
     if solo:
         out = OptimizeResult(*(v[0] for v in out))

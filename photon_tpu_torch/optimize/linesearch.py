@@ -12,6 +12,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from photon_tpu_torch.optimize.common import select_lanes
+
 Tensor = torch.Tensor
 #: bracketing-stage step growth
 _EXPANSION = 2.0
@@ -43,13 +45,6 @@ def _interp(a_lo, phi_lo, dphi_lo, a_hi, phi_hi):
         | ~torch.isfinite(quad)
     )
     return torch.where(bad, bisect, quad)
-
-
-def _sel(cond: Tensor, a, b):
-    """Per-lane select over tensors or tuples of tensors with lane axis 0."""
-    if isinstance(a, tuple):
-        return tuple(_sel(cond, x, y) for x, y in zip(a, b))
-    return torch.where(cond.view(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
 
 
 def wolfe_search_phi(
@@ -97,7 +92,7 @@ def wolfe_search_phi(
         better = armijo & ((~has_best) | (f < phi_best))
         n_a_best = torch.where(better, alpha_t, a_best)
         n_phi_best = torch.where(better, f, phi_best)
-        n_aux_best = _sel(better, aux, aux_best)
+        n_aux_best = select_lanes(better, aux, aux_best)
         n_has_best = has_best | better
 
         # bracketing-stage transitions
@@ -134,7 +129,7 @@ def wolfe_search_phi(
         next_alpha = torch.where(in_zoom | enter_zoom, alpha_t, alpha_t * _EXPANSION)
 
         def upd(new, old):
-            return _sel(run, new, old)
+            return select_lanes(run, new, old)
 
         new_a_lo = torch.where(in_zoom, zm_a_lo, torch.where(enter_zoom, br_a_lo, a_lo))
         new_phi_lo = torch.where(
@@ -165,7 +160,7 @@ def wolfe_search_phi(
         a_hi, phi_hi = upd(new_a_hi, a_hi), upd(new_phi_hi, phi_hi)
         a_star = upd(torch.where(star_now, alpha_t, a_star), a_star)
         phi_star = upd(torch.where(star_now, f, phi_star), phi_star)
-        aux_star = upd(_sel(star_now, aux, aux_star), aux_star)
+        aux_star = upd(select_lanes(star_now, aux, aux_star), aux_star)
         success = upd(success | star_now, success)
         a_best, phi_best = upd(n_a_best, a_best), upd(n_phi_best, phi_best)
         aux_best = upd(n_aux_best, aux_best)
@@ -174,7 +169,7 @@ def wolfe_search_phi(
     use_best = (~success) & has_best
     step = torch.where(success, a_star, torch.where(use_best, a_best, zero))
     value = torch.where(success, phi_star, torch.where(use_best, phi_best, f0))
-    aux = _sel(success, aux_star, _sel(use_best, aux_best, aux0))
+    aux = select_lanes(success, aux_star, select_lanes(use_best, aux_best, aux0))
     return PhiSearchResult(
         step=step, value=value, aux=aux, success=success | use_best, num_evals=i
     )

@@ -47,12 +47,32 @@ class TaskType(enum.Enum):
     POISSON_REGRESSION = "POISSON_REGRESSION"
     SMOOTHED_HINGE_LOSS_LINEAR_SVM = "SMOOTHED_HINGE_LOSS_LINEAR_SVM"
 
+    @property
+    def is_classification(self) -> bool:
+        return self in (
+            TaskType.LOGISTIC_REGRESSION,
+            TaskType.SMOOTHED_HINGE_LOSS_LINEAR_SVM,
+        )
+
 
 class OptimizerType(enum.Enum):
     LBFGS = "LBFGS"
     OWLQN = "OWLQN"
     LBFGSB = "LBFGSB"
     TRON = "TRON"
+
+
+class NormalizationType(enum.Enum):
+    NONE = "NONE"
+    SCALE_WITH_STANDARD_DEVIATION = "SCALE_WITH_STANDARD_DEVIATION"
+    SCALE_WITH_MAX_MAGNITUDE = "SCALE_WITH_MAX_MAGNITUDE"
+    STANDARDIZATION = "STANDARDIZATION"
+
+
+def numpy_dtype(dtype: torch.dtype):
+    """The numpy dtype of a torch dtype (host arrays built for a device
+    tensor of that type)."""
+    return torch.empty((), dtype=dtype).numpy().dtype
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

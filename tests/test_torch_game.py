@@ -23,6 +23,7 @@ from photon_tpu.game.estimator import GameEstimator as JEstimator
 from photon_tpu.game.scoring import GameScorer as JScorer
 from photon_tpu.optimize import problem as jprob
 from photon_tpu.optimize.common import OptimizerConfig as JOptConfig
+from photon_tpu.types import OptimizerType as JOpt
 from photon_tpu.types import TaskType as JTask
 from photon_tpu_torch.convert import game_model_from_numpy
 from photon_tpu_torch.game import config as tcfg
@@ -31,6 +32,7 @@ from photon_tpu_torch.game.estimator import GameEstimator as TEstimator
 from photon_tpu_torch.game.scoring import GameScorer as TScorer
 from photon_tpu_torch.optimize import problem as tprob
 from photon_tpu_torch.optimize.common import OptimizerConfig as TOptConfig
+from photon_tpu_torch.types import OptimizerType as TOpt
 from photon_tpu_torch.types import TaskType as TTask
 
 N, FE_DIM, FE_NNZ = 1 << 11, 1 << 10, 8
@@ -236,6 +238,64 @@ def test_scorer_matches_jax_scorer(fits):
     ).score_data(td)
     assert got.shape == (N,)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _tron_owlqn_configs(cfg, prob, OptConfig, Opt, task):
+    """TRON (L2) on the fixed effect, OWL-QN (elastic net) per user."""
+    out = _configs(cfg, prob, OptConfig, task)
+    out["fixed"] = dataclasses.replace(
+        out["fixed"],
+        optimization=dataclasses.replace(
+            out["fixed"].optimization, optimizer=Opt.TRON, optimizer_config=OptConfig()
+        ),
+    )
+    out["user"] = dataclasses.replace(
+        out["user"],
+        optimization=dataclasses.replace(
+            out["user"].optimization,
+            optimizer=Opt.OWLQN,
+            regularization=prob.RegularizationContext(
+                prob.RegularizationType.ELASTIC_NET, elastic_net_alpha=0.5
+            ),
+        ),
+        regularization_weights=(2.0,),
+    )
+    del out["item"]
+    return out
+
+
+def test_tron_and_owlqn_coordinates_match_jax():
+    arrays = _arrays(seed=2)
+    jd, td = _game_data(jdata, arrays), _game_data(tdata, arrays)
+    jcfgs = _tron_owlqn_configs(jcfg, jprob, JOptConfig, JOpt, JTask.LOGISTIC_REGRESSION)
+    tcfgs = _tron_owlqn_configs(tcfg, tprob, TOptConfig, TOpt, TTask.LOGISTIC_REGRESSION)
+    tcfgs["fixed"] = dataclasses.replace(tcfgs["fixed"], column_windows=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PHOTON_SPARSE_WINDOWS", "1")
+        jres = JEstimator(
+            task=JTask.LOGISTIC_REGRESSION, coordinate_configs=jcfgs,
+            update_sequence=["fixed", "user"], descent_iterations=2, dtype=jnp.float64,
+        ).fit(jd)[0]
+    tres = TEstimator(
+        task=TTask.LOGISTIC_REGRESSION, coordinate_configs=tcfgs,
+        update_sequence=["fixed", "user"], descent_iterations=2, dtype=torch.float64,
+        device="cpu",
+    ).fit(td)[0]
+    np.testing.assert_allclose(
+        tres.model.coordinates["fixed"].coefficients.means,
+        np.asarray(jres.model.coordinates["fixed"].model.coefficients.means),
+        rtol=1e-7, atol=1e-10,
+    )
+    want = _entity_coefs(jres.model.coordinates["user"])
+    got = _entity_coefs(tres.model.coordinates["user"])
+    assert set(got) == set(want)
+    n_zero = 0
+    for key, (cols, coefs) in want.items():
+        np.testing.assert_array_equal(got[key][0], cols)
+        np.testing.assert_allclose(got[key][1], coefs, rtol=1e-7, atol=1e-10, err_msg=key)
+        np.testing.assert_array_equal(got[key][1] == 0, coefs == 0, err_msg=key)
+        n_zero += int((coefs == 0).sum())
+    assert n_zero > 0  # the L1 part zeroes some per-user coefficients
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -1,7 +1,8 @@
 """Port parity: the GLM objective against photon_tpu/ops/objective.py.
 
-Value, gradient, the directional oracle's φ/φ′/accept and diag(H) on
-dense, sparse and sparse + windows batches, with and without
+Value, gradient, the directional oracle's φ/φ′/accept, the smooth margin
+oracle, H·v (and the hoisted Hessian operator), the dense Hessian and
+diag(H) on dense, sparse and sparse + windows batches, with and without
 normalization, at float64 (rtol 1e-10).
 """
 from __future__ import annotations
@@ -162,3 +163,80 @@ def test_lane_batched_dense_objective_matches_per_lane():
         )
         _close(tf[i], jf)
         _close(tg[i], jg)
+
+
+ALL_LOSSES = ["LogisticLoss", "PoissonLoss", "SquaredLoss", "SmoothedHingeLoss"]
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("loss", ALL_LOSSES)
+def test_second_order(loss, layout, normalized):
+    """hessian_vector, hessian_operator (curvature computed once, applied
+    to two vectors), hessian_matrix and hessian_diagonal."""
+    jb, tb = _data(layout)
+    jo, to = _objectives(loss, normalized)
+    c, v1, v2 = _coef(2), _coef(3), _coef(4)
+    _close(
+        to.hessian_vector(torch.as_tensor(c), torch.as_tensor(v1), tb),
+        jo.hessian_vector(jnp.asarray(c), jnp.asarray(v1), jb),
+    )
+    t_op, j_op = to.hessian_operator(torch.as_tensor(c), tb), jo.hessian_operator(jnp.asarray(c), jb)
+    for v in (v1, v2):
+        _close(t_op(torch.as_tensor(v)), j_op(jnp.asarray(v)))
+    th = to.hessian_matrix(torch.as_tensor(c), tb)
+    _close(th, jo.hessian_matrix(jnp.asarray(c), jb))
+    _close(th @ torch.as_tensor(v1), t_op(torch.as_tensor(v1)))
+    _close(to.hessian_diagonal(torch.as_tensor(c), tb), jo.hessian_diagonal(jnp.asarray(c), jb))
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("loss", ALL_LOSSES)
+def test_smooth_margin_oracle_and_gradient(loss, layout, normalized):
+    jb, tb = _data(layout)
+    jn, tn = _norm(normalized)
+    jo = JObjective(loss=getattr(jl, loss), l2_weight=0.7, l1_weight=0.3, normalization=jn)
+    to = TObjective(loss=getattr(tl, loss), l2_weight=0.7, l1_weight=0.3, normalization=tn)
+    x = _coef(5)
+    j_or, t_or = jo.smooth_margin_oracle(jb), to.smooth_margin_oracle(tb)
+    jf, jz = j_or.value_margins(jnp.asarray(x))
+    tf, tz = t_or.value_margins(torch.as_tensor(x))
+    _close(tf, jf)
+    _close(tz, jz)
+    _close(t_or.grad_from_margins(torch.as_tensor(x), tz), j_or.grad_from_margins(jnp.asarray(x), jz))
+    for got, want in zip(t_or.full(torch.as_tensor(x)), j_or.full(jnp.asarray(x))):
+        _close(got, want)
+    # the smooth part only: l1 never enters the value or the gradient
+    _close(tf, to.with_l1(0.0).value(torch.as_tensor(x), tb))
+    _close(to.gradient(torch.as_tensor(x), tb), jo.gradient(jnp.asarray(x), jb))
+    _close(
+        to.with_l2(0.2).gradient(torch.as_tensor(x), tb),
+        jo.with_l2(0.2).gradient(jnp.asarray(x), jb),
+    )
+
+
+def test_lane_batched_second_order_matches_per_lane():
+    """H·v, the dense Hessian and the smooth oracle over [E, N, D] lanes."""
+    rng = np.random.default_rng(6)
+    e, n, d = 3, 40, 6
+    arrays = (
+        rng.standard_normal((e, n, d)),
+        rng.poisson(1.0, size=(e, n)).astype(np.float64),
+        0.1 * rng.standard_normal((e, n)),
+        rng.uniform(0.5, 1.5, size=(e, n)),
+    )
+    c, v = 0.2 * rng.standard_normal((e, d)), rng.standard_normal((e, d))
+    to = TObjective(loss=tl.PoissonLoss, l2_weight=0.3)
+    jo = JObjective(loss=jl.PoissonLoss, l2_weight=0.3)
+    tb = TDense(*map(torch.as_tensor, arrays))
+    hv = to.hessian_operator(torch.as_tensor(c), tb)(torch.as_tensor(v))
+    h = to.hessian_matrix(torch.as_tensor(c), tb)
+    f, z = to.smooth_margin_oracle(tb).value_margins(torch.as_tensor(c))
+    for i in range(e):
+        jb = JDense(*(jnp.asarray(a[i]) for a in arrays))
+        _close(hv[i], jo.hessian_vector(jnp.asarray(c[i]), jnp.asarray(v[i]), jb))
+        _close(h[i], jo.hessian_matrix(jnp.asarray(c[i]), jb))
+        jf, jz = jo.smooth_margin_oracle(jb).value_margins(jnp.asarray(c[i]))
+        _close(f[i], jf)
+        _close(z[i], jz)
