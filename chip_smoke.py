@@ -31,7 +31,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    row, OWL-QN elastic-net Poisson through the window layout; the kernel
    launched, exact zeros, band, float64 card vs CPU on a small problem);
    then the kernel held and timed on the config-3 layout;
-6. print one ``{"kernels": [...]}`` line and, last, the ok line.
+6. the GAME estimator's options: ``small_game_parity`` (one small fit
+   per option on the card and on the CPU at float64, within 1e-9: a
+   random projection, a Pearson cap, MF, fixed-effect down-sampling, and
+   validation with a locked coordinate and a warm start; two MF fits on
+   the card compared bit for bit), ``game_glmix`` (bench config 4 at full
+   scale: a dense fixed effect of 128 columns and a per-user random
+   effect over 8192 Zipf users, 3 sweeps, grouped AUC ≥ 0.8; then
+   STANDARDIZATION, per-sweep AUC:user validation on 2^14 held-out rows,
+   a 3-point λ grid and SIMPLE variances, with the best sweep's model
+   returned; then a partial retrain with the fixed effect locked, which
+   must come back within rtol 1e-6) and ``game_ctr_mf`` (bench config 6's
+   model trained and scored at full width: 2^20 rows, fixed, per-user,
+   per-item and user × item MF coordinates; the scorer within 1e-4 of the
+   fit and within config 6's 1e-3 of the host float64 path);
+7. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -74,24 +88,32 @@ def zipf_ids(rng, n, num_entities, a=1.3):
 
 
 def make_ctr_data(seed, n, fe_dim, fe_nnz, coords):
-    """Config-5-shaped GameData from ``seed`` (bench.py:1739-1785): a sparse
-    fixed-effect shard with an intercept slot per row, labels from a
-    logistic model on it, Zipf entity ids and dense d_re noise features."""
+    """Bench GAME data from ``seed`` (bench.py:1739-1785): labels from a
+    logistic model on the fixed-effect shard, Zipf entity ids and dense
+    d_re noise features per random effect. The fixed-effect shard is dense
+    N(0, 1) when ``fe_nnz >= fe_dim`` (config 4), else sparse with an
+    intercept slot per row (config 5)."""
     import numpy as np
 
     from photon_tpu_torch.game.data import CSRMatrix, GameData
 
     rng = np.random.default_rng(seed)
     vrng = np.random.default_rng(seed + 1)
-    indptr = np.arange(n + 1, dtype=np.int64) * fe_nnz
-    cols = rng.integers(1, fe_dim, size=n * fe_nnz).astype(np.int32)
-    cols[::fe_nnz] = 0
-    vals = vrng.normal(size=n * fe_nnz) / np.sqrt(fe_nnz)
-    vals[::fe_nnz] = 1.0
-    w_true = vrng.normal(size=fe_dim) * 0.3
-    margin = (vals * w_true[cols]).reshape(n, fe_nnz).sum(axis=1)
+    if fe_nnz >= fe_dim:
+        x = vrng.normal(size=(n, fe_dim)).astype(np.float32)
+        fe_shard = CSRMatrix.from_dense(x)
+        margin = x @ (0.1 * vrng.normal(size=fe_dim))
+    else:
+        indptr = np.arange(n + 1, dtype=np.int64) * fe_nnz
+        cols = rng.integers(1, fe_dim, size=n * fe_nnz).astype(np.int32)
+        cols[::fe_nnz] = 0
+        vals = vrng.normal(size=n * fe_nnz) / np.sqrt(fe_nnz)
+        vals[::fe_nnz] = 1.0
+        w_true = vrng.normal(size=fe_dim) * 0.3
+        margin = (vals * w_true[cols]).reshape(n, fe_nnz).sum(axis=1)
+        fe_shard = CSRMatrix(indptr=indptr, indices=cols, values=vals, num_cols=fe_dim)
     labels = (vrng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float64)
-    shards = {"global": CSRMatrix(indptr=indptr, indices=cols, values=vals, num_cols=fe_dim)}
+    shards = {"global": fe_shard}
     id_tags = {}
     for name, num_entities, d_re, _ in coords:
         ids = zipf_ids(rng, n, num_entities)
@@ -820,6 +842,456 @@ def config3_kernel_rows(idx, vals):
     }
 
 
+# --- the GAME estimator's options (bench configs 4 and 6) ----------------------
+
+GLMIX_N, GLMIX_FE_D, GLMIX_USERS, GLMIX_RE_D, GLMIX_UB = 1 << 17, 128, 8192, 16, 1024
+GLMIX_VALID_N = 1 << 14
+MF_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K = 1 << 20, 64, 24, 1 << 16, 4096, 8
+SCORE_PARITY_REL_MAX = 1e-3  # bench.py QUALITY_BANDS game_scoring_stream
+
+
+def l2_config(iters, ls, task="LOGISTIC_REGRESSION", variance="NONE", **kw):
+    from photon_tpu_torch.optimize.common import OptimizerConfig
+    from photon_tpu_torch.optimize.problem import (
+        GLMProblemConfig,
+        RegularizationContext,
+        RegularizationType,
+        VarianceComputationType,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    return GLMProblemConfig(
+        task=TaskType[task],
+        optimizer_config=OptimizerConfig(max_iterations=iters, ls_max_iterations=ls),
+        regularization=RegularizationContext(RegularizationType.L2),
+        variance_computation=VarianceComputationType[variance],
+        **kw,
+    )
+
+
+def walls(est, result):
+    """Host build, validation build and per-sweep walls of one grid point,
+    and each coordinate step's solver iterations (for a random effect, the
+    most any entity took)."""
+    stats = est.last_fit_stats
+    steps = []
+    for r in result.tracker:
+        if "coordinate" in r:
+            infos = r["info"] if isinstance(r["info"], list) else [r["info"]]
+            steps.append([r["coordinate"], max(int(i.iterations.max()) for i in infos)])
+    return {
+        "build_s": stats["build_s"],
+        "validation_build_s": stats["validation_build_s"],
+        "grid_s": stats["grid_s"],
+        "sweep_seconds": [r["sweep_seconds"] for r in result.tracker if "sweep_seconds" in r],
+        "step_iterations": steps,
+    }
+
+
+def with_intercept(data):
+    """The data with an intercept column appended to the "global" shard
+    (STANDARDIZATION needs one), as the shard "global_icpt"."""
+    import numpy as np
+
+    from photon_tpu_torch.game.data import CSRMatrix, GameData
+
+    x = data.feature_shards["global"]
+    n, d = x.num_rows, x.num_cols
+    per_row = np.diff(x.indptr)
+    indices = np.insert(x.indices, x.indptr[1:], d)
+    values = np.insert(x.values, x.indptr[1:], 1.0)
+    shard = CSRMatrix(indptr=np.arange(n + 1) + np.concatenate([[0], np.cumsum(per_row)]),
+                      indices=indices.astype(np.int32), values=values, num_cols=d + 1)
+    return GameData(labels=data.labels, offsets=data.offsets, weights=data.weights,
+                    feature_shards={**data.feature_shards, "global_icpt": shard},
+                    id_tags=data.id_tags)
+
+
+def game_glmix(seed):
+    """Bench config 4 (glmix_game_estimator) at full scale: a dense fixed
+    effect of 128 columns and a per-user random effect over 8192 Zipf users
+    (d=16, upper bound 1024), L2 λ=1, FE 20 / RE 10 L-BFGS iterations, 3
+    sweeps; grouped per-user AUC ≥ 0.8. Then, on the same widths with an
+    intercept column, STANDARDIZATION, per-sweep AUC:user validation on
+    2^14 held-out rows, a 3-point RE λ grid and SIMPLE variances; then a
+    partial retrain with the fixed effect locked, warm-started from that
+    model with the new-entity threshold bypass."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_tpu_torch.evaluation.multi import parse_grouped_evaluator
+    from photon_tpu_torch.game import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        GameTransformer,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.game.data import slice_game_data
+    from photon_tpu_torch.ops.normalization import NormalizationContext
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import NormalizationType, TaskType
+
+    coords = [("user", GLMIX_USERS, GLMIX_RE_D, GLMIX_UB)]
+    t0 = time.perf_counter()
+    both = make_ctr_data(seed + 4, GLMIX_N + GLMIX_VALID_N, GLMIX_FE_D, 1 << 30, coords)
+    data = slice_game_data(both, 0, GLMIX_N)
+    valid = slice_game_data(both, GLMIX_N, GLMIX_N + GLMIX_VALID_N)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    def configs(fe_shard, re_weights, variance="NONE"):
+        return {
+            "fixed": FixedEffectCoordinateConfig(
+                feature_shard=fe_shard, optimization=l2_config(20, 10, variance=variance),
+                regularization_weights=(1.0,),
+            ),
+            "user": RandomEffectCoordinateConfig(
+                random_effect_type="user", feature_shard="per_user",
+                optimization=l2_config(10, 8, variance=variance),
+                regularization_weights=re_weights, active_data_upper_bound=GLMIX_UB,
+            ),
+        }
+
+    windowed_rmatvec.launches = 0
+    est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs(
+        "global", (1.0,)), update_sequence=["fixed", "user"], descent_iterations=3,
+        seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    base = est.fit(data)[0]
+    base_wall = time.perf_counter() - t0
+    base_walls = walls(est, base)
+    if not np.all(np.isfinite(base.scores)):
+        fail("game_glmix: fit scores are not finite")
+    auc = grouped_auc(base.scores, data.labels, np.asarray(data.id_tags["user"]))
+    if not auc >= 0.8:
+        fail(f"game_glmix: per-user grouped AUC {auc} < 0.8")
+
+    # the estimator's options on the same widths
+    data_i, valid_i = with_intercept(data), with_intercept(valid)
+    from photon_tpu_torch.data.dataset import DataSet
+
+    x = data_i.feature_shards["global_icpt"]
+    stats = BasicStatisticalSummary.of(DataSet(
+        indptr=x.indptr, indices=x.indices, values=x.values, labels=data.labels,
+        offsets=data.offsets, weights=data.weights, num_features=x.num_cols))
+    norm = NormalizationContext.build(
+        NormalizationType.STANDARDIZATION, mean=stats.mean, variance=stats.variance,
+        intercept_index=GLMIX_FE_D,
+    )
+    spec = parse_grouped_evaluator("AUC:user")
+    est2 = GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION,
+        coordinate_configs=configs("global_icpt", (10.0, 1.0, 0.1), variance="SIMPLE"),
+        update_sequence=["fixed", "user"], descent_iterations=3,
+        normalization_contexts={"global_icpt": norm}, validation_evaluator=spec,
+        seed=seed, device="cuda",
+    )
+    t0 = time.perf_counter()
+    grid = est2.fit(data_i, validation_data=valid_i)
+    opt_wall = time.perf_counter() - t0
+    host = GameTransformer(grid[0].model, TaskType.LOGISTIC_REGRESSION, device="cuda")
+    per_grid = []
+    for r in grid:
+        vals = [row["validation"] for row in r.tracker if "validation" in row]
+        if r.evaluation is None or not np.isfinite(r.evaluation):
+            fail(f"game_glmix: evaluation {r.evaluation} is not finite")
+        if r.evaluation != max(vals):
+            fail(f"game_glmix: evaluation {r.evaluation} is not the best sweep's ({vals})")
+        host.model = r.model
+        via_model = host.evaluate_grouped(valid_i, spec.build(device="cuda"), "user")
+        if not abs(via_model - r.evaluation) <= 1e-4:
+            fail(f"game_glmix: the returned model scores {via_model} on the validation "
+                 f"set, the best sweep {r.evaluation}")
+        fe = r.model["fixed"].coefficients
+        if not (np.all(np.isfinite(fe.variances)) and np.all(fe.variances > 0)):
+            fail("game_glmix: fixed-effect variances are not finite and positive")
+        for b in r.model["user"].buckets:
+            if not np.all(np.isfinite(b.variances)):
+                fail("game_glmix: per-user variances are not finite")
+        per_grid.append({"re_lambda": r.regularization_weights["user"], "validation": vals,
+                         "best_sweep": int(np.argmax(vals)), "evaluation": r.evaluation,
+                         "model_on_validation": via_model})
+
+    # partial retrain: fixed effect locked, warm start from the best λ
+    best = max(grid, key=lambda r: r.evaluation)
+    est3 = GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs("global_icpt", (1.0,)),
+        update_sequence=["fixed", "user"], descent_iterations=1,
+        normalization_contexts={"global_icpt": norm}, locked_coordinates=frozenset({"fixed"}),
+        ignore_threshold_for_new_models=True, seed=seed, device="cuda",
+    )
+    t0 = time.perf_counter()
+    retrain = est3.fit(data_i, initial_model=best.model)[0]
+    retrain_wall = time.perf_counter() - t0
+    want = best.model["fixed"].coefficients.means
+    got = retrain.model["fixed"].coefficients.means
+    locked_err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    if not np.allclose(got, want, rtol=1e-6, atol=0):
+        fail(f"game_glmix: the locked fixed effect moved (max rel err {locked_err})")
+    log(json.dumps({
+        "phase": "game_glmix", "n": GLMIX_N, "fe_dim": GLMIX_FE_D, "users": GLMIX_USERS,
+        "re_dim": GLMIX_RE_D, "ub": GLMIX_UB, "sweeps": 3, "data_gen_s": gen_s,
+        "fit_wall_s": base_wall, **base_walls, "grouped_auc_user": auc,
+        "options_fit_wall_s": opt_wall, "options": walls(est2, grid[-1]),
+        "grid": per_grid,
+        "retrain_wall_s": retrain_wall, "locked_fe_max_rel_err": locked_err,
+        "kernel_launches": windowed_rmatvec.launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return windowed_rmatvec.launches
+
+
+def make_mf_data(seed, n, d, nnz, users, items, k):
+    """Bench config 6's rows (bench.py:2224-2258): uniform users and items,
+    ``nnz`` sorted distinct columns of ``d`` per row, logistic labels from a
+    fixed effect, per-user and per-item effects on the same columns and a
+    user × item factor term."""
+    import numpy as np
+
+    from photon_tpu_torch.game.data import CSRMatrix, GameData
+
+    rng = np.random.default_rng(seed)
+    vrng = np.random.default_rng(seed + 1)
+    ids = rng.integers(0, users, size=n)
+    item_ids = rng.integers(0, items, size=n)
+    cols = np.sort(np.argsort(rng.random((n, d)), axis=1)[:, :nnz], axis=1)
+    vals = vrng.normal(size=(n, nnz)) / np.sqrt(nnz)
+    w_fe = vrng.normal(size=d) * 0.5
+    w_re = vrng.normal(size=(users, d)) * 0.5
+    w_it = vrng.normal(size=(items, d)) * 0.5
+    uf = vrng.normal(size=(users, k)) * 0.3
+    vf = vrng.normal(size=(items, k)) * 0.3
+    margin = (
+        np.einsum("nk,nk->n", vals, w_fe[cols])
+        + np.einsum("nk,nk->n", vals, w_re[ids[:, None], cols])
+        + np.einsum("nk,nk->n", vals, w_it[item_ids[:, None], cols])
+        + np.einsum("nk,nk->n", uf[ids], vf[item_ids])
+    )
+    labels = (vrng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float64)
+    shard = CSRMatrix(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
+                      indices=cols.reshape(-1).astype(np.int32), values=vals.reshape(-1),
+                      num_cols=d)
+    return GameData.build(
+        labels=labels, feature_shards={"global": shard},
+        id_tags={"user": np.char.add("u", ids.astype(str)),
+                 "item": np.char.add("i", item_ids.astype(str))},
+    )
+
+
+def mf_configs(fe_iter, re_iter, mf_iter, k, variance="NONE", **re_kw):
+    from photon_tpu_torch.game import (
+        FixedEffectCoordinateConfig,
+        MatrixFactorizationCoordinateConfig,
+        RandomEffectCoordinateConfig,
+    )
+
+    out = {"fixed": FixedEffectCoordinateConfig(
+        feature_shard="global", optimization=l2_config(fe_iter, 10, variance=variance),
+        regularization_weights=(1.0,))}
+    for name in ("user", "item"):
+        out[name] = RandomEffectCoordinateConfig(
+            random_effect_type=name, feature_shard="global",
+            optimization=l2_config(re_iter, 8, variance=variance),
+            regularization_weights=(1.0,), **re_kw)
+    out["mf"] = MatrixFactorizationCoordinateConfig(
+        row_entity_type="user", col_entity_type="item", optimization=l2_config(mf_iter, 10),
+        num_factors=k, regularization_weights=(1.0,))
+    return out
+
+
+def game_ctr_mf(seed):
+    """The model of bench config 6 (game_scoring_stream), trained and
+    scored at its full widths: 2^20 rows, a fixed effect on 64 columns
+    with 24 nonzeros per row, per-user (2^16) and per-item (4096) random
+    effects on the same columns and a user × item MF coordinate with k=8;
+    GameEstimator 2 sweeps (FE 10, RE 5, MF 10 L-BFGS iterations), then
+    GameScorer(batch_rows=16384) on every row, held to the fit's scores
+    (1e-4) and to GameModel.score on the host in float64 (config 6's
+    max |Δ|/(1+|s|) ≤ 1e-3)."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.game import GameEstimator, GameScorer
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import TaskType
+
+    t0 = time.perf_counter()
+    data = make_mf_data(6, MF_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    windowed_rmatvec.launches = 0
+    est = GameEstimator(
+        task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=mf_configs(10, 5, 10, MF_K),
+        update_sequence=["fixed", "user", "item", "mf"], descent_iterations=2, seed=seed,
+        device="cuda",
+    )
+    t0 = time.perf_counter()
+    result = est.fit(data)[0]
+    fit_wall = time.perf_counter() - t0
+    fit_walls = walls(est, result)
+    t0 = time.perf_counter()
+    scores = GameScorer(result.model, device="cuda", batch_rows=16384).score_data(data)
+    score_wall = time.perf_counter() - t0
+    if scores.shape != (MF_N,) or not np.all(np.isfinite(scores)):
+        fail("game_ctr_mf: scores are not finite or have the wrong shape")
+    fit_err = float(np.max(np.abs(scores - data.offsets - result.scores)
+                           / (1.0 + np.abs(result.scores))))
+    if not np.allclose(scores - data.offsets, result.scores, rtol=1e-4, atol=1e-4):
+        fail(f"game_ctr_mf: scorer vs fit max rel err {fit_err}")
+    t0 = time.perf_counter()
+    host = result.model.score(data) + data.offsets
+    host_wall = time.perf_counter() - t0
+    host_rel = float(np.max(np.abs(scores - host) / (1.0 + np.abs(host))))
+    if not host_rel <= SCORE_PARITY_REL_MAX:
+        fail(f"game_ctr_mf: scorer vs host float64 max |Δ|/(1+|s|) = {host_rel}")
+    auc = grouped_auc(scores, data.labels, np.asarray(data.id_tags["user"]))
+    mf_steps = [(int(r["info"].iterations), int(r["info"].n_evals))
+                for r in result.tracker if r.get("coordinate") == "mf"]
+    per_coord = {r["coordinate"]: r["seconds"] for r in result.tracker
+                 if "coordinate" in r and r["iteration"] == 1}
+    log(json.dumps({
+        "phase": "game_ctr_mf", "n": MF_N, "d": MF_D, "nnz": MF_NNZ, "users": MF_USERS,
+        "items": MF_ITEMS, "k": MF_K, "sweeps": 2, "data_gen_s": gen_s,
+        "fit_wall_s": fit_wall, **fit_walls, "steady_coordinate_s": per_coord,
+        "mf_iterations_evals": mf_steps, "score_wall_s": score_wall,
+        "rows_per_s": MF_N / score_wall, "host_score_wall_s": host_wall,
+        "scorer_vs_fit_max_rel": fit_err, "scorer_vs_host_f64_max_rel": host_rel,
+        "grouped_auc_user": auc, "kernel_launches": windowed_rmatvec.launches,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return windowed_rmatvec.launches
+
+
+def small_game_data(seed, n=4096, users=96, items=24):
+    """A small GLMix case: a dense fixed effect with an intercept, a sparse
+    per-user shard (12 columns, ~half zeros) and uniform items."""
+    import numpy as np
+
+    from photon_tpu_torch.game.data import CSRMatrix, GameData
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 8)) + 0.5
+    x[:, 0] = 1.0
+    xu = rng.normal(size=(n, 12)) * (rng.uniform(size=(n, 12)) < 0.5)
+    u = zipf_ids(rng, n, users)
+    it = rng.integers(0, items, size=n)
+    margin = x @ (0.4 * rng.normal(size=8)) + np.einsum(
+        "nd,nd->n", xu, rng.normal(size=(users, 12))[u])
+    labels = (rng.uniform(size=n) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    return GameData.build(
+        labels=labels, weights=rng.uniform(0.5, 2.0, size=n),
+        feature_shards={"global": CSRMatrix.from_dense(x), "per_user": CSRMatrix.from_dense(xu)},
+        id_tags={"user": np.char.add("u", u.astype(str)), "item": np.char.add("i", it.astype(str))},
+    )
+
+
+def model_arrays(model):
+    """Every coefficient, variance and factor of a GameModel, in order."""
+    out = []
+    for cid, cm in model.coordinates.items():
+        if hasattr(cm, "row_factors"):
+            out += [(f"{cid}.u", cm.row_factors), (f"{cid}.v", cm.col_factors)]
+        elif hasattr(cm, "buckets"):
+            for i, b in enumerate(cm.buckets):
+                out.append((f"{cid}.{i}", b.coefficients))
+                if b.variances is not None:
+                    out.append((f"{cid}.{i}.var", b.variances))
+        else:
+            out.append((cid, cm.coefficients.means))
+            if cm.coefficients.variances is not None:
+                out.append((f"{cid}.var", cm.coefficients.variances))
+    return out
+
+
+def small_game_parity(seed):
+    """One small fit per option on the card and on the CPU at float64:
+    coefficients, variances and scores within 1e-9. Options: a random
+    projection, a Pearson cap, MF, FE down-sampling, and validation with
+    a locked coordinate and a warm start. Two MF fits on the card are also
+    compared bit for bit."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.evaluation.evaluators import EvaluatorType
+    from photon_tpu_torch.game import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        ProjectorType,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    t0 = time.perf_counter()
+    data = small_game_data(seed + 11)
+    valid = small_game_data(seed + 12, n=1024, users=128)
+
+    def cfgs(user_kw=None, fe_kw=None, mf=False):
+        out = {
+            "fixed": FixedEffectCoordinateConfig(
+                feature_shard="global",
+                optimization=l2_config(15, 10, variance="SIMPLE", **(fe_kw or {})),
+                regularization_weights=(1.0,)),
+            "user": RandomEffectCoordinateConfig(
+                random_effect_type="user", feature_shard="per_user",
+                optimization=l2_config(8, 8, variance="SIMPLE"), regularization_weights=(1.0,),
+                active_data_upper_bound=64, **(user_kw or {})),
+        }
+        if mf:
+            out["mf"] = mf_configs(1, 1, 10, 4)["mf"]
+        return out
+
+    cases = {
+        "random_projection": dict(configs=cfgs({"projector_type": ProjectorType.RANDOM,
+                                                "random_projection_dim": 6})),
+        "pearson": dict(configs=cfgs({"features_to_samples_ratio": 0.4})),
+        "mf": dict(configs=cfgs(mf=True)),
+        "down_sampling": dict(configs=cfgs(fe_kw={"down_sampling_rate": 0.5})),
+        "validation_locked_warm": dict(configs=cfgs(), warm=True),
+    }
+    rows, worst = {}, 0.0
+    mf_fits = []
+    for name, case in cases.items():
+        out = {}
+        for dev in ("cpu", "cuda", "cuda") if name == "mf" else ("cpu", "cuda"):
+            kw = dict(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=case["configs"],
+                      update_sequence=list(case["configs"]), descent_iterations=2,
+                      dtype=torch.float64, seed=seed, device=dev)
+            fit_kw = {}
+            if case.get("warm"):
+                prior = GameEstimator(**kw).fit(data)[0].model
+                kw.update(locked_coordinates=frozenset({"fixed"}),
+                          validation_evaluator=EvaluatorType.AUC, descent_iterations=3)
+                fit_kw = dict(validation_data=valid, initial_model=prior)
+            res = GameEstimator(**kw).fit(data, **fit_kw)[0]
+            if name == "mf" and dev == "cuda":
+                mf_fits.append(res)
+            out.setdefault(dev, res)
+        a, b = out["cuda"], out["cpu"]
+        pairs = model_arrays(a.model)
+        want = dict(model_arrays(b.model))
+        errs = {"scores": float(np.abs(a.scores - b.scores).max())}
+        if not np.allclose(a.scores, b.scores, rtol=1e-9, atol=1e-9):
+            fail(f"small_game_parity[{name}]: card vs cpu scores max_abs_err={errs['scores']}")
+        for key, got in pairs:
+            err = float(np.abs(got - want[key]).max()) if got.size else 0.0
+            errs[key] = err
+            if not np.allclose(got, want[key], rtol=1e-9, atol=1e-9):
+                fail(f"small_game_parity[{name}]: card vs cpu {key} max_abs_err={err}")
+        if a.evaluation is not None and not abs(a.evaluation - b.evaluation) <= 1e-9:
+            fail(f"small_game_parity[{name}]: evaluation {a.evaluation} vs {b.evaluation}")
+        worst = max(worst, *errs.values())
+        rows[name] = max(errs.values())
+    mf_bitwise = all(
+        np.array_equal(x, y)
+        for (_, x), (_, y) in zip(model_arrays(mf_fits[0].model), model_arrays(mf_fits[1].model))
+    )
+    log(json.dumps({"phase": "small_game_parity", "rows": data.num_samples,
+                    "wall_s": time.perf_counter() - t0,
+                    "max_abs_err_by_case": rows, "max_abs_err": worst, "tolerance": 1e-9,
+                    "mf_two_card_fits_bitwise_equal": mf_bitwise}))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -885,6 +1357,10 @@ def main() -> None:
     glm_tron(args.seed)
     idx3, vals3, owlqn_launches = glm_owlqn(args.seed)
     k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
+    del idx3, vals3
+
+    small_game_parity(args.seed)
+    game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
 
     def timings(row):
         return {key: row[key] for key in (
@@ -902,7 +1378,10 @@ def main() -> None:
         "bound_ms": kmain["bound_ms"],
         "bound_by": kmain["bound_by"],
         "library_ms": kmain["library_ms"],
-        "launches_by_path": {"main_path": launches, "glm_owlqn": owlqn_launches},
+        "launches_by_path": {
+            "main_path": launches, "glm_owlqn": owlqn_launches,
+            **{path: n for path, n in game_launches.items() if n > 0},
+        },
         "layouts": {
             "config5_fe": {"launches": launches, **timings(kmain)},
             "config3_fe": {"launches": owlqn_launches, **timings(k3)},

@@ -32,6 +32,11 @@ class EvaluatorType(enum.Enum):
     SQUARED_LOSS = "SQUARED_LOSS"
     SMOOTHED_HINGE_LOSS = "SMOOTHED_HINGE_LOSS"
 
+    @property
+    def larger_is_better(self) -> bool:
+        """Model-selection direction (reference Evaluator.betterThan)."""
+        return self in (EvaluatorType.AUC, EvaluatorType.AUPR)
+
 
 def _masked(weights: Tensor | None, scores: Tensor) -> Tensor:
     return torch.ones_like(scores) if weights is None else weights

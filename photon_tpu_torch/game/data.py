@@ -3,19 +3,21 @@
 Counterpart of photon_tpu/game/data.py, carried as the port's own numpy
 copy (the JAX package is not imported). Bucket arrays come out identical
 to the JAX build for the same data, config and seed: the reservoir draw,
-the DP row levels, the shape pool and the fill are the same code. Not
-carried over: Pearson feature capping, random projection, mesh entity
-ordering and the greedy bucket consolidation (``max_buckets``).
+the random-projection draw, the Pearson cap, the DP row levels, the shape
+pool, the greedy consolidation and the fill are the same code. Not
+carried over: the mesh's shard-major entity order.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping, Sequence
 
 import numpy as np
 
 from photon_tpu_torch.data.dataset import csr_to_ell
-from photon_tpu_torch.game.config import RandomEffectCoordinateConfig
+from photon_tpu_torch.game.config import ProjectorType, RandomEffectCoordinateConfig
+from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD
 
 #: entity key of padding rows: weight 0, no random-effect entity
 PAD_ENTITY_KEY = "__photon_pad__"
@@ -122,6 +124,47 @@ def slice_game_data(data: GameData, lo: int, hi: int) -> GameData:
     )
 
 
+def concat_game_data(pieces: Sequence[GameData]) -> GameData:
+    """Row-wise concatenation (the pieces must share shards and id tags)."""
+    if not pieces:
+        raise ValueError("concat_game_data needs at least one piece")
+    if len(pieces) == 1:
+        return pieces[0]
+    first = pieces[0]
+    for p in pieces[1:]:
+        if set(p.feature_shards) != set(first.feature_shards) or set(p.id_tags) != set(
+            first.id_tags
+        ):
+            raise ValueError("GameData pieces disagree on shards or id tags")
+    shards = {}
+    for name in first.feature_shards:
+        mats = [p.feature_shards[name] for p in pieces]
+        num_cols = mats[0].num_cols
+        if any(m.num_cols != num_cols for m in mats):
+            raise ValueError(f"shard {name} width differs across pieces")
+        indptrs = [mats[0].indptr]
+        base = int(mats[0].indptr[-1])
+        for m in mats[1:]:
+            indptrs.append(m.indptr[1:] + base)
+            base += int(m.indptr[-1])
+        shards[name] = CSRMatrix(
+            indptr=np.concatenate(indptrs),
+            indices=np.concatenate([m.indices for m in mats]),
+            values=np.concatenate([m.values for m in mats]),
+            num_cols=num_cols,
+        )
+    return GameData(
+        labels=np.concatenate([p.labels for p in pieces]),
+        offsets=np.concatenate([p.offsets for p in pieces]),
+        weights=np.concatenate([p.weights for p in pieces]),
+        feature_shards=shards,
+        id_tags={
+            t: np.concatenate([np.asarray(p.id_tags[t]) for p in pieces])
+            for t in first.id_tags
+        },
+    )
+
+
 def entity_row_indices(index, keys, oov: int) -> np.ndarray:
     """Entity keys → dense table rows, ``oov`` for unseen keys."""
     keys = np.asarray(keys)
@@ -172,8 +215,9 @@ class REBucket:
     padding.
 
     features [E, n_max, d_max]; labels/offsets/weights/active_mask
-    [E, n_max]; col_index [E, d_max] (−1 pad); sample_pos [E, n_max]
-    (num_samples ⇒ pad); entity_ids [E]; score_feats [M, d_max];
+    [E, n_max]; col_index [E, d_max] (−1 pad; all −1 under a random
+    projection); sample_pos [E, n_max] (num_samples ⇒ pad); entity_ids
+    [E]; score_feats [M, d_max] (rows of sample weight 0 zeroed);
     score_slot/score_pos [M].
     """
 
@@ -189,6 +233,14 @@ class REBucket:
     score_slot: np.ndarray
     score_pos: np.ndarray
 
+    @property
+    def padded_samples(self) -> int:
+        return self.features.shape[1]
+
+    @property
+    def projected_dim(self) -> int:
+        return self.features.shape[2]
+
 
 @dataclasses.dataclass
 class RandomEffectDataset:
@@ -199,15 +251,79 @@ class RandomEffectDataset:
     buckets: list[REBucket]
     num_samples: int
     num_features: int
+    #: [num_features, k] Gaussian matrix under a RANDOM projector, else None
+    projection_matrix: np.ndarray | None = None
 
     @property
     def num_entities(self) -> int:
         return len(self.vocab)
 
-    def padding_waste(self) -> float:
-        used = sum(int((b.active_mask > 0).sum()) for b in self.buckets)
-        padded = sum(int(b.labels.size) for b in self.buckets)
-        return 1.0 - used / padded if padded else 0.0
+    def shape_stats(self) -> dict:
+        """Bucket solves and the distinct (rows, d) shapes among them."""
+        shapes = sorted({(b.padded_samples, b.projected_dim) for b in self.buckets})
+        return {
+            "bucket_solves": len(self.buckets),
+            "distinct_shapes": len(shapes),
+            "shapes": [list(s) for s in shapes],
+        }
+
+    def memory_budget(self, bytes_per_element: int = 4) -> dict:
+        """Device bytes of the bucketed layout: per bucket the [E, n, d]
+        feature block, four [E, n] vectors plus int32 sample positions, and
+        the flat score arrays."""
+        per_bucket = []
+        total = 0
+        coefficients = 0
+        for b in self.buckets:
+            e, n_rows, d = b.features.shape
+            feat = e * n_rows * d * bytes_per_element
+            vecs = 4 * e * n_rows * bytes_per_element + e * n_rows * 4
+            score = b.score_feats.size * bytes_per_element + 2 * (b.score_pos.size * 4)
+            per_bucket.append(
+                {
+                    "shape": [e, n_rows, d],
+                    "bytes": int(feat + vecs + score),
+                    "score_rows": int(b.score_pos.size),
+                }
+            )
+            total += feat + vecs + score
+            coefficients += e * d
+        return {
+            "buckets": per_bucket,
+            "total_bytes": int(total),
+            "coefficient_count": int(coefficients),
+            "coefficient_bytes": int(coefficients * bytes_per_element),
+        }
+
+    def padding_waste(self) -> dict:
+        """Active rows against padded training rows, per bucket and in
+        total (the flat score arrays carry no padding)."""
+        per_bucket = []
+        used_total = padded_total = score_rows_total = 0
+        for b in self.buckets:
+            used = int((b.active_mask > 0).sum())
+            padded = int(b.labels.size)
+            per_bucket.append(
+                {
+                    "shape": list(b.features.shape),
+                    "used_cells": used,
+                    "padded_cells": padded,
+                    "waste": round(1.0 - used / padded, 4) if padded else 0.0,
+                    "score_rows": int(b.score_pos.size),
+                }
+            )
+            used_total += used
+            padded_total += padded
+            score_rows_total += int(b.score_pos.size)
+        return {
+            "buckets": per_bucket,
+            "total_used": used_total,
+            "total_padded": padded_total,
+            "score_rows": score_rows_total,
+            "total_waste": (
+                round(1.0 - used_total / padded_total, 4) if padded_total else 0.0
+            ),
+        }
 
 
 def _ceil_pow2(n: int, floor: int = 8) -> int:
@@ -222,8 +338,15 @@ def _ceil_pow2_vec(arr: np.ndarray, floor: int) -> np.ndarray:
     return (1 << np.ceil(np.log2(a)).astype(np.int64)).astype(np.int64)
 
 
-#: entities per bucket at most (same-shape chunks beyond it)
-RE_BUCKET_ENTITY_CAP = 8_000_000
+def re_bucket_entity_cap() -> int:
+    """Entities per bucket at most (same-shape chunks beyond it):
+    ``PHOTON_RE_MAX_BUCKET_ENTITIES``, default 8,000,000."""
+    cap_env = os.environ.get("PHOTON_RE_MAX_BUCKET_ENTITIES", "").strip()
+    ent_cap = int(cap_env) if cap_env else 8_000_000
+    if ent_cap < 1:
+        raise ValueError(f"PHOTON_RE_MAX_BUCKET_ENTITIES must be >= 1, got {ent_cap}")
+    return ent_cap
+
 
 #: default cap on the distinct (rows, d) bucket shapes of one fit
 DEFAULT_SHAPE_BUDGET = 11
@@ -289,6 +412,14 @@ def _optimal_row_levels(
     return np.asarray(sorted(levels), dtype=np.int64)
 
 
+def _pack_shape_keys(n_pad: np.ndarray, d_pad: np.ndarray) -> np.ndarray:
+    return n_pad.astype(np.int64) << 32 | d_pad.astype(np.int64)
+
+
+#: voluntary consolidation stops at merges adding this many padded cells
+_MERGE_CELL_BUDGET = 1_000_000
+
+
 def _rows_are_canonical(indices: np.ndarray, num_rows: int, num_cols: int) -> bool:
     """Every stored row's columns are exactly 0..num_cols-1 in order."""
     if num_cols <= 0:
@@ -308,6 +439,62 @@ def _is_dense_shard(shard: CSRMatrix) -> bool:
         shard.num_cols > 0
         and bool(np.all((shard.indptr[1:] - shard.indptr[:-1]) == shard.num_cols))
         and _rows_are_canonical(shard.indices, shard.num_rows, shard.num_cols)
+    )
+
+
+def _consolidate_shapes(
+    keys: np.ndarray,
+    counts: np.ndarray,
+    max_buckets: int | None,
+    cell_allowance: int | None = None,
+) -> np.ndarray | None:
+    """Greedy merges of size buckets: repeatedly merge the pair whose union
+    shape (elementwise max) adds the fewest padded cells, while that costs
+    under ``_MERGE_CELL_BUDGET`` (and ``cell_allowance`` in total), and
+    regardless of cost while more than ``max_buckets`` shapes remain
+    (``PHOTON_RE_MAX_BUCKETS`` overrides; ≤ 0 disables). Returns the merged
+    key per input class, or None when nothing merges."""
+    env = os.environ.get("PHOTON_RE_MAX_BUCKETS", "").strip()
+    if env:
+        max_buckets = int(env)
+    if max_buckets is not None and max_buckets <= 0:
+        return None
+    shapes = [[int(k >> 32), int(k & 0xFFFFFFFF), int(c)] for k, c in zip(keys, counts)]
+    target = list(range(len(shapes)))
+    alive = set(target)
+    merged_any = False
+    while len(alive) > 1:
+        best = None
+        alive_list = sorted(alive)
+        for ai in range(len(alive_list)):
+            for bi in range(ai + 1, len(alive_list)):
+                a, b = shapes[alive_list[ai]], shapes[alive_list[bi]]
+                nm, dm = max(a[0], b[0]), max(a[1], b[1])
+                added = a[2] * (nm * dm - a[0] * a[1]) + b[2] * (nm * dm - b[0] * b[1])
+                if best is None or added < best[0]:
+                    best = (added, alive_list[ai], alive_list[bi], nm, dm)
+        added, ai, bi, nm, dm = best
+        over_cap = max_buckets is not None and len(alive) > max_buckets
+        budget = _MERGE_CELL_BUDGET
+        if cell_allowance is not None:
+            budget = min(budget, cell_allowance + 1)
+        if not over_cap and added >= budget:
+            break
+        shapes[ai] = [nm, dm, shapes[ai][2] + shapes[bi][2]]
+        alive.discard(bi)
+        if cell_allowance is not None:
+            cell_allowance = max(0, cell_allowance - added)
+        merged_any = True
+        for i, t in enumerate(target):
+            if t == bi:
+                target[i] = ai
+    if not merged_any:
+        return None
+    return np.asarray(
+        [
+            np.int64(shapes[target[i]][0]) << 32 | np.int64(shapes[target[i]][1])
+            for i in range(len(keys))
+        ]
     )
 
 
@@ -356,22 +543,33 @@ class ShapePool:
 
 
 def profile_random_effect_shapes(
-    data: GameData, config: RandomEffectCoordinateConfig
+    data: GameData,
+    config: RandomEffectCoordinateConfig,
+    *,
+    existing_model_keys=None,
 ) -> tuple[np.ndarray, np.ndarray] | None:
     """Exact (d_pad, n_trn) per-entity shape profile without the block
-    fills; None for shards it cannot price cheaply (general sparse)."""
+    fills; None for shards it cannot price cheaply (general sparse index
+    compaction, Pearson capping)."""
     shard = data.feature_shards[config.feature_shard]
-    if not _is_dense_shard(shard):
+    if config.projector_type == ProjectorType.RANDOM:
+        d_proj = config.random_projection_dim or 64
+    elif config.features_to_samples_ratio is None and _is_dense_shard(shard):
+        d_proj = shard.num_cols
+    else:
         return None
     keys = np.asarray(data.id_tags[config.random_effect_type])
     valid = keys[keys != PAD_ENTITY_KEY]
-    _, counts = np.unique(valid, return_counts=True)
-    counts = counts[counts >= config.active_data_lower_bound]
+    vocab, counts = np.unique(valid, return_counts=True)
+    entity_kept = counts >= config.active_data_lower_bound
+    if existing_model_keys is not None:
+        entity_kept = entity_kept | ~np.isin(vocab, np.asarray(list(existing_model_keys)))
+    counts = counts[entity_kept]
     ub = config.active_data_upper_bound
     n_trn = np.maximum(np.minimum(counts, ub) if ub is not None else counts, 1).astype(
         np.int64
     )
-    d_pad = np.full(len(n_trn), _ceil_pow2(max(int(shard.num_cols), 1)), np.int64)
+    d_pad = np.full(len(n_trn), _ceil_pow2(max(int(d_proj), 1)), np.int64)
     return d_pad, n_trn
 
 
@@ -395,12 +593,19 @@ def build_random_effect_dataset(
     config: RandomEffectCoordinateConfig,
     *,
     seed: int = 0,
+    intercept_col: int | None = None,
+    existing_model_keys=None,
     shape_pool: ShapePool | None = None,
 ) -> RandomEffectDataset:
     """Group samples by entity, apply the bounds and reservoir sampling,
-    compact each entity's columns, and pack ACTIVE rows into padded train
-    blocks at DP-optimal (n, d) levels and every kept row into flat score
-    arrays (photon_tpu/game/data.py:894)."""
+    project each entity's columns (index compaction with an optional
+    Pearson cap, or a Gaussian random projection), and pack ACTIVE rows
+    into padded train blocks at DP-optimal (n, d) levels and every kept
+    row into flat score arrays (photon_tpu/game/data.py:894).
+
+    ``existing_model_keys`` (a warm start that ignores the threshold for
+    new models): entities WITHOUT a prior model bypass the active lower
+    bound. ``intercept_col`` always survives the Pearson cap."""
     rng = np.random.default_rng(seed)
     shard = data.feature_shards[config.feature_shard]
     keys = np.asarray(data.id_tags[config.random_effect_type])
@@ -415,6 +620,12 @@ def build_random_effect_dataset(
     ent_sorted = np.repeat(np.arange(num_v), counts)
     group_starts = np.zeros(num_v + 1, dtype=np.int64)
     np.cumsum(counts, out=group_starts[1:])
+
+    # the projection draw precedes the reservoir draw on the same generator
+    rnd_proj = None
+    if config.projector_type == ProjectorType.RANDOM:
+        k = config.random_projection_dim or 64
+        rnd_proj = rng.normal(size=(shard.num_cols, k)) / np.sqrt(k)
 
     # --- active selection: reservoir cap via random keys -------------------
     ub = config.active_data_upper_bound
@@ -432,6 +643,9 @@ def build_random_effect_dataset(
     num_passive = counts - active_counts
     drop_passive = (num_passive > 0) & (num_passive <= config.passive_data_lower_bound)
     entity_kept = counts >= config.active_data_lower_bound
+    if existing_model_keys is not None:
+        has_prior = np.isin(vocab, np.asarray(list(existing_model_keys)))
+        entity_kept = entity_kept | ~has_prior
     keep_sorted = entity_kept[ent_sorted] & (active_sorted | ~drop_passive[ent_sorted])
 
     kept_rows = order[keep_sorted]
@@ -442,8 +656,12 @@ def build_random_effect_dataset(
     np.cumsum(n_k, out=kept_starts[1:])
     row_rank = np.arange(len(kept_rows)) - kept_starts[kept_ent]
 
-    # --- nonzeros of kept rows: dense fast path or index compaction --------
-    fast_dense = _is_dense_shard(shard)
+    # --- nonzeros of kept rows: dense fast path or per-nonzero arrays -------
+    fast_dense = (
+        rnd_proj is None
+        and config.features_to_samples_ratio is None
+        and _is_dense_shard(shard)
+    )
     if fast_dense:
         x2d = np.ascontiguousarray(
             shard.values.reshape(shard.num_rows, shard.num_cols), dtype=np.float32
@@ -458,14 +676,57 @@ def build_random_effect_dataset(
         nnz_val = shard.values[nnz_src].astype(np.float64)
         nnz_ent = np.repeat(kept_ent, nnz_per_row)
         nnz_rowpos = np.repeat(np.arange(len(kept_rows)), nnz_per_row)
+        d_proj = np.full(num_v, rnd_proj.shape[1] if rnd_proj is not None else 0)
+    if not fast_dense and rnd_proj is None:
+        # --- index compaction: per-entity column unions, Pearson cap ------
         combined = nnz_ent * np.int64(shard.num_cols) + nnz_col
         pairs, pair_inv = np.unique(combined, return_inverse=True)
         pair_ent = (pairs // shard.num_cols).astype(np.int64)
         pair_col = (pairs % shard.num_cols).astype(np.int64)
+        d_all = np.bincount(pair_ent, minlength=num_v)
         pair_starts = np.searchsorted(pair_ent, np.arange(num_v))
-        # local column = rank within entity in ascending-column order
-        local_of_pair = (np.arange(len(pairs)) - pair_starts[pair_ent]).astype(np.int64)
-        d_proj = np.bincount(pair_ent, minlength=num_v)
+
+        keep_pair = np.ones(len(pairs), dtype=bool)
+        if config.features_to_samples_ratio is not None:
+            cap = np.maximum(
+                1, (config.features_to_samples_ratio * active_counts).astype(np.int64)
+            )
+            needs_cap = d_all > cap
+            if needs_cap.any():
+                # Pearson |corr(feature, label)| per (entity, column) pair
+                # over ACTIVE rows, by segment sums over the nonzeros
+                w_act = kept_active[nnz_rowpos]
+                y_nnz = data.labels[kept_rows][nnz_rowpos]
+                m = len(pairs)
+                sum_x = np.bincount(pair_inv, weights=nnz_val * w_act, minlength=m)
+                sum_x2 = np.bincount(pair_inv, weights=nnz_val**2 * w_act, minlength=m)
+                sum_xy = np.bincount(pair_inv, weights=nnz_val * y_nnz * w_act, minlength=m)
+                y_kept = data.labels[kept_rows]
+                n_act_f = np.bincount(kept_ent, weights=kept_active, minlength=num_v)
+                sum_y = np.bincount(kept_ent, weights=y_kept * kept_active, minlength=num_v)
+                sum_y2 = np.bincount(
+                    kept_ent, weights=y_kept**2 * kept_active, minlength=num_v
+                )
+                na = n_act_f[pair_ent]
+                var_x = sum_x2 - sum_x**2 / np.maximum(na, 1)
+                var_y = (sum_y2 - sum_y**2 / np.maximum(n_act_f, 1))[pair_ent]
+                denom = np.sqrt(np.maximum(var_x * var_y, 0.0))
+                num = np.abs(sum_xy - sum_x * sum_y[pair_ent] / np.maximum(na, 1))
+                corr = np.where(denom > 0, num / np.where(denom > 0, denom, 1), 0.0)
+                if intercept_col is not None:
+                    corr = np.where(pair_col == intercept_col, np.inf, corr)
+                # rank within entity by descending corr, ties by ascending column
+                by_corr = np.lexsort((pair_col, -corr, pair_ent))
+                corr_rank = np.empty(m, dtype=np.int64)
+                corr_rank[by_corr] = np.arange(m) - pair_starts[pair_ent[by_corr]]
+                cap_eff = np.where(needs_cap, cap, np.iinfo(np.int64).max)
+                keep_pair = corr_rank < cap_eff[pair_ent]
+
+        # local column = rank among the entity's kept pairs, ascending column
+        csum = np.cumsum(keep_pair)
+        base = np.concatenate(([0], csum))[pair_starts]
+        local_of_pair = np.where(keep_pair, csum - 1 - base[pair_ent], -1).astype(np.int64)
+        d_proj = np.bincount(pair_ent[keep_pair], minlength=num_v)
 
     # --- bucket assignment -------------------------------------------------
     n_act = np.bincount(kept_ent, weights=kept_active, minlength=num_v).astype(np.int64)
@@ -487,17 +748,38 @@ def build_random_effect_dataset(
         else:
             levels = _optimal_row_levels(n_trn[grp], shape_budget=group_budget)
         n_lvl[grp] = levels[np.searchsorted(levels, n_trn[grp])]
-    combined = n_lvl.astype(np.int64) << 32 | d_pad.astype(np.int64)
+    combined = _pack_shape_keys(n_lvl, d_pad)
     shape_keys, shape_inv = np.unique(combined, return_inverse=True)
+    # greedy consolidation within the remaining waste allowance; under an
+    # active shape budget only a hard cap (config or env) forces it
+    used_cells = int((n_trn * d_pad).sum())
+    padded_cells = int((n_lvl * d_pad).sum())
+    allowance = max(0, int(0.18 * used_cells) - (padded_cells - used_cells))
+    env_cap = os.environ.get("PHOTON_RE_MAX_BUCKETS", "").strip()
+    hard_cap = config.max_buckets is not None or (env_cap != "" and int(env_cap) > 0)
+    merged = (
+        _consolidate_shapes(
+            shape_keys,
+            np.bincount(shape_inv, minlength=len(shape_keys)),
+            config.max_buckets,
+            cell_allowance=allowance,
+        )
+        if len(shape_keys) > 1 and (budget is None or hard_cap)
+        else None
+    )
+    if merged is not None:
+        combined = merged[shape_inv]
+        shape_keys, shape_inv = np.unique(combined, return_inverse=True)
     inv_order = np.argsort(shape_inv, kind="stable")
     shape_counts = np.bincount(shape_inv, minlength=len(shape_keys))
     shape_bounds = np.concatenate(([0], np.cumsum(shape_counts)))
+    ent_cap = re_bucket_entity_cap()
     bucket_specs: list[tuple[int, int, np.ndarray]] = []
     for bi, key in enumerate(shape_keys):
         ents = ent_list[inv_order[shape_bounds[bi] : shape_bounds[bi + 1]]]
         shape = (int(key >> 32), int(key & 0xFFFFFFFF))
-        for s0 in range(0, len(ents), RE_BUCKET_ENTITY_CAP):
-            bucket_specs.append((shape[0], shape[1], ents[s0 : s0 + RE_BUCKET_ENTITY_CAP]))
+        for s0 in range(0, len(ents), ent_cap):
+            bucket_specs.append((shape[0], shape[1], ents[s0 : s0 + ent_cap]))
 
     slot_of_entity = np.full(num_v, -1, dtype=np.int64)
     bucket_of_entity = np.full(num_v, -1, dtype=np.int64)
@@ -518,11 +800,12 @@ def build_random_effect_dataset(
         nnz_bucket = row_bucket[nnz_rowpos]
         order_nz = np.argsort(nnz_bucket, kind="stable")
         nz_bounds = np.searchsorted(nnz_bucket[order_nz], np.arange(len(bucket_specs) + 1))
-        pair_bucket = bucket_of_entity[pair_ent]
-        order_pair = np.argsort(pair_bucket, kind="stable")
-        pair_bounds = np.searchsorted(
-            pair_bucket[order_pair], np.arange(len(bucket_specs) + 1)
-        )
+        if rnd_proj is None:
+            pair_bucket = bucket_of_entity[pair_ent]
+            order_pair = np.argsort(pair_bucket, kind="stable")
+            pair_bounds = np.searchsorted(
+                pair_bucket[order_pair], np.arange(len(bucket_specs) + 1)
+            )
 
     buckets = []
     for bi, (n_max, d_max, ents) in enumerate(bucket_specs):
@@ -558,14 +841,26 @@ def build_random_effect_dataset(
             d_col = shard.num_cols
             score_feats[fr_b, :d_col] = x2d[kept_rows[rows_in_b]]
             col_index[:, :d_col] = np.arange(d_col, dtype=np.int32)
-        else:
+        elif rnd_proj is None:
             nz_sel = order_nz[nz_bounds[bi] : nz_bounds[bi + 1]]
             lc = local_of_pair[pair_inv[nz_sel]]
-            score_feats[flat_row[nnz_rowpos[nz_sel]], lc] = nnz_val[nz_sel]
+            ok = lc >= 0  # Pearson-dropped columns vanish
+            score_feats[flat_row[nnz_rowpos[nz_sel][ok]], lc[ok]] = nnz_val[nz_sel][ok]
             pb = order_pair[pair_bounds[bi] : pair_bounds[bi + 1]]
-            col_index[slot_of_entity[pair_ent[pb]], local_of_pair[pb]] = pair_col[
-                pb
-            ].astype(np.int32)
+            ent_pairs = pb[local_of_pair[pb] >= 0]
+            col_index[slot_of_entity[pair_ent[ent_pairs]], local_of_pair[ent_pairs]] = (
+                pair_col[ent_pairs].astype(np.int32)
+            )
+        else:
+            nz_sel = order_nz[nz_bounds[bi] : nz_bounds[bi + 1]]
+            k = rnd_proj.shape[1]
+            dense = np.zeros((m_b, k), dtype=np.float64)
+            np.add.at(
+                dense,
+                flat_row[nnz_rowpos[nz_sel]],
+                nnz_val[nz_sel, None] * rnd_proj[nnz_col[nz_sel]],
+            )
+            score_feats[:, :k] = dense.astype(np.float32)
 
         feats[s, r, :] = score_feats[flat_row[act_rows]]
         w_b = np.asarray(data.weights)[kept_rows[rows_in_b]]
@@ -590,4 +885,14 @@ def build_random_effect_dataset(
         buckets=buckets,
         num_samples=n,
         num_features=shard.num_cols,
+        projection_matrix=rnd_proj,
     )
+
+
+def labels_are_binary(labels: np.ndarray) -> bool:
+    u = set(np.unique(labels))
+    return u <= {0.0, 1.0} or u <= {-1.0, 1.0}
+
+
+def positive_rate(labels: np.ndarray) -> float:
+    return float((labels > POSITIVE_RESPONSE_THRESHOLD).mean())

@@ -1,10 +1,15 @@
 """GameEstimator: train a GAME model by block coordinate descent.
 
-Counterpart of a minimal photon_tpu/game/estimator.GameEstimator.fit: one
-model per λ-grid point with warm starts across the grid, the pooled RE
-bucket shapes (``ShapePool``). No normalization contexts, locked
-coordinates, streaming, mesh, precompile or checkpoints yet. ``device``
-defaults to "cuda" and raises without a card unless "cpu" is asked for.
+Counterpart of photon_tpu/game/estimator.GameEstimator.fit on one device:
+one model per λ-grid point with warm starts across the grid, the pooled
+RE bucket shapes (``ShapePool``), normalization contexts per feature
+shard, locked coordinates, an initial model (warm start, with
+``ignore_threshold_for_new_models`` and the carry-over of prior entities
+that got no new data), per-sweep validation with the best sweep's model
+returned, and fixed-effect, random-effect and matrix-factorization
+coordinates. No streaming, mesh, precompile, checkpoints or telemetry.
+``device`` defaults to "cuda" and raises without a card unless "cpu" is
+asked for.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ from photon_tpu_torch.game.config import (
 )
 from photon_tpu_torch.game.coordinate import (
     FixedEffectCoordinate,
+    MatrixFactorizationCoordinate,
     RandomEffectCoordinate,
+    build_coordinate,
 )
 from photon_tpu_torch.game.data import (
     GameData,
@@ -32,28 +39,58 @@ from photon_tpu_torch.game.data import (
     re_shape_budget,
 )
 from photon_tpu_torch.game.descent import run_coordinate_descent
-from photon_tpu_torch.game.model import GameModel
+from photon_tpu_torch.game.model import (
+    GameModel,
+    RandomEffectModel,
+    merge_random_effect_carryover,
+)
+from photon_tpu_torch.game.validation import DeviceValidationScorer
+from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.types import TaskType, resolve_device
 
 logger = logging.getLogger(__name__)
 
 
+def _carry_over_prior_models(model: GameModel, initial: GameModel) -> GameModel:
+    """Prior per-entity models with no new data survive a warm start."""
+    merged = dict(model.coordinates)
+    for cid, new_cm in model.coordinates.items():
+        prior_cm = initial.coordinates.get(cid)
+        if isinstance(new_cm, RandomEffectModel) and isinstance(prior_cm, RandomEffectModel):
+            merged[cid] = merge_random_effect_carryover(new_cm, prior_cm)
+    return dataclasses.replace(model, coordinates=merged)
+
+
 @dataclasses.dataclass
 class GameTrainingResult:
     model: GameModel
+    #: the best sweep's validation metric (None without validation)
+    evaluation: float | None
     regularization_weights: dict
     tracker: list
     wall_time_s: float
-    #: Σ coordinate margins after the last sweep, [N] on the host
+    #: Σ coordinate margins of the returned model's states, [N] on the host
     scores: np.ndarray
 
 
 @dataclasses.dataclass
 class GameEstimator:
+    """``normalization_contexts``: feature shard → NormalizationContext for
+    the fixed effects on it; ``locked_coordinates`` are scored, never
+    trained (their states come from the initial model);
+    ``ignore_threshold_for_new_models`` lets entities without a prior
+    model bypass ``active_data_lower_bound`` (needs an initial model);
+    ``validation_evaluator`` (EvaluatorType or GroupedEvaluatorSpec)
+    scores ``validation_data`` after every sweep and picks the model."""
+
     task: TaskType
     coordinate_configs: Mapping[str, object]
     update_sequence: Sequence[str]
     descent_iterations: int = 1
+    normalization_contexts: Mapping[str, NormalizationContext] | None = None
+    locked_coordinates: frozenset = frozenset()
+    ignore_threshold_for_new_models: bool = False
+    validation_evaluator: object | None = None
     dtype: torch.dtype = torch.float32
     seed: int = 0
     device: str | torch.device = "cuda"
@@ -63,16 +100,30 @@ class GameEstimator:
         missing = [c for c in self.update_sequence if c not in self.coordinate_configs]
         if missing:
             raise ValueError(f"update sequence names unknown coordinates: {missing}")
-        #: host seconds of the last fit's phases (build, per grid point)
+        if self.locked_coordinates and not set(self.locked_coordinates) <= set(
+            self.coordinate_configs
+        ):
+            raise ValueError("locked coordinates must be configured")
+        #: host seconds of the last fit's phases (build, validation build, grid)
         self.last_fit_stats: dict | None = None
 
-    def _build_shape_pool(self, data: GameData) -> ShapePool | None:
+    def _existing_model_keys(self, cid, initial_model):
+        if not self.ignore_threshold_for_new_models or initial_model is None:
+            return None
+        prior = initial_model.coordinates.get(cid)
+        return prior.modeled_keys() if isinstance(prior, RandomEffectModel) else set()
+
+    def _build_shape_pool(self, data: GameData, initial_model=None) -> ShapePool | None:
         budgets, profiles = [], []
-        for cfg in self.coordinate_configs.values():
+        for cid, cfg in self.coordinate_configs.items():
             if not isinstance(cfg, RandomEffectCoordinateConfig):
                 continue
             b = re_shape_budget(cfg.shape_budget)
-            prof = profile_random_effect_shapes(data, cfg) if b is not None else None
+            if b is None:
+                continue
+            prof = profile_random_effect_shapes(
+                data, cfg, existing_model_keys=self._existing_model_keys(cid, initial_model)
+            )
             if prof is None:
                 continue
             budgets.append(b)
@@ -84,39 +135,70 @@ class GameEstimator:
             pool.observe(d_pad, n_trn)
         return pool.freeze()
 
-    def _build_coordinates(self, data: GameData, shape_pool=None):
+    def _build_coordinates(self, data: GameData, initial_model=None, shape_pool=None):
         if shape_pool is None:
-            shape_pool = self._build_shape_pool(data)
+            shape_pool = self._build_shape_pool(data, initial_model)
+        norm = self.normalization_contexts or {}
         coords = {}
         for cid, cfg in self.coordinate_configs.items():
-            if isinstance(cfg, FixedEffectCoordinateConfig):
-                coords[cid] = FixedEffectCoordinate.build(
-                    data, cfg, dtype=self.dtype, device=self.device
-                )
-            elif isinstance(cfg, RandomEffectCoordinateConfig):
+            ds = None
+            if isinstance(cfg, RandomEffectCoordinateConfig):
                 ds = build_random_effect_dataset(
-                    data, cfg, seed=self.seed, shape_pool=shape_pool
-                )
-                coords[cid] = RandomEffectCoordinate.build(
-                    ds, cfg, dtype=self.dtype, device=self.device
+                    data, cfg, seed=self.seed,
+                    existing_model_keys=self._existing_model_keys(cid, initial_model),
+                    shape_pool=shape_pool,
                 )
                 logger.info(
                     "coordinate %s: %d entities in %d buckets (padding waste %.1f%%)",
-                    cid, ds.num_entities, len(ds.buckets), 100.0 * ds.padding_waste(),
+                    cid, ds.num_entities, len(ds.buckets),
+                    100.0 * ds.padding_waste()["total_waste"],
                 )
-            else:
-                raise TypeError(f"unknown coordinate config for {cid}")
+            fe_norm = (
+                norm.get(cfg.feature_shard, NormalizationContext())
+                if isinstance(cfg, FixedEffectCoordinateConfig)
+                else NormalizationContext()
+            )
+            coords[cid] = build_coordinate(
+                data, cfg, normalization=fe_norm, re_dataset=ds,
+                dtype=self.dtype, device=self.device, seed=self.seed,
+            )
         return coords
 
     def _grid_length(self) -> int:
         return max(len(c.regularization_weights) for c in self.coordinate_configs.values())
 
-    def fit(self, data: GameData, *, shape_pool=None) -> list[GameTrainingResult]:
-        """One GameModel per λ-grid point, warm-starting across the grid."""
+    def fit(
+        self,
+        data: GameData,
+        *,
+        validation_data: GameData | None = None,
+        initial_model: GameModel | None = None,
+        grid_callback=None,
+        shape_pool=None,
+    ) -> list[GameTrainingResult]:
+        """One GameModel per λ-grid point, warm-starting across the grid.
+        ``grid_callback(grid_index, result)`` fires as each point ends."""
+        if self.ignore_threshold_for_new_models and initial_model is None:
+            raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
-        coordinates = self._build_coordinates(data, shape_pool)
+        coordinates = self._build_coordinates(data, initial_model, shape_pool)
+        states = (
+            self._states_from_model(initial_model, coordinates)
+            if initial_model is not None
+            else None
+        )
         build_s = time.perf_counter() - t0
-        results, states = [], None
+        validation_fn = None
+        t_val = time.perf_counter()
+        if validation_data is not None and self.validation_evaluator is not None:
+            validation_fn = DeviceValidationScorer.build(
+                validation_data, coordinates, self.validation_evaluator
+            ).evaluate
+        validation_build_s = time.perf_counter() - t_val
+        larger = (
+            self.validation_evaluator.larger_is_better if self.validation_evaluator else True
+        )
+        results, grid_s = [], []
         for gi in range(self._grid_length()):
             t_grid = time.perf_counter()
             reg_weights = {}
@@ -130,33 +212,97 @@ class GameEstimator:
                 self.update_sequence,
                 self.descent_iterations,
                 initial_states=states,
+                locked_coordinates=self.locked_coordinates,
+                validation_fn=validation_fn,
+                larger_is_better=larger,
             )
-            model = self._to_model(coordinates, cd.states)
-            results.append(
-                GameTrainingResult(
-                    model=model,
-                    regularization_weights=reg_weights,
-                    tracker=cd.tracker,
-                    wall_time_s=time.perf_counter() - t_grid,
-                    scores=cd.total.detach().cpu().numpy(),
-                )
+            final, total = cd.states, cd.total
+            if cd.best_states is not None:
+                final = cd.best_states
+                total = sum(coordinates[cid].score(s) for cid, s in final.items())
+            model = self._to_model(coordinates, final)
+            if initial_model is not None:
+                model = _carry_over_prior_models(model, initial_model)
+            result = GameTrainingResult(
+                model=model,
+                evaluation=cd.best_metric,
+                regularization_weights=reg_weights,
+                tracker=cd.tracker,
+                wall_time_s=time.perf_counter() - t_grid,
+                scores=total.detach().to("cpu", torch.float64).numpy(),
             )
-            states = cd.states
+            results.append(result)
+            grid_s.append(result.wall_time_s)
+            if grid_callback is not None:
+                grid_callback(gi, result)
+            states = cd.states  # warm start the next grid point
         self.last_fit_stats = {
             "build_s": build_s,
+            "validation_build_s": validation_build_s,
+            "grid_s": grid_s,
             "wall_s": time.perf_counter() - t0,
         }
         return results
 
     def _to_model(self, coordinates, states) -> GameModel:
+        # every coordinate with a state ships, locked ones outside the
+        # update sequence included (they shaped every residual)
         ordered = list(self.update_sequence) + [
             cid for cid in coordinates if cid not in self.update_sequence
         ]
         return GameModel(
             coordinates={
-                cid: coordinates[cid].to_model(states[cid])
-                for cid in ordered
-                if cid in states
+                cid: coordinates[cid].to_model(states[cid]) for cid in ordered if cid in states
             },
             task=self.task,
         )
+
+    def _states_from_model(self, model: GameModel, coordinates) -> dict:
+        """Warm-start / partial-retrain states from a prior GameModel."""
+        states = {}
+        for cid, coord in coordinates.items():
+            if cid not in model.coordinates:
+                continue
+            prior = model.coordinates[cid]
+            if isinstance(coord, FixedEffectCoordinate):
+                w = torch.as_tensor(np.array(prior.coefficients.means, dtype=np.float64)).to(
+                    device=self.device, dtype=self.dtype
+                )
+                states[cid] = coord.normalization.model_to_transformed_space(w)
+            elif isinstance(coord, RandomEffectCoordinate):
+                lookup = prior.dense_coefficient_lookup()
+                prior_idx = {k: i for i, k in enumerate(prior.vocab)}
+                bucket_states = []
+                for db, hb in zip(coord.device_buckets, coord.dataset.buckets):
+                    # float32 host block, as the reference builds it
+                    w0 = np.zeros((db.features.shape[0], db.features.shape[2]), np.float32)
+                    for i, ent in enumerate(hb.entity_ids):
+                        pi = prior_idx.get(coord.dataset.vocab[ent])
+                        vec = lookup[pi] if pi is not None else None
+                        if vec is None:
+                            continue
+                        cols = hb.col_index[i]
+                        valid = cols >= 0
+                        w0[i][valid] = vec[cols[valid]]
+                    bucket_states.append(
+                        torch.as_tensor(w0).to(device=self.device, dtype=self.dtype)
+                    )
+                states[cid] = bucket_states
+            elif isinstance(coord, MatrixFactorizationCoordinate):
+                u0, v0 = (t.cpu().numpy().copy() for t in coord.initial_state())
+                r_prior = {k: i for i, k in enumerate(prior.row_vocab)}
+                c_prior = {k: i for i, k in enumerate(prior.col_vocab)}
+                k_common = min(u0.shape[1], prior.row_factors.shape[1])
+                for i, key in enumerate(coord.row_vocab):
+                    pi = r_prior.get(key)
+                    if pi is not None:
+                        u0[i, :k_common] = prior.row_factors[pi, :k_common]
+                for i, key in enumerate(coord.col_vocab):
+                    pi = c_prior.get(key)
+                    if pi is not None:
+                        v0[i, :k_common] = prior.col_factors[pi, :k_common]
+                states[cid] = tuple(
+                    torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
+                    for a in (u0, v0)
+                )
+        return states

@@ -35,10 +35,12 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
 
 def matvec(batch, v: Tensor) -> Tensor:
     """X·v. Sparse ELL: gather the K coefficient slots per row and row-sum
-    (padding slots hold value 0). Dense: a batched matrix-vector product."""
+    (padding slots hold value 0). Dense: a batched matrix-vector product.
+    Features stored narrower than ``v`` (bfloat16) are widened to its type
+    first, so every product accumulates in the coefficients' type."""
     if isinstance(batch, SparseBatch):
-        return (take_1d(v, batch.indices) * batch.values).sum(-1)
-    return torch.matmul(batch.features, v.unsqueeze(-1)).squeeze(-1)
+        return (take_1d(v, batch.indices) * batch.values.to(v.dtype)).sum(-1)
+    return torch.matmul(batch.features.to(v.dtype), v.unsqueeze(-1)).squeeze(-1)
 
 
 def _use_windows(batch, per_row: Tensor) -> bool:
@@ -51,10 +53,10 @@ def rmatvec(batch, per_row: Tensor, dim: int) -> Tensor:
     if isinstance(batch, SparseBatch):
         if _use_windows(batch, per_row):
             return windowed_rmatvec(batch.windows, per_row, dim)
-        flat = (batch.values * per_row[:, None]).reshape(-1)
+        flat = (batch.values.to(per_row.dtype) * per_row[:, None]).reshape(-1)
         out = torch.zeros(dim, dtype=flat.dtype, device=flat.device)
         return out.index_add_(0, batch.indices.reshape(-1).long(), flat)
-    x = batch.features
+    x = batch.features.to(per_row.dtype)
     return torch.matmul(x.transpose(-1, -2), per_row.unsqueeze(-1)).squeeze(-1)
 
 
@@ -193,7 +195,7 @@ class GLMObjective:
         sparse batch is densified)."""
         z = self.margins(coef, batch)
         d2 = batch.weights * self.loss.d2(z, batch.labels)
-        x = self._transformed_features(batch, coef.shape[-1])
+        x = self._transformed_features(batch, coef.shape[-1]).to(coef.dtype)
         h = torch.matmul(x.transpose(-1, -2), d2.unsqueeze(-1) * x)
         eye = torch.eye(coef.shape[-1], dtype=h.dtype, device=h.device)
         return h + self.l2_weight * eye
@@ -206,10 +208,12 @@ class GLMObjective:
             rows = torch.arange(n, device=batch.indices.device)[:, None].expand_as(
                 batch.indices
             )
-            x = torch.zeros((n, dim), dtype=batch.values.dtype, device=batch.values.device)
-            x.index_put_((rows, batch.indices.long()), batch.values, accumulate=True)
+            x = torch.zeros((n, dim), dtype=batch.labels.dtype, device=batch.values.device)
+            x.index_put_(
+                (rows, batch.indices.long()), batch.values.to(x.dtype), accumulate=True
+            )
         else:
-            x = batch.features
+            x = batch.features.to(batch.labels.dtype)
         if self.normalization.shifts is not None:
             x = x - self.normalization.shifts
         if self.normalization.factors is not None:
@@ -242,8 +246,9 @@ class GLMObjective:
                     out = torch.zeros(dim, dtype=v.dtype, device=v.device)
                     return out.index_add_(0, flat_idx, (v * d2[:, None]).reshape(-1))
 
-                sq = seg(torch.square(batch.values))
-                lin = seg(batch.values) if norm.shifts is not None else None
+                vals = batch.values.to(d2.dtype)
+                sq = seg(torch.square(vals))
+                lin = seg(vals) if norm.shifts is not None else None
             if norm.shifts is not None:
                 sq = sq - 2.0 * norm.shifts * lin + torch.square(norm.shifts) * d2.sum()
             if norm.factors is not None:
