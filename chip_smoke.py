@@ -45,7 +45,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    model trained and scored at full width: 2^20 rows, fixed, per-user,
    per-item and user × item MF coordinates; the scorer within 1e-4 of the
    fit and within config 6's 1e-3 of the host float64 path);
-7. print one ``{"kernels": [...]}`` line and, last, the ok line.
+7. the command-line drivers: ``cli_game`` writes bench config 5's
+   widths (FE 2^17 columns, 23 sparse features per row plus the shard's
+   intercept, per-user and per-item d=16; depth cut to 2^17 rows, 2^16
+   users, 2^13 items) as 4 Avro part files plus 2^14 validation rows,
+   trains them with ``photon_tpu_torch.cli.game_training.run`` (a λ grid,
+   AUC:userId validation, every model saved) and scores the training and
+   validation data with ``game_scoring.run`` (3 output partitions);
+   checks that the fit launched the kernel, every coefficient and score
+   is finite, per-user AUC ≥ 0.8, the scoring driver's scores agree with
+   the fit's within 1e-4, the summary's AUC:userId equals the scoring
+   driver's within 5e-4, and the saved best model loads back exactly;
+   then holds and times the kernel on the fixed-effect layout the driver
+   read (``cli_game_fe``); ``cli_game_parity`` runs the same training
+   command line at 2^13 rows on the card and on the CPU, both at float64:
+   best index, evaluations, coefficients and scores within 1e-9;
+   ``cli_legacy`` runs ``legacy_driver.run`` on LIBSVM files of a1a's
+   shape (STANDARDIZATION, a 3-λ grid): bench config 1's band, and the
+   coefficients of ``train_glm_grid(device="cuda")`` called directly
+   within rtol 1e-6;
+8. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -1292,6 +1311,385 @@ def small_game_parity(seed):
                     "mf_two_card_fits_bitwise_equal": mf_bitwise}))
 
 
+# --- the command-line drivers (cli_game, cli_legacy) -------------------------
+
+CLI_N, CLI_USERS, CLI_ITEMS = 1 << 17, 1 << 16, 1 << 13  # config 5's ratios, cut
+CLI_VALID_N, CLI_PARTS = 1 << 14, 4
+
+
+def ctr_avro_schema():
+    """TrainingExampleAvro with two more feature bags (each item record has
+    its own name: the native decoder takes inline record types only)."""
+    from photon_tpu_torch.io.schemas import FEATURE_AVRO, TRAINING_EXAMPLE_AVRO
+
+    fields = list(TRAINING_EXAMPLE_AVRO["fields"])
+    at = [f["name"] for f in fields].index("features") + 1
+    fields[at:at] = [
+        {"name": bag, "type": {"type": "array", "items": dict(FEATURE_AVRO, name=item)}}
+        for bag, item in (("userFeatures", "UserFeatureAvro"), ("itemFeatures", "ItemFeatureAvro"))
+    ]
+    return dict(TRAINING_EXAMPLE_AVRO, fields=fields)
+
+
+def write_ctr_avro(data, out_dir, parts, row0=0):
+    """``make_ctr_data`` rows as Avro part files: the fixed-effect shard
+    without its intercept slot (column 0; the reader's shard adds the
+    intercept) as ``features``, the per-user and per-item columns as
+    ``userFeatures``/``itemFeatures``, ids in ``metadataMap``, uid r<row>."""
+    import os
+
+    import numpy as np
+
+    from photon_tpu_torch.io.avro import AvroFileWriter
+
+    os.makedirs(out_dir)
+    schema = ctr_avro_schema()
+    fe = data.feature_shards["global"]
+    bags = [(bag, data.feature_shards[shard], prefix)
+            for bag, shard, prefix in (("userFeatures", "per_user", "u"),
+                                       ("itemFeatures", "per_item", "i"))]
+    users, items = np.asarray(data.id_tags["user"]), np.asarray(data.id_tags["item"])
+
+    def ntv(m, r, prefix, first=0):
+        lo, hi = m.indptr[r] + first, m.indptr[r + 1]
+        return [{"name": f"{prefix}{c}", "term": "", "value": v}
+                for c, v in zip(m.indices[lo:hi].tolist(), m.values[lo:hi].tolist())]
+
+    def records(lo, hi):
+        for r in range(lo, hi):
+            rec = {"uid": f"r{row0 + r}", "label": float(data.labels[r]),
+                   "features": ntv(fe, r, "c", first=1),
+                   "metadataMap": {"userId": str(users[r]), "itemId": str(items[r])},
+                   "weight": 1.0, "offset": 0.0}
+            for bag, m, prefix in bags:
+                rec[bag] = ntv(m, r, prefix)
+            yield rec
+
+    n = data.num_samples
+    bounds = np.linspace(0, n, parts + 1).astype(int)
+    for p in range(parts):
+        with AvroFileWriter(os.path.join(out_dir, f"part-{p:05d}.avro"), schema) as w:
+            w.append(records(bounds[p], bounds[p + 1]))
+
+
+CLI_SHARDS = [
+    "--feature-shard-configurations", "name=global,feature.bags=features",
+    "--feature-shard-configurations", "name=per_user,feature.bags=userFeatures,intercept=false",
+    "--feature-shard-configurations", "name=per_item,feature.bags=itemFeatures,intercept=false",
+]
+
+
+def cli_train_argv(train, valid, out):
+    """The training driver's command line of ``cli_game``."""
+    return [
+        "--input-data-directories", train,
+        "--validation-data-directories", valid,
+        "--root-output-directory", out,
+        "--training-task", "LOGISTIC_REGRESSION", *CLI_SHARDS,
+        "--coordinate-configurations",
+        "name=fixed,feature.shard=global,optimizer=LBFGS,max.iter=10,regularization=L2,"
+        "reg.weights=1|10,representation=SPARSE",
+        "--coordinate-configurations",
+        f"name=user,random.effect.type=userId,feature.shard=per_user,max.iter=5,"
+        f"regularization=L2,reg.weights=1,active.data.upper.bound={USER_UB}",
+        "--coordinate-configurations",
+        f"name=item,random.effect.type=itemId,feature.shard=per_item,max.iter=5,"
+        f"regularization=L2,reg.weights=1,active.data.upper.bound={ITEM_UB}",
+        "--coordinate-update-sequence", "fixed,user,item",
+        "--coordinate-descent-iterations", "2",
+        "--evaluators", "AUC:userId,AUC", "--output-mode", "ALL",
+        "--model-sparsity-threshold", "0",
+    ]
+
+
+def read_fe_shard(train_dir, index_maps):
+    """The fixed-effect shard as the training driver read it: the same
+    reader, the same feature index map."""
+    from photon_tpu_torch.cli.parsing import parse_feature_shard_config
+    from photon_tpu_torch.io.data_reader import AvroDataReader
+
+    name, cfg = parse_feature_shard_config(CLI_SHARDS[1])
+    reader = AvroDataReader(index_maps={name: index_maps[name]})
+    return reader.read([train_dir], {name: cfg}).feature_shards[name]
+
+
+def cli_game(seed):
+    """``photon_tpu_torch.cli.game_training.run`` then ``game_scoring.run``
+    at bench config 5's widths (FE 2^17 columns, 23 sparse features per
+    row + the shard's intercept; per-user and per-item d=16), depth cut to
+    2^17 rows / 2^16 users / 2^13 items, from Avro part files written here."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.cli import game_scoring, game_training
+    from photon_tpu_torch.game.data import slice_game_data
+    from photon_tpu_torch.io.avro import read_avro_dir
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
+    t0 = time.perf_counter()
+    both = make_ctr_data(seed + 5, CLI_N + CLI_VALID_N, FE_DIM, FE_NNZ, coords)
+    train, valid = slice_game_data(both, 0, CLI_N), slice_game_data(both, CLI_N, both.num_samples)
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        t0 = time.perf_counter()
+        write_ctr_avro(train, f"{tmp}/train", CLI_PARTS)
+        write_ctr_avro(valid, f"{tmp}/valid", 1, row0=CLI_N)
+        write_s = time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        windowed_rmatvec.launches = 0
+        t0 = time.perf_counter()
+        res = game_training.run(
+            cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/training"), device="cuda"
+        )
+        train_wall = time.perf_counter() - t0
+        launches = windowed_rmatvec.launches
+        if launches <= 0:
+            fail("cli_game: the training driver's fit never launched the windowed Xᵀr kernel")
+        best = res["results"][res["best"]]
+        summary = json.loads(open(f"{tmp}/training/training-summary.json").read())
+        if summary["best"] != res["best"]:
+            fail("cli_game: training-summary.json names another best model")
+
+        scored = {}
+        for name in ("train", "valid"):
+            t0 = time.perf_counter()
+            out = game_scoring.run([
+                "--input-data-directories", f"{tmp}/{name}",
+                "--root-output-directory", f"{tmp}/scoring-{name}", *CLI_SHARDS,
+                "--model-input-directory", f"{tmp}/training/best",
+                "--evaluators", "AUC:userId,AUC",
+                "--num-output-partitions", "3", "--score-batch-rows", "16384",
+            ], device="cuda")
+            out["wall_s"] = time.perf_counter() - t0
+            out["records"] = {r["uid"]: r["predictionScore"]
+                              for r in read_avro_dir(f"{tmp}/scoring-{name}/scores")}
+            scored[name] = out
+
+        t0 = time.perf_counter()
+        loaded = load_game_model(f"{tmp}/training/best", res["index_maps"])
+        load_check_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the kernel held against its plain version on the layout this
+        # path gave it (its launches above are the driver's alone)
+        fe_shard = read_fe_shard(f"{tmp}/train", res["index_maps"])
+    krow = kernel_case("cli_game_fe", *fe_shard.to_ell(dtype=np.float32), fe_shard.num_cols)
+    del fe_shard
+
+    model = best.model
+    fe = model["fixed"].coefficients.means
+    if fe.shape != (FE_DIM,) or not np.all(np.isfinite(fe)):
+        fail(f"cli_game: fixed-effect coefficients not finite or not of shape ({FE_DIM},)")
+    for cid in ("user", "item"):
+        for b in model[cid].buckets:
+            if not np.all(np.isfinite(b.coefficients)):
+                fail(f"cli_game: {cid} coefficients are not finite")
+    if not np.array_equal(loaded["fixed"].coefficients.means, fe):
+        fail("cli_game: the loaded fixed effect differs from the trained one")
+    for cid in ("user", "item"):
+        want, got = model[cid], loaded[cid]
+        w_lookup, g_lookup = want.dense_coefficient_lookup(), got.dense_coefficient_lookup()
+        g_index = got.entity_row_index
+        for e, key in enumerate(want.vocab):
+            w = w_lookup[e]
+            if w is None:
+                continue
+            g = g_lookup[g_index[key]]
+            if not np.array_equal(w, g):
+                fail(f"cli_game: the loaded {cid} model of {key} differs from the trained one")
+
+    train_scores = scored["train"]["records"]
+    if len(train_scores) != CLI_N:
+        fail(f"cli_game: {len(train_scores)} training scores written, expected {CLI_N}")
+    rows = np.fromiter((int(uid[1:]) for uid in train_scores), np.int64, CLI_N)
+    scores = np.fromiter(train_scores.values(), np.float64, CLI_N)
+    if not np.all(np.isfinite(scores)) or not np.all(np.isfinite(scored["valid"]["scores"])):
+        fail("cli_game: the scoring driver wrote non-finite scores")
+    fit_err = float(np.abs(scores - best.scores[rows]).max())
+    if not np.allclose(scores, best.scores[rows], rtol=1e-4, atol=1e-4):
+        fail(f"cli_game: scoring driver vs fit scores max_abs_err={fit_err}")
+    auc = grouped_auc(scores, train.labels[rows], np.asarray(train.id_tags["user"])[rows])
+    if not auc >= 0.8:
+        fail(f"cli_game: per-user grouped AUC on the training rows {auc} < 0.8")
+    summary_auc = summary["models"][res["best"]]["evaluation"]
+    valid_auc = scored["valid"]["evaluations"]["AUC:userId"]
+    if not abs(summary_auc - valid_auc) <= 5e-4:
+        fail(f"cli_game: AUC:userId {summary_auc} in training-summary.json vs {valid_auc} "
+             "from the scoring driver on the validation data")
+
+    tw, sw = res["walls"], scored["train"]["walls"]
+    log(json.dumps({
+        "phase": "cli_game",
+        "cut": {"rows": [CLI_N, FULL_N], "users": [CLI_USERS, FULL_USERS],
+                "items": [CLI_ITEMS, FULL_ITEMS], "validation_rows": CLI_VALID_N},
+        "fe_dim": int(fe.shape[0]), "decoders": res["decoders"],
+        "score_decoder": [scored["train"]["scoring"]["decoder"],
+                          scored["train"]["scoring"]["decoderReason"]],
+        "score_writer": scored["train"]["scoring"]["writer"],
+        "data_gen_s": gen_s, "write_s": write_s,
+        "read_s": tw["read training data"], "read_validation_s": tw["read validation data"],
+        "fit_wall_s": res["fit_stats"]["wall_s"], "fit_build_s": res["fit_stats"]["build_s"],
+        "grid_s": [r.wall_time_s for r in res["results"]],
+        "sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
+                    for r in res["results"]],
+        "validation_s": [[t["validation_seconds"] for t in r.tracker
+                          if "validation_seconds" in t] for r in res["results"]],
+        "save_s": tw["save models"], "training_driver_s": train_wall,
+        "scoring_load_s": sw["load model"], "scoring_read_s": sw["read scoring data"],
+        "score_s": sw["score"], "scoring_write_s": sw["save scores"],
+        "evaluate_s": sw["evaluate"], "scoring_driver_s": scored["train"]["wall_s"],
+        "scoring_rows_per_s": CLI_N / scored["train"]["wall_s"],
+        "score_phase_rows_per_s": CLI_N / sw["score"],
+        "load_check_s": load_check_s, "best": res["best"],
+        "kernel_launches_fit": launches, "scorer_vs_fit_max_abs_err": fit_err,
+        "grouped_auc_user_train": auc, "auc_user_valid_summary": summary_auc,
+        "auc_user_valid_scoring": valid_auc,
+        "evaluations_valid": scored["valid"]["evaluations"], "peak_mem_gib": peak,
+    }))
+    return launches, krow
+
+
+def cli_game_parity(seed):
+    """``cli_game``'s training command line on the card and on the CPU,
+    both at float64 (the driver module's ``GameEstimator`` swapped for one
+    that fits at float64, as the parity tests do), at config 5's widths
+    and 2^13 rows. The card's fixed effect runs its Xᵀr through the window
+    kernel, the CPU's through the plain ELL product: best index,
+    validation evaluations, every coefficient of the best model and the
+    fit's scores agree within 1e-9."""
+    import functools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.game.data import slice_game_data
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    n, n_valid = 1 << 13, 1 << 11
+    coords = [("user", n // 2, RE_DIM, USER_UB), ("item", n // 16, RE_DIM, ITEM_UB)]
+    both = make_ctr_data(seed + 6, n + n_valid, FE_DIM, FE_NNZ, coords)
+    t0 = time.perf_counter()
+    estimator = game_training.GameEstimator
+    game_training.GameEstimator = functools.partial(estimator, dtype=torch.float64)
+    fits = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-parity-") as tmp:
+            write_ctr_avro(slice_game_data(both, 0, n), f"{tmp}/train", 2)
+            write_ctr_avro(slice_game_data(both, n, n + n_valid), f"{tmp}/valid", 1, row0=n)
+            for i, dev in enumerate(("cuda", "cpu")):
+                windowed_rmatvec.launches = 0
+                fits.append(game_training.run(
+                    cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/fit-{i}"), device=dev
+                ))
+                if i == 0:
+                    launches = windowed_rmatvec.launches
+    finally:
+        game_training.GameEstimator = estimator
+    if launches <= 0:
+        fail("cli_game_parity: the card's fit never launched the windowed Xᵀr kernel")
+    a, b = fits
+    if a["best"] != b["best"]:
+        fail(f"cli_game_parity: best model {a['best']} on the card, {b['best']} on the CPU")
+    errs = {}
+    for i, (ra, rb) in enumerate(zip(a["results"], b["results"])):
+        if not abs(ra.evaluation - rb.evaluation) <= 1e-9:
+            fail(f"cli_game_parity: model {i} evaluation {ra.evaluation} vs {rb.evaluation}")
+        errs[f"{i}.evaluation"] = abs(ra.evaluation - rb.evaluation)
+    ra, rb = a["results"][a["best"]], b["results"][b["best"]]
+    if not ra.scores.dtype == rb.scores.dtype == np.float64:
+        fail(f"cli_game_parity: scores are {ra.scores.dtype}/{rb.scores.dtype}, not float64")
+    want = dict(model_arrays(rb.model))
+    for key, got in [("scores", ra.scores), *model_arrays(ra.model)]:
+        ref = rb.scores if key == "scores" else want[key]
+        errs[key] = float(np.abs(got - ref).max()) if got.size else 0.0
+        if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-9, atol=1e-9):
+            fail(f"cli_game_parity: card vs cpu {key} max_abs_err={errs[key]}")
+    log(json.dumps({
+        "phase": "cli_game_parity", "rows": n, "validation_rows": n_valid, "fe_dim": FE_DIM,
+        "wall_s": time.perf_counter() - t0, "best": a["best"],
+        "evaluations": [r.evaluation for r in a["results"]],
+        "kernel_launches_card": launches, "max_abs_err": max(errs.values()),
+        "tolerance": 1e-9,
+    }))
+
+
+def cli_legacy(seed):
+    """``photon_tpu_torch.cli.legacy_driver.run`` on a LIBSVM file of a1a's
+    shape (validated on itself), STANDARDIZATION and λ = 10, 1, 0.1 on the
+    card: bench config 1's band, training AUC > 0.5, and coefficients equal
+    (rtol 1e-6) to ``train_glm_grid`` called directly with the same
+    configuration."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.cli import legacy_driver
+    from photon_tpu_torch.data.libsvm import read_libsvm
+    from photon_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_tpu_torch.model_training import train_glm_grid
+    from photon_tpu_torch.ops.normalization import NormalizationContext
+    from photon_tpu_torch.types import NormalizationType
+
+    def write_libsvm(path, data):
+        x = data.to_dense(np.float64)
+        with open(path, "w") as f:
+            for i in range(data.num_samples):
+                cols = np.flatnonzero(x[i, 1:]) + 1  # column 0 is a1a_data's intercept
+                feats = " ".join(f"{c}:{x[i, c]:g}" for c in cols)
+                f.write(f"{'+1' if data.labels[i] > 0.5 else '-1'} {feats}\n")
+
+    grid = [10.0, 1.0, 0.1]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-legacy-") as tmp:
+        write_libsvm(f"{tmp}/a1a.libsvm", a1a_data(seed))
+        t0 = time.perf_counter()
+        driver = legacy_driver.run([
+            "--training-data-directory", f"{tmp}/a1a.libsvm",
+            "--validating-data-directory", f"{tmp}/a1a.libsvm",
+            "--output-directory", f"{tmp}/out", "--input-format", "LIBSVM",
+            "--task", "LOGISTIC_REGRESSION", "--regularization-type", "L2",
+            "--regularization-weights", ",".join(str(w) for w in grid),
+            "--normalization-type", "STANDARDIZATION",
+        ], device="cuda")
+        wall = time.perf_counter() - t0
+        data = read_libsvm(f"{tmp}/a1a.libsvm")
+    check_bands("glm_a1a", driver.models)
+    stats = BasicStatisticalSummary.of(data)
+    norm = NormalizationContext.build(
+        NormalizationType.STANDARDIZATION, mean=stats.mean, variance=stats.variance,
+        max_magnitude=np.maximum(np.abs(stats.max), np.abs(stats.min)),
+        intercept_index=data.num_features - 1,
+    )
+    direct = train_glm_grid(data, driver.problem_config, grid, normalization=norm, device="cuda")
+    worst = 0.0
+    for a, b in zip(driver.models, direct):
+        got = a.model.coefficients.means.cpu().numpy()
+        want = b.model.coefficients.means.cpu().numpy()
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not np.allclose(got, want, rtol=1e-6, atol=1e-9):
+            fail(f"cli_legacy: driver vs train_glm_grid at λ={a.regularization_weight}: "
+                 f"max_abs_err={float(np.abs(got - want).max())}")
+    aucs = [row["AUC"] for row in driver.metrics]
+    if not min(aucs) > 0.5:
+        fail(f"cli_legacy: training AUC {aucs} not above 0.5")
+    log(json.dumps({
+        "phase": "cli_legacy", "n": data.num_samples, "d": data.num_features, "grid": grid,
+        "wall_s": wall, "stages": [s.name for s in driver.stage_history] + [driver.stage.name],
+        "solve_s": [m.wall_time_s for m in driver.models],
+        "iterations": [int(m.result.iterations) for m in driver.models],
+        "reasons": [int(m.result.reason) for m in driver.models],
+        "gnorm": [float(torch.linalg.vector_norm(m.result.gradient)) for m in driver.models],
+        "training_auc": aucs, "best_index": driver.best_index,
+        "driver_vs_direct_max_abs_err": worst,
+    }))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1361,6 +1759,9 @@ def main() -> None:
 
     small_game_parity(args.seed)
     game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
+    cli_launches, kcli = cli_game(args.seed)
+    cli_game_parity(args.seed)
+    cli_legacy(args.seed)
 
     def timings(row):
         return {key: row[key] for key in (
@@ -1381,10 +1782,12 @@ def main() -> None:
         "launches_by_path": {
             "main_path": launches, "glm_owlqn": owlqn_launches,
             **{path: n for path, n in game_launches.items() if n > 0},
+            "cli_game": cli_launches,
         },
         "layouts": {
             "config5_fe": {"launches": launches, **timings(kmain)},
             "config3_fe": {"launches": owlqn_launches, **timings(k3)},
+            "cli_game_fe": {"launches": cli_launches, **timings(kcli)},
         },
     }]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,13 +1,17 @@
-"""Feature index maps: feature key ⇄ column index, in memory.
+"""Feature index maps: feature key ⇄ column index.
 
-Host copy of the parts of photon_tpu/data/index_map.py that the box
-constraints need (the port imports nothing of the JAX package). Keys
-follow the reference convention ``name + INTERSECT + term``; the
-intercept's key is ``feature_key(INTERCEPT_NAME)``. The partitioned
-(off-heap) map and the abstract interface are not carried over.
+Host copy of photon_tpu/data/index_map.py (the port imports nothing of
+the JAX package): the ``IndexMap`` interface (reference
+index/IndexMap.scala), the in-memory ``DefaultIndexMap`` and the
+``PartitionedIndexMap`` over N partition stores with global index =
+local index + partition offset (reference PalDBIndexMap.scala:69-99; the
+stores themselves are in ``data/native_index``). Keys follow the
+reference convention ``name + INTERSECT + term``; the intercept's key is
+``feature_key(INTERCEPT_NAME)``.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Iterable, Iterator, Mapping
 
 INTERSECT = "\x01"  # reference GLMSuite DELIMITER between name and term
@@ -21,7 +25,27 @@ def feature_key(name: str, term: str = "") -> str:
 INTERCEPT_KEY = feature_key(INTERCEPT_NAME)
 
 
-class DefaultIndexMap:
+class IndexMap:
+    """name⇄index interface (reference index/IndexMap.scala)."""
+
+    def get_index(self, key: str) -> int:
+        raise NotImplementedError
+
+    def get_feature_name(self, idx: int) -> str | None:
+        raise NotImplementedError
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __contains__(self, key: str) -> bool:
+        return self.get_index(key) >= 0
+
+    @property
+    def has_intercept(self) -> bool:
+        return INTERCEPT_KEY in self
+
+
+class DefaultIndexMap(IndexMap):
     """In-memory dict-backed index map (reference DefaultIndexMap)."""
 
     def __init__(self, key_to_index: Mapping[str, int]):
@@ -50,3 +74,37 @@ class DefaultIndexMap:
 
     def __iter__(self) -> Iterator[tuple[str, int]]:
         return iter(self._to_index.items())
+
+
+class PartitionedIndexMap(IndexMap):
+    """N partition maps with global idx = local idx + partition offset;
+    the partition of a key is crc32(key) % N (stable across processes,
+    unlike Python's salted ``hash``)."""
+
+    def __init__(self, partitions: list[IndexMap]):
+        self._partitions = partitions
+        self._offsets = []
+        off = 0
+        for p in partitions:
+            self._offsets.append(off)
+            off += len(p)
+        self._total = off
+
+    @staticmethod
+    def _partition_of(key: str, n: int) -> int:
+        return zlib.crc32(key.encode("utf-8")) % n
+
+    def get_index(self, key: str) -> int:
+        n = len(self._partitions)
+        p = self._partition_of(key, n)
+        local = self._partitions[p].get_index(key)
+        return -1 if local < 0 else local + self._offsets[p]
+
+    def get_feature_name(self, idx: int) -> str | None:
+        for p, off in zip(self._partitions, self._offsets):
+            if off <= idx < off + len(p):
+                return p.get_feature_name(idx - off)
+        return None
+
+    def __len__(self) -> int:
+        return self._total

@@ -68,3 +68,20 @@ def validate(
 
     if errors:
         raise DataValidationError("; ".join(errors))
+
+
+def validate_game_data(
+    game_data,
+    task: TaskType,
+    mode: DataValidationType = DataValidationType.VALIDATE_FULL,
+) -> None:
+    """Validate every feature shard of a GameData with the shared label,
+    offset and weight columns (reference
+    DataValidators.sanityCheckDataFrameForTraining)."""
+    if mode == DataValidationType.VALIDATE_DISABLED:
+        return
+    for shard in game_data.feature_shards:
+        try:
+            validate(game_data.shard_dataset(shard), task, mode)
+        except DataValidationError as e:
+            raise DataValidationError(f"shard {shard!r}: {e}") from None

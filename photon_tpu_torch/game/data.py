@@ -15,7 +15,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
-from photon_tpu_torch.data.dataset import csr_to_ell
+from photon_tpu_torch.data.dataset import DataSet, csr_to_ell
 from photon_tpu_torch.game.config import ProjectorType, RandomEffectCoordinateConfig
 from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD
 
@@ -63,13 +63,15 @@ class CSRMatrix:
 
 @dataclasses.dataclass
 class GameData:
-    """Columnar GAME dataset: N samples, feature shards, entity id tags."""
+    """Columnar GAME dataset: N samples, feature shards, entity id tags,
+    and optional per-sample ids (``uids``, carried to score output)."""
 
     labels: np.ndarray
     offsets: np.ndarray
     weights: np.ndarray
     feature_shards: Mapping[str, CSRMatrix]
     id_tags: Mapping[str, np.ndarray]
+    uids: Sequence[str | None] | None = None
 
     def __post_init__(self):
         n = self.num_samples
@@ -79,10 +81,21 @@ class GameData:
         for tag, col in self.id_tags.items():
             if len(col) != n:
                 raise ValueError(f"id tag {tag} has {len(col)} rows != {n}")
+        if self.uids is not None and len(self.uids) != n:
+            raise ValueError(f"uids has {len(self.uids)} rows != {n}")
 
     @property
     def num_samples(self) -> int:
         return self.labels.shape[0]
+
+    def shard_dataset(self, shard: str):
+        """One feature shard with the shared label, offset and weight
+        columns as a flat DataSet (the single-GLM view)."""
+        m = self.feature_shards[shard]
+        return DataSet(
+            indptr=m.indptr, indices=m.indices, values=m.values, labels=self.labels,
+            offsets=self.offsets, weights=self.weights, num_features=m.num_cols,
+        )
 
     @staticmethod
     def build(
@@ -92,6 +105,7 @@ class GameData:
         offsets: np.ndarray | None = None,
         weights: np.ndarray | None = None,
         id_tags: Mapping[str, Sequence] | None = None,
+        uids: Sequence[str | None] | None = None,
     ) -> "GameData":
         n = len(labels)
         return GameData(
@@ -100,6 +114,7 @@ class GameData:
             weights=np.ones(n) if weights is None else np.asarray(weights),
             feature_shards=dict(feature_shards),
             id_tags={t: np.asarray(v).astype(str) for t, v in (id_tags or {}).items()},
+            uids=uids,
         )
 
 
@@ -121,6 +136,7 @@ def slice_game_data(data: GameData, lo: int, hi: int) -> GameData:
         weights=data.weights[lo:hi],
         feature_shards=shards,
         id_tags={t: np.asarray(col)[lo:hi] for t, col in data.id_tags.items()},
+        uids=None if data.uids is None else list(data.uids[lo:hi]),
     )
 
 
@@ -136,6 +152,8 @@ def concat_game_data(pieces: Sequence[GameData]) -> GameData:
             first.id_tags
         ):
             raise ValueError("GameData pieces disagree on shards or id tags")
+        if (p.uids is None) != (first.uids is None):
+            raise ValueError("GameData pieces disagree on uid presence")
     shards = {}
     for name in first.feature_shards:
         mats = [p.feature_shards[name] for p in pieces]
@@ -162,6 +180,7 @@ def concat_game_data(pieces: Sequence[GameData]) -> GameData:
             t: np.concatenate([np.asarray(p.id_tags[t]) for p in pieces])
             for t in first.id_tags
         },
+        uids=None if first.uids is None else [u for p in pieces for u in p.uids],
     )
 
 
@@ -200,6 +219,7 @@ def pad_game_data(data: GameData, multiple: int) -> GameData:
         weights=np.concatenate([data.weights, np.zeros(pad)]),
         feature_shards=shards,
         id_tags=id_tags,
+        uids=None if data.uids is None else list(data.uids) + [None] * pad,
     )
 
 

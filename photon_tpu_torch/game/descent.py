@@ -53,11 +53,14 @@ def run_coordinate_descent(
     larger_is_better: bool = True,
     start_iteration: int = 0,
     initial_best: tuple[dict, float] | None = None,
+    sweep_hook: Callable[[int, dict], None] | None = None,
 ) -> CoordinateDescentResult:
     """``validation_fn(states) -> metric`` runs after each sweep on the
     live states (it must not keep them); the best sweep's states are
     cloned into ``best_states``. ``start_iteration``/``initial_best``
-    resume a descent from a saved sweep."""
+    resume a descent from a saved sweep. ``sweep_hook(iteration, row)``
+    fires with each sweep's tracker row as it is appended (the estimator
+    emits ``sweep_complete`` events through it)."""
     unknown = [c for c in update_sequence if c not in coordinates]
     if unknown:
         raise ValueError(f"update sequence references unknown coordinates {unknown}")
@@ -99,13 +102,14 @@ def run_coordinate_descent(
         t_bar = time.perf_counter()
         _barrier(total)
         now = time.perf_counter()
-        tracker.append(
-            {
-                "iteration": it,
-                "sweep_seconds": now - t_sweep,
-                "barrier_seconds": now - t_bar,
-            }
-        )
+        sweep_row = {
+            "iteration": it,
+            "sweep_seconds": now - t_sweep,
+            "barrier_seconds": now - t_bar,
+        }
+        tracker.append(sweep_row)
+        if sweep_hook is not None:
+            sweep_hook(it, sweep_row)
         if validation_fn is not None:
             t_val = time.perf_counter()
             metric = float(validation_fn(states))

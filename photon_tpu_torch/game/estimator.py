@@ -7,7 +7,8 @@ shard, locked coordinates, an initial model (warm start, with
 ``ignore_threshold_for_new_models`` and the carry-over of prior entities
 that got no new data), per-sweep validation with the best sweep's model
 returned, and fixed-effect, random-effect and matrix-factorization
-coordinates. No streaming, mesh, precompile, checkpoints or telemetry.
+coordinates, and the lifecycle events of JAX's ``events=`` bus. No
+streaming, mesh, precompile, checkpoints or telemetry.
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
 asked for.
 """
@@ -81,7 +82,11 @@ class GameEstimator:
     ``ignore_threshold_for_new_models`` lets entities without a prior
     model bypass ``active_data_lower_bound`` (needs an initial model);
     ``validation_evaluator`` (EvaluatorType or GroupedEvaluatorSpec)
-    scores ``validation_data`` after every sweep and picks the model."""
+    scores ``validation_data`` after every sweep and picks the model.
+    ``events`` (a ``util.events.EventEmitter``) receives ``setup``,
+    ``sweep_complete``, ``training_finish`` and ``training_failure`` with
+    the JAX package's payloads; the dispatch, compile and health fields,
+    which the port does not count, are None."""
 
     task: TaskType
     coordinate_configs: Mapping[str, object]
@@ -94,6 +99,7 @@ class GameEstimator:
     dtype: torch.dtype = torch.float32
     seed: int = 0
     device: str | torch.device = "cuda"
+    events: object | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -178,6 +184,41 @@ class GameEstimator:
     ) -> list[GameTrainingResult]:
         """One GameModel per λ-grid point, warm-starting across the grid.
         ``grid_callback(grid_index, result)`` fires as each point ends."""
+        emitter = self.events
+        if emitter is not None:
+            emitter.emit(
+                "setup",
+                coordinates=list(self.coordinate_configs),
+                update_sequence=list(self.update_sequence),
+                grid_length=self._grid_length(),
+                descent_iterations=self.descent_iterations,
+                num_samples=int(data.num_samples),
+            )
+        try:
+            results = self._fit(
+                data, validation_data=validation_data, initial_model=initial_model,
+                grid_callback=grid_callback, shape_pool=shape_pool,
+            )
+        except Exception as e:
+            # a failed fit leaves no earlier fit's numbers behind
+            self.last_fit_stats = None
+            if emitter is not None:
+                emitter.emit("training_failure", error=f"{type(e).__name__}: {e}")
+            raise
+        if emitter is not None:
+            evals = [r.evaluation for r in results if r.evaluation is not None]
+            ev = self.validation_evaluator
+            pick = max if ev is None or ev.larger_is_better else min
+            emitter.emit(
+                "training_finish",
+                n_grid_points=len(results),
+                best_evaluation=pick(evals) if evals else None,
+                wall_time_s=round(self.last_fit_stats["wall_s"], 4),
+                dispatches=None,
+            )
+        return results
+
+    def _fit(self, data, *, validation_data, initial_model, grid_callback, shape_pool):
         if self.ignore_threshold_for_new_models and initial_model is None:
             raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
@@ -215,6 +256,7 @@ class GameEstimator:
                 locked_coordinates=self.locked_coordinates,
                 validation_fn=validation_fn,
                 larger_is_better=larger,
+                sweep_hook=self._sweep_hook(gi),
             )
             final, total = cd.states, cd.total
             if cd.best_states is not None:
@@ -243,6 +285,19 @@ class GameEstimator:
             "wall_s": time.perf_counter() - t0,
         }
         return results
+
+    def _sweep_hook(self, grid_index: int):
+        if self.events is None:
+            return None
+        return lambda it, row: self.events.emit(
+            "sweep_complete",
+            grid_index=grid_index,
+            iteration=it,
+            sweep_seconds=row["sweep_seconds"],
+            dispatches=None,
+            compiles=None,
+            health=None,
+        )
 
     def _to_model(self, coordinates, states) -> GameModel:
         # every coordinate with a state ships, locked ones outside the
