@@ -30,12 +30,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    problem) and ``glm_owlqn`` (a DataSet of 2^20 × 2^20 with 56 slots per
    row, OWL-QN elastic-net Poisson through the window layout; the kernel
    launched, exact zeros, band, float64 card vs CPU on a small problem);
-   then the kernel held and timed on the config-3 layout;
+   then the kernel held and timed on the config-3 layout; ``main_path``,
+   ``glm_owlqn`` and ``cli_game`` print how their window layout was built
+   (the native counting sort or numpy, and its seconds), and fail if a
+   float32 layout took numpy although the native library built; the
+   config-5 layout is built both ways and must come out equal;
 6. the GAME estimator's options: ``small_game_parity`` (one small fit
    per option on the card and on the CPU at float64, within 1e-9: a
    random projection, a Pearson cap, MF, fixed-effect down-sampling, and
-   validation with a locked coordinate and a warm start; two MF fits on
-   the card compared bit for bit), ``game_glmix`` (bench config 4 at full
+   validation with a locked coordinate and a warm start, and a windowed
+   fixed effect with STANDARDIZATION and SIMPLE variances, whose variance
+   computation runs the kernel; two MF fits on the card compared bit for
+   bit), ``game_glmix`` (bench config 4 at full
    scale: a dense fixed effect of 128 columns and a per-user random
    effect over 8192 Zipf users, 3 sweeps, grouped AUC ≥ 0.8; then
    STANDARDIZATION, per-sweep AUC:user validation on 2^14 held-out rows,
@@ -64,7 +70,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    shape (STANDARDIZATION, a 3-λ grid): bench config 1's band, and the
    coefficients of ``train_glm_grid(device="cuda")`` called directly
    within rtol 1e-6;
-8. print one ``{"kernels": [...]}`` line and, last, the ok line.
+8. recovery and tuning, on ``cli_game``'s Avro parts and widths:
+   ``cli_game_resume`` (the training command line with
+   ``--checkpoint-sweeps`` killed by the fault plan at grid 1's second
+   sweep, then rerun: it resumes there, and every model equals
+   ``cli_game``'s bit for bit), ``cli_game_restart`` (on the data the
+   driver read: a NaN injected into a sweep raises DivergenceError, and
+   with ``max_restarts=1`` the fit restarts from its checkpoint and gives
+   the uninterrupted models bit for bit), ``cli_game_warm`` (a model
+   snapshot saved by ``--model-checkpoint-directory`` loads back equal to
+   the final model, and a run with ``--warm-start-input-directory``
+   starts from its scores within 1e-4) and ``cli_game_tuning`` (BAYESIAN
+   tuning for 3 iterations: 5 finite evaluations, the kernel launched in
+   every tuned fit, the saved observations read back as priors);
+9. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -75,6 +94,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM HBM3 bandwidth, bytes/s (NVIDIA data sheet)
@@ -352,6 +372,48 @@ def kernel_case(label, idx, val, dim, *, dtype=None, window=128, cap=4096, chunk
     return row
 
 
+def window_build(phase):
+    """How the last host build of a window layout ran (native or numpy, its
+    seconds split into phases); fails when it took numpy for float32 values although the
+    native library had built."""
+    from photon_tpu_torch.data import native_index
+    from photon_tpu_torch.ops import sparse_windows as sw
+
+    row = dict(sw.last_build)
+    if row["path"] is None:
+        fail(f"{phase}: no window layout was built")
+    if row["path"] != "native" and native_index.load_native_lib() is not None:
+        fail(f"{phase}: the float32 window build took numpy ({row['reason']}) although the "
+             "native library built")
+    return row
+
+
+def config5_window_builds(idx, val, dim):
+    """The config-5 float32 layout built by the native counting sort and by
+    numpy's argsort: the arrays must be equal. Returns the native layout."""
+    import numpy as np
+
+    from photon_tpu_torch.ops import sparse_windows as sw
+
+    t0 = time.perf_counter()
+    native = sw.build_column_windows_numpy(idx, val, dim)
+    native_s = time.perf_counter() - t0
+    native_phases = window_build("config5_window_build")["phases"]
+    t0 = time.perf_counter()
+    numpy_layout = sw.build_column_windows_numpy(idx, val, dim, native=False)
+    numpy_s = time.perf_counter() - t0
+    numpy_phases = dict(sw.last_build["phases"])
+    for key, a in native.items():
+        b = numpy_layout[key]
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"config5_window_build: native and numpy layouts differ in {key}")
+    log(json.dumps({"phase": "window_build", "layout": "config5_fe", "rows": int(idx.shape[0]),
+                    "slots": int(idx.shape[1]), "dim": int(dim), "native_s": native_s,
+                    "numpy_s": numpy_s, "native_phases": native_phases,
+                    "numpy_phases": numpy_phases, "arrays_equal": True}))
+    return native
+
+
 def kernel_phase(data):
     """Every layout at float32 (the fit's type on the main path) and at
     float64; returns the config-5 float32 row."""
@@ -367,9 +429,11 @@ def kernel_phase(data):
     idx3[:, 0] = 0
     val3 = rng.standard_normal((n3, k3)).astype(np.float32)
     val3[rng.uniform(size=(n3, k3)) < 0.2] = 0.0
+    layout = config5_window_builds(idx, val, fe.num_cols)
     rows = {}
     for dtype in (torch.float32, torch.float64):
-        rows[dtype] = kernel_case("config5_fe", idx, val, fe.num_cols, dtype=dtype, probes=True)
+        rows[dtype] = kernel_case("config5_fe", idx, val, fe.num_cols, dtype=dtype, probes=True,
+                                  layout=layout)
         # non-default instance lengths: one hot window spilling at L = 3·512
         # (one tile of 192 threads), and at L = 5000 (tiles of 2048, 2048, 904)
         kernel_case(
@@ -513,6 +577,7 @@ def main_path(data, seed):
     result = est.fit(data)[0]
     fit_wall = time.perf_counter() - t0
     fit_launches = windowed_rmatvec.launches
+    wbuild = window_build("main_path")
     t1 = time.perf_counter()
     scores = GameScorer(result.model, device="cuda", batch_rows=1 << 16).score_data(data)
     score_wall = time.perf_counter() - t1
@@ -549,6 +614,7 @@ def main_path(data, seed):
                 "items": [N_ITEMS, FULL_ITEMS]},
         "fit_wall_s": fit_wall,
         "build_s": est.last_fit_stats["build_s"],
+        "window_build": wbuild,
         "sweep_seconds": [r["sweep_seconds"] for r in sweeps],
         "steady_sweep_s": sweeps[-1]["sweep_seconds"],
         "steady_coordinate_s": per_coord,
@@ -825,6 +891,7 @@ def glm_owlqn(seed):
     (model,) = train_glm_grid(ds, cfg, [1e-3], device="cuda")
     wall = time.perf_counter() - t0
     launches = windowed_rmatvec.launches
+    wbuild = window_build("glm_owlqn")
     if launches <= 0:
         fail("glm_owlqn: the fit never launched the windowed Xᵀr kernel")
     check_bands("glm_owlqn", [model])
@@ -836,7 +903,8 @@ def glm_owlqn(seed):
         "phase": "glm_owlqn", "n": OWLQN_N, "d": OWLQN_D, "slots": OWLQN_K,
         "nnz": int(idx.size), "dtype": "float32", "l1": 5e-4, "l2": 5e-4,
         "data_gen_s": gen_s, "fit_wall_s": wall,
-        "host_build_s": wall - model.wall_time_s, "solve_wall_s": model.wall_time_s,
+        "host_build_s": wall - model.wall_time_s, "window_build": wbuild,
+        "solve_wall_s": model.wall_time_s,
         "iterations": int(res.iterations), "reason": int(res.reason),
         "n_evals": int(res.n_evals), "n_feature_passes": int(res.n_feature_passes),
         "kernel_launches": launches, "zero_coefficients": n_zero,
@@ -1305,10 +1373,89 @@ def small_game_parity(seed):
         np.array_equal(x, y)
         for (_, x), (_, y) in zip(model_arrays(mf_fits[0].model), model_arrays(mf_fits[1].model))
     )
+    variance_launches, rows["windowed_variance"] = windowed_variance_parity(seed)
+    worst = max(worst, rows["windowed_variance"])
     log(json.dumps({"phase": "small_game_parity", "rows": data.num_samples,
                     "wall_s": time.perf_counter() - t0,
                     "max_abs_err_by_case": rows, "max_abs_err": worst, "tolerance": 1e-9,
-                    "mf_two_card_fits_bitwise_equal": mf_bitwise}))
+                    "mf_two_card_fits_bitwise_equal": mf_bitwise,
+                    "variance_kernel_launches": variance_launches}))
+    return variance_launches
+
+
+def windowed_variance_parity(seed):
+    """A fit whose fixed effect runs through the window layout (2^11
+    columns, 8 slots per row) with STANDARDIZATION and SIMPLE variances,
+    on the card and on the CPU at float64: coefficients and variances
+    within 1e-9. On the card ``hessian_diagonal`` runs the kernel over the
+    squared values and, for the shifts, over the values. Returns the
+    kernel's launches inside the variance computation, and the largest
+    difference."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.data.stats import BasicStatisticalSummary
+    from photon_tpu_torch.game import (
+        FeatureRepresentation,
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.ops.normalization import NormalizationContext
+    from photon_tpu_torch.ops.objective import GLMObjective
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import NormalizationType, TaskType
+
+    data = make_ctr_data(seed + 13, 1 << 13, 1 << 11, 8, [("user", 256, 8, 32)])
+    stats = BasicStatisticalSummary.of(data.shard_dataset("global"))
+    cfgs = {
+        "fixed": FixedEffectCoordinateConfig(
+            feature_shard="global", optimization=l2_config(15, 10, variance="SIMPLE"),
+            regularization_weights=(1.0,), representation=FeatureRepresentation.SPARSE,
+            column_windows=True),
+        "user": RandomEffectCoordinateConfig(
+            random_effect_type="user", feature_shard="per_user",
+            optimization=l2_config(8, 8, variance="SIMPLE"), regularization_weights=(1.0,),
+            active_data_upper_bound=32),
+    }
+    counted = {"launches": 0}
+    hessian_diagonal = GLMObjective.hessian_diagonal
+
+    def counting(self, coef, batch):
+        n0 = windowed_rmatvec.launches
+        out = hessian_diagonal(self, coef, batch)
+        counted["launches"] += windowed_rmatvec.launches - n0
+        return out
+
+    out = {}
+    GLMObjective.hessian_diagonal = counting
+    try:
+        for dev in ("cpu", "cuda"):
+            norm = NormalizationContext.build(
+                NormalizationType.STANDARDIZATION, mean=stats.mean, variance=stats.variance,
+                intercept_index=0, dtype=torch.float64)
+            out[dev] = GameEstimator(
+                task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=cfgs,
+                update_sequence=["fixed", "user"], descent_iterations=2,
+                normalization_contexts={"global": norm}, dtype=torch.float64, seed=seed,
+                device=dev,
+            ).fit(data)[0]
+    finally:
+        GLMObjective.hessian_diagonal = hessian_diagonal
+    if counted["launches"] <= 0:
+        fail("small_game_parity[windowed_variance]: the variance computation never launched "
+             "the windowed Xᵀr kernel")
+    want = dict(model_arrays(out["cpu"].model))
+    if out["cpu"].model["fixed"].coefficients.variances is None:
+        fail("small_game_parity[windowed_variance]: no fixed-effect variances")
+    worst = 0.0
+    for key, got in [("scores", out["cuda"].scores), *model_arrays(out["cuda"].model)]:
+        ref = out["cpu"].scores if key == "scores" else want[key]
+        err = float(np.abs(got - ref).max()) if got.size else 0.0
+        worst = max(worst, err)
+        if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-9, atol=1e-9):
+            fail(f"small_game_parity[windowed_variance]: card vs cpu {key} max_abs_err={err}")
+    return counted["launches"], worst
 
 
 # --- the command-line drivers (cli_game, cli_legacy) -------------------------
@@ -1413,13 +1560,68 @@ def read_fe_shard(train_dir, index_maps):
     return reader.read([train_dir], {name: cfg}).feature_shards[name]
 
 
-def cli_game(seed):
+def model_mismatch(want, got, rtol=0.0):
+    """None when two GameModels of the cli_game coordinates hold the same
+    coefficients and variances (bit for bit with ``rtol`` 0) and model the
+    same entities, else what differs. The random effects are compared
+    entity by entity, by key, in the shard's space."""
+    import numpy as np
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape:
+            return False
+        return np.array_equal(a, b) if rtol == 0 else np.allclose(a, b, rtol=rtol, atol=0)
+
+    def entities(m):
+        """key → (means, variances or None), both shard-wide."""
+        out = {}
+        for b in m.buckets:
+            for i, e in enumerate(b.entity_ids):
+                w, v = np.asarray(b.coefficients[i]), None
+                if b.variances is not None:
+                    v = np.asarray(b.variances[i])
+                if m.projection_matrix is None:
+                    cols = b.col_index[i]
+                    valid = cols >= 0
+                    w_full = np.zeros(m.num_features)
+                    w_full[cols[valid]] = w[valid]
+                    w = w_full
+                    if v is not None:
+                        v_full = np.zeros(m.num_features)
+                        v_full[cols[valid]] = v[valid]
+                        v = v_full
+                out[m.vocab[e]] = (w, v)
+        return out
+
+    fw, fg = want["fixed"].coefficients, got["fixed"].coefficients
+    if not same(fw.means, fg.means):
+        return "the fixed effect's means"
+    if not same(fw.variances, fg.variances):
+        return "the fixed effect's variances"
+    for cid in ("user", "item"):
+        w, g = entities(want[cid]), entities(got[cid])
+        if w.keys() != g.keys():
+            return f"the {cid} entities modeled ({len(w)} vs {len(g)})"
+        for key, (wm, wv) in w.items():
+            gm, gv = g[key]
+            if not same(wm, gm):
+                return f"the {cid} means of {key}"
+            if not same(wv, gv):
+                return f"the {cid} variances of {key}"
+    return None
+
+
+def cli_game(seed, tmp):
     """``photon_tpu_torch.cli.game_training.run`` then ``game_scoring.run``
     at bench config 5's widths (FE 2^17 columns, 23 sparse features per
     row + the shard's intercept; per-user and per-item d=16), depth cut to
-    2^17 rows / 2^16 users / 2^13 items, from Avro part files written here."""
-    import tempfile
-
+    2^17 rows / 2^16 users / 2^13 items, from Avro part files written into
+    ``tmp``. Returns the kernel's launches, the ``cli_game_fe`` kernel row
+    and what the later cli phases reuse: the part files' directories and
+    the uninterrupted fit's results."""
     import numpy as np
     import torch
 
@@ -1434,49 +1636,49 @@ def cli_game(seed):
     both = make_ctr_data(seed + 5, CLI_N + CLI_VALID_N, FE_DIM, FE_NNZ, coords)
     train, valid = slice_game_data(both, 0, CLI_N), slice_game_data(both, CLI_N, both.num_samples)
     gen_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
-        t0 = time.perf_counter()
-        write_ctr_avro(train, f"{tmp}/train", CLI_PARTS)
-        write_ctr_avro(valid, f"{tmp}/valid", 1, row0=CLI_N)
-        write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_ctr_avro(train, f"{tmp}/train", CLI_PARTS)
+    write_ctr_avro(valid, f"{tmp}/valid", 1, row0=CLI_N)
+    write_s = time.perf_counter() - t0
 
-        torch.cuda.reset_peak_memory_stats()
-        windowed_rmatvec.launches = 0
-        t0 = time.perf_counter()
-        res = game_training.run(
-            cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/training"), device="cuda"
-        )
-        train_wall = time.perf_counter() - t0
-        launches = windowed_rmatvec.launches
-        if launches <= 0:
-            fail("cli_game: the training driver's fit never launched the windowed Xᵀr kernel")
-        best = res["results"][res["best"]]
-        summary = json.loads(open(f"{tmp}/training/training-summary.json").read())
-        if summary["best"] != res["best"]:
-            fail("cli_game: training-summary.json names another best model")
+    torch.cuda.reset_peak_memory_stats()
+    windowed_rmatvec.launches = 0
+    t0 = time.perf_counter()
+    res = game_training.run(
+        cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/training"), device="cuda"
+    )
+    train_wall = time.perf_counter() - t0
+    launches = windowed_rmatvec.launches
+    wbuild = window_build("cli_game")
+    if launches <= 0:
+        fail("cli_game: the training driver's fit never launched the windowed Xᵀr kernel")
+    best = res["results"][res["best"]]
+    summary = json.loads(open(f"{tmp}/training/training-summary.json").read())
+    if summary["best"] != res["best"]:
+        fail("cli_game: training-summary.json names another best model")
 
-        scored = {}
-        for name in ("train", "valid"):
-            t0 = time.perf_counter()
-            out = game_scoring.run([
-                "--input-data-directories", f"{tmp}/{name}",
-                "--root-output-directory", f"{tmp}/scoring-{name}", *CLI_SHARDS,
-                "--model-input-directory", f"{tmp}/training/best",
-                "--evaluators", "AUC:userId,AUC",
-                "--num-output-partitions", "3", "--score-batch-rows", "16384",
-            ], device="cuda")
-            out["wall_s"] = time.perf_counter() - t0
-            out["records"] = {r["uid"]: r["predictionScore"]
-                              for r in read_avro_dir(f"{tmp}/scoring-{name}/scores")}
-            scored[name] = out
-
+    scored = {}
+    for name in ("train", "valid"):
         t0 = time.perf_counter()
-        loaded = load_game_model(f"{tmp}/training/best", res["index_maps"])
-        load_check_s = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        # the kernel held against its plain version on the layout this
-        # path gave it (its launches above are the driver's alone)
-        fe_shard = read_fe_shard(f"{tmp}/train", res["index_maps"])
+        out = game_scoring.run([
+            "--input-data-directories", f"{tmp}/{name}",
+            "--root-output-directory", f"{tmp}/scoring-{name}", *CLI_SHARDS,
+            "--model-input-directory", f"{tmp}/training/best",
+            "--evaluators", "AUC:userId,AUC",
+            "--num-output-partitions", "3", "--score-batch-rows", "16384",
+        ], device="cuda")
+        out["wall_s"] = time.perf_counter() - t0
+        out["records"] = {r["uid"]: r["predictionScore"]
+                          for r in read_avro_dir(f"{tmp}/scoring-{name}/scores")}
+        scored[name] = out
+
+    t0 = time.perf_counter()
+    loaded = load_game_model(f"{tmp}/training/best", res["index_maps"])
+    load_check_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the kernel held against its plain version on the layout this
+    # path gave it (its launches above are the driver's alone)
+    fe_shard = read_fe_shard(f"{tmp}/train", res["index_maps"])
     krow = kernel_case("cli_game_fe", *fe_shard.to_ell(dtype=np.float32), fe_shard.num_cols)
     del fe_shard
 
@@ -1488,19 +1690,9 @@ def cli_game(seed):
         for b in model[cid].buckets:
             if not np.all(np.isfinite(b.coefficients)):
                 fail(f"cli_game: {cid} coefficients are not finite")
-    if not np.array_equal(loaded["fixed"].coefficients.means, fe):
-        fail("cli_game: the loaded fixed effect differs from the trained one")
-    for cid in ("user", "item"):
-        want, got = model[cid], loaded[cid]
-        w_lookup, g_lookup = want.dense_coefficient_lookup(), got.dense_coefficient_lookup()
-        g_index = got.entity_row_index
-        for e, key in enumerate(want.vocab):
-            w = w_lookup[e]
-            if w is None:
-                continue
-            g = g_lookup[g_index[key]]
-            if not np.array_equal(w, g):
-                fail(f"cli_game: the loaded {cid} model of {key} differs from the trained one")
+    differs = model_mismatch(model, loaded)
+    if differs:
+        fail(f"cli_game: {differs} of the loaded best model differs from the trained one")
 
     train_scores = scored["train"]["records"]
     if len(train_scores) != CLI_N:
@@ -1533,6 +1725,7 @@ def cli_game(seed):
         "data_gen_s": gen_s, "write_s": write_s,
         "read_s": tw["read training data"], "read_validation_s": tw["read validation data"],
         "fit_wall_s": res["fit_stats"]["wall_s"], "fit_build_s": res["fit_stats"]["build_s"],
+        "window_build": wbuild,
         "grid_s": [r.wall_time_s for r in res["results"]],
         "sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
                     for r in res["results"]],
@@ -1550,7 +1743,297 @@ def cli_game(seed):
         "auc_user_valid_scoring": valid_auc,
         "evaluations_valid": scored["valid"]["evaluations"], "peak_mem_gib": peak,
     }))
-    return launches, krow
+    return launches, krow, {
+        "tmp": tmp, "train": f"{tmp}/train", "valid": f"{tmp}/valid", "res": res,
+        "summary": summary,
+    }
+
+
+def cli_args(ctx, out, *extra):
+    """The training driver's parsed command line of ``cli_game`` (plus
+    ``extra``), writing to ``out`` under the phase's directory."""
+    return cli_train_argv(ctx["train"], ctx["valid"], f"{ctx['tmp']}/{out}") + list(extra)
+
+
+def launches_since_zero(fn):
+    """``fn()`` with the kernel's launch count set to 0 just before; returns
+    (its result, the launches it made)."""
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    windowed_rmatvec.launches = 0
+    out = fn()
+    return out, windowed_rmatvec.launches
+
+
+def cli_game_resume(ctx):
+    """``cli_game``'s command line with ``--checkpoint-sweeps``, killed by
+    the fault plan at occurrence 4 of ``descent.sweep`` (grid 1's second
+    sweep, 2 sweeps per grid point): ``InjectedCrash`` propagates, the
+    checkpoints and ``models/0`` are on disk. The same command line with no
+    plan resumes at grid 1 after its sweep 0, and every model equals
+    ``cli_game``'s uninterrupted one bit for bit (``models/0`` as the
+    resumed run loaded it back with ``load_game_model``)."""
+    import os
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.util import faults
+
+    argv = cli_args(ctx, "resume", "--checkpoint-sweeps")
+    out = f"{ctx['tmp']}/resume"
+    t0 = time.perf_counter()
+    windowed_rmatvec.launches = 0
+    # the driver installs its fault plan from the environment at start
+    os.environ["PHOTON_FAULTS"] = "descent.sweep@4=crash"
+    try:
+        game_training.run(argv, device="cuda")
+    except faults.InjectedCrash:
+        pass
+    else:
+        fail("cli_game_resume: the fault plan's crash did not propagate out of the driver")
+    finally:
+        del os.environ["PHOTON_FAULTS"]
+    crash_launches = windowed_rmatvec.launches
+    crash_s = time.perf_counter() - t0
+    for path in ("checkpoints/descent-checkpoint.json", "models/0/model-metadata.json"):
+        if not os.path.isfile(f"{out}/{path}"):
+            fail(f"cli_game_resume: {path} is not on disk after the crash")
+    if os.path.exists(f"{out}/models/1"):
+        fail("cli_game_resume: models/1 is on disk although grid 1 never finished")
+    t0 = time.perf_counter()
+    res, resume_launches = launches_since_zero(lambda: game_training.run(argv, device="cuda"))
+    resume_s = time.perf_counter() - t0
+    if res["fit_stats"]["resumed_from"] != (1, 0):
+        fail(f"cli_game_resume: resumed from {res['fit_stats']['resumed_from']}, not (1, 0)")
+    if "resumed from checkpoint: grid 1, sweep 0" not in open(f"{out}/driver.log").read():
+        fail("cli_game_resume: driver.log does not record the resume")
+    if resume_launches <= 0 or crash_launches <= 0:
+        fail("cli_game_resume: a run never launched the windowed Xᵀr kernel")
+    want = ctx["res"]["results"]
+    if res["best"] != ctx["res"]["best"]:
+        fail(f"cli_game_resume: best model {res['best']}, uninterrupted {ctx['res']['best']}")
+    for i, (w, g) in enumerate(zip(want, res["results"])):
+        differs = model_mismatch(w.model, g.model)
+        if differs:
+            near = model_mismatch(w.model, g.model, rtol=1e-6)
+            fail(f"cli_game_resume: {differs} of model {i} differs from the uninterrupted run "
+                 f"({'within' if near is None else 'beyond'} 1e-6 relative)")
+        if w.evaluation != g.evaluation:
+            fail(f"cli_game_resume: model {i} evaluation {g.evaluation} vs {w.evaluation}")
+    resumed_summary = json.loads(open(f"{out}/training-summary.json").read())
+    if [m["evaluation"] for m in resumed_summary["models"]] != [
+            m["evaluation"] for m in ctx["summary"]["models"]]:
+        fail("cli_game_resume: the resumed training-summary.json differs from cli_game's")
+    log(json.dumps({
+        "phase": "cli_game_resume", "crash_run_s": crash_s, "resume_run_s": resume_s,
+        "resumed_from": res["fit_stats"]["resumed_from"], "walls_resume": res["walls"],
+        "kernel_launches_crash_run": crash_launches, "kernel_launches_resume_run": resume_launches,
+        "models_bitwise_equal": True,
+    }))
+    return crash_launches + resume_launches
+
+
+def cli_driver_data(ctx):
+    """The training and validation data as ``cli_game``'s driver read them
+    (its reader, its index maps), and its estimator's settings."""
+    from photon_tpu_torch.cli import game_base, game_training
+    from photon_tpu_torch.cli.parsing import parse_coordinate_config
+    from photon_tpu_torch.evaluation.multi import GroupedEvaluatorSpec
+    from photon_tpu_torch.game.config import required_id_tags
+    from photon_tpu_torch.types import TaskType
+
+    args = game_training.build_parser().parse_args(cli_args(ctx, "unused"))
+    task = TaskType[args.training_task]
+    shards = game_base.parse_shard_configs(args)
+    configs = dict(parse_coordinate_config(c, task) for c in args.coordinate_configurations)
+    evaluators = game_base.evaluators_from_args(args)
+    id_tags = sorted(required_id_tags(configs.values()))
+    v_tags = sorted(set(id_tags) | {e.id_tag for e in evaluators
+                                    if isinstance(e, GroupedEvaluatorSpec)})
+    maps = ctx["res"]["index_maps"]
+    train, _, _ = game_base.read_game_data([ctx["train"]], shards, maps, id_tags)
+    valid, _, _ = game_base.read_game_data([ctx["valid"]], shards, maps, v_tags)
+    settings = dict(task=task, coordinate_configs=configs,
+                    update_sequence=args.coordinate_update_sequence.split(","),
+                    descent_iterations=args.coordinate_descent_iterations,
+                    validation_evaluator=evaluators[0], device="cuda")
+    return train, valid, settings
+
+
+def cli_game_restart(ctx, train, valid, settings):
+    """On the data ``cli_game``'s driver read, with its estimator settings:
+    a NaN injected into grid 0's sweep-1 fixed-effect state
+    (``descent.coordinate@4``) raises DivergenceError with no restart
+    budget (policy ``raise``); with ``max_restarts=1`` and a checkpoint
+    directory the fit restarts once from the sweep-0 checkpoint and gives
+    ``cli_game``'s uninterrupted models bit for bit."""
+    from photon_tpu_torch.game import GameEstimator
+    from photon_tpu_torch.obs.health import DivergenceError
+    from photon_tpu_torch.util import faults
+
+    plan = "descent.coordinate@4=nan"
+    t0 = time.perf_counter()
+
+    def raising():
+        try:
+            with faults.injected(plan):
+                GameEstimator(**settings).fit(train, validation_data=valid)
+        except DivergenceError as e:
+            return e
+        fail("cli_game_restart: the injected NaN did not raise DivergenceError")
+
+    err, raise_launches = launches_since_zero(raising)
+    if (err.coordinate, err.iteration) != ("fixed", 1):
+        fail(f"cli_game_restart: {err}")
+    raise_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = GameEstimator(**settings, max_restarts=1)
+
+    def restarting():
+        with faults.injected(plan):
+            return est.fit(train, validation_data=valid,
+                           checkpoint_dir=f"{ctx['tmp']}/restart-checkpoints")
+
+    results, restart_launches = launches_since_zero(restarting)
+    restart_s = time.perf_counter() - t0
+    stats = est.last_fit_stats
+    if len(stats["restarts"]) != 1 or not stats["restarts"][0].startswith("DivergenceError"):
+        fail(f"cli_game_restart: restarts {stats['restarts']}, expected one DivergenceError")
+    if stats["resumed_from"] != (0, 0):
+        fail(f"cli_game_restart: resumed from {stats['resumed_from']}, not (0, 0)")
+    for i, (w, g) in enumerate(zip(ctx["res"]["results"], results)):
+        differs = model_mismatch(w.model, g.model)
+        if differs:
+            near = model_mismatch(w.model, g.model, rtol=1e-6)
+            fail(f"cli_game_restart: {differs} of model {i} differs from the uninterrupted fit "
+                 f"({'within' if near is None else 'beyond'} 1e-6 relative)")
+        if w.evaluation != g.evaluation:
+            fail(f"cli_game_restart: model {i} evaluation {g.evaluation} vs {w.evaluation}")
+    log(json.dumps({
+        "phase": "cli_game_restart", "rows": train.num_samples, "divergence": str(err),
+        "raise_fit_s": raise_s, "restarted_fit_s": restart_s, "restarts": stats["restarts"],
+        "resumed_from": stats["resumed_from"], "kernel_launches_raise": raise_launches,
+        "kernel_launches_restarted_fit": restart_launches, "models_bitwise_equal": True,
+    }))
+    return raise_launches + restart_launches
+
+
+def cli_game_warm(ctx, train):
+    """``cli_game``'s command line with ``--model-checkpoint-directory D``
+    (no model files: output mode NONE): the snapshot loads back equal to
+    the run's final model. Then with ``--warm-start-input-directory D``:
+    the fit's initial scores equal the snapshot model's scores on the same
+    rows within 1e-4 (float32)."""
+    import numpy as np
+
+    import photon_tpu_torch.game.estimator as estimator_mod
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.game import GameScorer
+    from photon_tpu_torch.game.checkpoint import ModelCheckpointStore
+
+    snap_dir = f"{ctx['tmp']}/snapshots"
+    t0 = time.perf_counter()
+    res, save_launches = launches_since_zero(lambda: game_training.run(cli_args(
+        ctx, "warm-0", "--output-mode", "NONE", "--model-checkpoint-directory", snap_dir),
+        device="cuda"))
+    save_s = time.perf_counter() - t0
+    loaded = ModelCheckpointStore(snap_dir).load_latest()
+    if loaded is None or loaded[1] != 0:
+        fail(f"cli_game_warm: no model snapshot seq 0 in {snap_dir}")
+    snapshot = loaded[0]
+    differs = model_mismatch(res["results"][-1].model, snapshot)
+    if differs:
+        fail(f"cli_game_warm: {differs} of the snapshot differs from the run's final model")
+
+    captured = {}
+    descent = estimator_mod.run_coordinate_descent
+
+    def capturing(coordinates, *args, initial_states=None, **kwargs):
+        if "scores" not in captured:
+            total = sum(c.score(initial_states[cid]) for cid, c in coordinates.items())
+            captured["scores"] = total.double().cpu().numpy()
+        return descent(coordinates, *args, initial_states=initial_states, **kwargs)
+
+    estimator_mod.run_coordinate_descent = capturing
+    t0 = time.perf_counter()
+    try:
+        warm, warm_launches = launches_since_zero(lambda: game_training.run(cli_args(
+            ctx, "warm-1", "--output-mode", "NONE", "--warm-start-input-directory", snap_dir),
+            device="cuda"))
+    finally:
+        estimator_mod.run_coordinate_descent = descent
+    warm_s = time.perf_counter() - t0
+    want = GameScorer(snapshot, device="cuda", batch_rows=1 << 16).score_data(train)
+    got = captured["scores"]
+    err = float(np.abs(got - want).max())
+    if got.shape != want.shape or not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+        fail(f"cli_game_warm: the warm fit's initial scores vs the snapshot's max_abs_err={err}")
+    for r in warm["results"]:
+        if not np.all(np.isfinite(r.scores)):
+            fail("cli_game_warm: the warm-started fit's scores are not finite")
+    if save_launches <= 0 or warm_launches <= 0:
+        fail("cli_game_warm: a run never launched the windowed Xᵀr kernel")
+    log(json.dumps({
+        "phase": "cli_game_warm", "snapshot_run_s": save_s, "warm_run_s": warm_s,
+        "initial_scores_vs_snapshot_max_abs_err": err,
+        "evaluations_cold": [r.evaluation for r in res["results"]],
+        "evaluations_warm": [r.evaluation for r in warm["results"]],
+        "kernel_launches_snapshot_run": save_launches, "kernel_launches_warm_run": warm_launches,
+    }))
+    return save_launches + warm_launches
+
+
+def cli_game_tuning(ctx):
+    """``cli_game``'s command line with BAYESIAN tuning for 3 iterations
+    (AUC:userId validation) and saved observations: 2 grid and 3 tuned
+    results, every evaluation finite, the kernel launched in every tuned
+    fit, and the observations read back through ``priors_from_json``."""
+    import math
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.game import tuning
+    from photon_tpu_torch.hyperparameter.serialization import priors_from_json
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    obs_path = f"{ctx['tmp']}/observations.json"
+    per_fit = []
+    evaluate = tuning.GameEstimatorEvaluationFunction.__call__
+
+    def counting(self, candidate):
+        n0 = windowed_rmatvec.launches
+        out = evaluate(self, candidate)
+        per_fit.append(windowed_rmatvec.launches - n0)
+        return out
+
+    tuning.GameEstimatorEvaluationFunction.__call__ = counting
+    t0 = time.perf_counter()
+    try:
+        res, launches = launches_since_zero(lambda: game_training.run(cli_args(
+            ctx, "tuning", "--output-mode", "NONE", "--hyper-parameter-tuning", "BAYESIAN",
+            "--hyper-parameter-tuning-iter", "3", "--hyper-parameter-save-observations",
+            obs_path), device="cuda"))
+    finally:
+        tuning.GameEstimatorEvaluationFunction.__call__ = evaluate
+    wall = time.perf_counter() - t0
+    results = res["results"]
+    if len(results) != 5:
+        fail(f"cli_game_tuning: {len(results)} results, expected 2 grid + 3 tuned")
+    if not all(r.evaluation is not None and math.isfinite(r.evaluation) for r in results):
+        fail(f"cli_game_tuning: evaluations {[r.evaluation for r in results]}")
+    if len(per_fit) != 3 or min(per_fit) <= 0:
+        fail(f"cli_game_tuning: kernel launches per tuned fit {per_fit}")
+    names = ["fixed", "user", "item"]
+    priors = priors_from_json(open(obs_path).read(), names, {n: 1.0 for n in names})
+    if len(priors) != 5 or not all(math.isfinite(v) for _, v in priors):
+        fail(f"cli_game_tuning: {len(priors)} observations read back from {obs_path}")
+    log(json.dumps({
+        "phase": "cli_game_tuning", "driver_s": wall, "tuning_s": res["walls"].get(
+            "hyperparameter tuning"), "best": res["best"],
+        "regularization_weights": [r.regularization_weights for r in results],
+        "evaluations": [r.evaluation for r in results],
+        "kernel_launches_per_tuned_fit": per_fit, "kernel_launches": launches,
+    }))
+    return launches
 
 
 def cli_game_parity(seed):
@@ -1562,7 +2045,6 @@ def cli_game_parity(seed):
     validation evaluations, every coefficient of the best model and the
     fit's scores agree within 1e-9."""
     import functools
-    import tempfile
 
     import numpy as np
     import torch
@@ -1625,8 +2107,6 @@ def cli_legacy(seed):
     card: bench config 1's band, training AUC > 0.5, and coefficients equal
     (rtol 1e-6) to ``train_glm_grid`` called directly with the same
     configuration."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -1757,9 +2237,17 @@ def main() -> None:
     k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
     del idx3, vals3
 
-    small_game_parity(args.seed)
+    variance_launches = small_game_parity(args.seed)
     game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
-    cli_launches, kcli = cli_game(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        cli_launches, kcli, ctx = cli_game(args.seed, tmp)
+        recovery_launches = {"cli_game_resume": cli_game_resume(ctx)}
+        train, valid, settings = cli_driver_data(ctx)
+        recovery_launches["cli_game_restart"] = cli_game_restart(ctx, train, valid, settings)
+        recovery_launches["cli_game_warm"] = cli_game_warm(ctx, train)
+        del train, valid, settings
+        recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
+        del ctx
     cli_game_parity(args.seed)
     cli_legacy(args.seed)
 
@@ -1783,6 +2271,8 @@ def main() -> None:
             "main_path": launches, "glm_owlqn": owlqn_launches,
             **{path: n for path, n in game_launches.items() if n > 0},
             "cli_game": cli_launches,
+            **recovery_launches,
+            "small_game_parity.windowed_variance": variance_launches,
         },
         "layouts": {
             "config5_fe": {"launches": launches, **timings(kmain)},

@@ -56,7 +56,7 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
         default=None,
         choices=["off", "use", "require", "rebuild"],
         help="packed columnar feature cache: not ported yet, any mode but "
-        "'off' raises (ROADMAP A1)",
+        "'off' raises (ROADMAP A2)",
     )
     p.add_argument("--root-output-directory", required=True, help="driver output root")
     p.add_argument(
@@ -70,7 +70,7 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
 
 #: flags of the common parser whose modules are not ported:
 #: argparse dest → (the value that is accepted, the ROADMAP item)
-UNPORTED_COMMON = {"feature_cache": (("off",), "ROADMAP A1: feature cache, cache/*")}
+UNPORTED_COMMON = {"feature_cache": (("off",), "ROADMAP A2: feature cache, cache/*")}
 
 
 def refuse_unported(args, parser: argparse.ArgumentParser, table: dict) -> None:

@@ -9,7 +9,7 @@ scores each chunk in turn on ``device`` (the card unless
 ``run(..., device="cpu")``), and ``ShardedScoringWriter`` writes the
 scores round-robin into ``--num-output-partitions`` part files. The JAX
 driver's producer thread, double-buffered copies and latency/SLO fields
-are not ported (ROADMAP A2/A3). ``--monolithic-scoring`` reads the whole
+are not ported (ROADMAP A1). ``--monolithic-scoring`` reads the whole
 dataset and scores it with ``GameTransformer.score`` on the host; it is
 also the fallback for model layouts the device scorer cannot express.
 Evaluators run on the rows with a finite label, on ``device``.
@@ -44,7 +44,7 @@ SCORES_DIR = "scores"
 UNPORTED_FLAGS = {
     **game_base.UNPORTED_COMMON,
     "degrade_on_stream_failure": (
-        (), "ROADMAP A2/A3: the streaming pipeline's degrade-to-monolithic escape"
+        (), "ROADMAP A1: the streaming pipeline's degrade-to-monolithic escape"
     ),
 }
 
@@ -207,7 +207,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     if degrade not in ("", "0"):
         raise NotImplementedError(
             f"PHOTON_SCORE_DEGRADE={degrade!r} is not ported to photon_tpu_torch yet "
-            "(ROADMAP A2/A3: the streaming pipeline's degrade-to-monolithic escape)"
+            "(ROADMAP A1: the streaming pipeline's degrade-to-monolithic escape)"
         )
 
     shard_configs = game_base.parse_shard_configs(args)

@@ -6,9 +6,12 @@ over the λ grid (warm-started) → model selection → save model(s).
 
 Counterpart of photon_tpu/cli/game_training.py with the same parser; the
 fit runs on ``device`` (the card unless ``run(..., device="cpu")``).
-Flags whose modules are not ported yet (tuning, checkpoints and recovery,
-streaming training, the mesh, precompile, the feature cache) raise
-NotImplementedError when set away from their defaults.
+Hyperparameter tuning, checkpoints with resume (``--checkpoint-sweeps``,
+which needs ``--output-mode ALL``), supervised restarts, warm starts from
+model snapshots and the ``PHOTON_FAULTS`` fault plan work as in JAX's
+driver. Flags whose modules are not ported yet (streaming training, the
+mesh, precompile, the feature cache) raise NotImplementedError when set
+away from their defaults.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -38,18 +41,24 @@ from photon_tpu_torch.data.stats import BasicStatisticalSummary
 from photon_tpu_torch.data.validators import DataValidationType, validate_game_data
 from photon_tpu_torch.evaluation.multi import GroupedEvaluatorSpec
 from photon_tpu_torch.game.config import required_id_tags
+from photon_tpu_torch.game.checkpoint import MANIFEST as CKPT_MANIFEST
 from photon_tpu_torch.game.estimator import GameEstimator, GameTrainingResult
+from photon_tpu_torch.game.tuning import run_hyperparameter_tuning
+from photon_tpu_torch.hyperparameter.serialization import priors_to_json
 from photon_tpu_torch.io.avro import write_avro_file
 from photon_tpu_torch.io.model_io import load_game_model, save_game_model
 from photon_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT_AVRO
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.problem import VarianceComputationType
 from photon_tpu_torch.types import NormalizationType, TaskType, resolve_device
-from photon_tpu_torch.util import EventEmitter, PhotonLogger, prepare_output_dir
+from photon_tpu_torch.util import EventEmitter, PhotonLogger, faults, prepare_output_dir
 
 MODELS_DIR = "models"
 BEST_MODEL_DIR = "best"
 SUMMARY_FILE = "training-summary.json"
+CHECKPOINTS_DIR = "checkpoints"
+#: one JSON line per finished grid point, beside the checkpoints
+GRID_RESULTS_FILE = "grid-results.jsonl"
 
 
 class ModelOutputMode(enum.Enum):
@@ -66,23 +75,12 @@ class HyperparameterTuningMode(enum.Enum):
     BAYESIAN = "BAYESIAN"
 
 
-_TUNING = "ROADMAP A1: hyperparameter tuning, game/tuning + hyperparameter/*"
-_RECOVERY = "ROADMAP A1: game/checkpoint + game/recovery"
 #: argparse dest → (accepted values besides the default, ROADMAP item)
 UNPORTED_FLAGS = {
     **game_base.UNPORTED_COMMON,
-    "hyper_parameter_tuning": ((), _TUNING),
-    "hyper_parameter_tuning_iter": ((), _TUNING),
-    "hyper_parameter_prior_json": ((), _TUNING),
-    "hyper_parameter_shrink_radius": ((), _TUNING),
-    "hyper_parameter_save_observations": ((), _TUNING),
-    "checkpoint_sweeps": ((), _RECOVERY),
-    "max_restarts": ((0,), _RECOVERY),
-    "warm_start_input_directory": ((), _RECOVERY),
-    "model_checkpoint_directory": ((), _RECOVERY),
     "stream_chunk_rows": ((), "ROADMAP A6: streaming training, game/streaming"),
-    "mesh": ((), "ROADMAP A5: mesh over NCCL"),
-    "precompile": ((), "ROADMAP A2: AOT precompile of the sweep and score programs"),
+    "mesh": ((), "ROADMAP A7: mesh over NCCL"),
+    "precompile": ((), "ROADMAP A8: warm-up of the sweep and score programs"),
 }
 
 
@@ -131,14 +129,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--hyper-parameter-tuning",
         default="NONE",
         choices=[m.name for m in HyperparameterTuningMode],
-        help="not ported yet: any mode but NONE raises",
+        help="tune the regularization weights after the grid (needs validation "
+        "data and an evaluator)",
     )
-    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10, help="not ported yet")
-    p.add_argument("--hyper-parameter-prior-json", default=None, help="not ported yet")
+    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=10)
     p.add_argument(
-        "--hyper-parameter-shrink-radius", type=float, default=None, help="not ported yet"
+        "--hyper-parameter-prior-json", default=None,
+        help="observations of earlier runs (the format --hyper-parameter-save-observations "
+        "writes) to start the search from",
     )
-    p.add_argument("--hyper-parameter-save-observations", default=None, help="not ported yet")
+    p.add_argument(
+        "--hyper-parameter-shrink-radius", type=float, default=None,
+        help="shrink the search box around the best prior to ±radius (unit cube)",
+    )
+    p.add_argument(
+        "--hyper-parameter-save-observations", default=None,
+        help="write every evaluated (weights, metric) pair as prior JSON",
+    )
     p.add_argument("--mesh", default=None, metavar="DxE|N|auto", help="not ported yet")
     p.add_argument("--precompile", action="store_true", help="not ported yet")
     p.add_argument("--compute-variance", action="store_true")
@@ -148,13 +155,27 @@ def build_parser() -> argparse.ArgumentParser:
         default="VALIDATE_FULL",
         choices=[t.name for t in DataValidationType],
     )
-    p.add_argument("--max-restarts", type=int, default=None, help="not ported yet")
+    p.add_argument(
+        "--max-restarts", type=int, default=None,
+        help="restart a fit that failed with a transient or divergent error, from its "
+        "newest checkpoint (PHOTON_MAX_RESTARTS wins)",
+    )
     p.add_argument(
         "--stream-chunk-rows", type=int, default=None, metavar="ROWS", help="not ported yet"
     )
-    p.add_argument("--warm-start-input-directory", default=None, help="not ported yet")
-    p.add_argument("--model-checkpoint-directory", default=None, help="not ported yet")
-    p.add_argument("--checkpoint-sweeps", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--warm-start-input-directory", default=None,
+        help="model snapshot directory whose newest snapshot is the initial model",
+    )
+    p.add_argument(
+        "--model-checkpoint-directory", default=None,
+        help="save the final model there as the next model snapshot",
+    )
+    p.add_argument(
+        "--checkpoint-sweeps", action="store_true",
+        help="checkpoint every sweep under <root>/checkpoints and resume from it when "
+        "rerun (needs --output-mode ALL)",
+    )
     return p
 
 
@@ -206,6 +227,49 @@ def _save_summary_stats(path, summaries, index_maps) -> None:
         )
 
 
+def _restore_skipped_grid_results(results, grid_results_path, out_root, index_maps, log):
+    """Fill the None placeholders a checkpoint resume leaves for grid
+    points finished before the interruption: evaluations come from the
+    checkpoint's grid-results.jsonl sidecar, models reload from the
+    ``models/<i>`` directories written as those points finished."""
+    recorded = {}
+    if grid_results_path and os.path.exists(grid_results_path):
+        with open(grid_results_path) as f:
+            for line in f:
+                try:
+                    row = json.loads(line)
+                except json.JSONDecodeError:
+                    # a line cut short by the very crash being recovered from
+                    continue
+                recorded[row["grid_index"]] = row
+    out = []
+    for gi, r in enumerate(results):
+        if r is not None:
+            out.append(r)
+            continue
+        row = recorded.get(gi, {})
+        model_dir = os.path.join(out_root, MODELS_DIR, str(gi))
+        model = None
+        if os.path.isdir(model_dir):
+            model = load_game_model(model_dir, index_maps)
+        else:
+            log.warning(
+                "resume: grid %d model not on disk (run with output mode ALL to keep "
+                "completed models reloadable)", gi,
+            )
+        out.append(
+            GameTrainingResult(
+                model=model,
+                evaluation=row.get("evaluation"),
+                regularization_weights=row.get("regularization_weights", {}),
+                tracker=[],
+                wall_time_s=row.get("wall_time_s", 0.0),
+                scores=None,
+            )
+        )
+    return out
+
+
 def _select_best(results: list[GameTrainingResult], evaluator) -> int:
     """Index of the best model (reference selectBestModel :677-720): by
     validation metric when present, else the first."""
@@ -224,6 +288,9 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     args = parser.parse_args(argv)
     device = resolve_device(device)
     game_base.refuse_unported(args, parser, UNPORTED_FLAGS)
+    # (re)install the PHOTON_FAULTS plan per run; an unset variable
+    # clears any plan left over from an earlier run in this process
+    faults.install_from_env()
 
     task = TaskType[args.training_task]
     shard_configs = game_base.parse_shard_configs(args)
@@ -255,6 +322,11 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         raise ValueError("--partial-retrain-locked-coordinates requires --model-input-directory")
     if args.ignore_threshold_for_new_models and not args.model_input_directory:
         raise ValueError("--ignore-threshold-for-new-models requires --model-input-directory")
+    if args.warm_start_input_directory and args.model_input_directory:
+        raise ValueError(
+            "--warm-start-input-directory and --model-input-directory are mutually "
+            "exclusive (both supply the initial model)"
+        )
 
     evaluators = game_base.evaluators_from_args(args)
     validation_evaluator = evaluators[0] if evaluators else None
@@ -264,9 +336,28 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     id_tags = sorted(required_id_tags(coordinate_configs.values()))
     validation_id_tags = sorted(set(id_tags) | evaluator_tags)
 
-    out_root = prepare_output_dir(
-        args.root_output_directory, override=args.override_output_directory
+    save_all = ModelOutputMode[args.output_mode] == ModelOutputMode.ALL
+    ckpt_dir = (
+        os.path.join(args.root_output_directory, CHECKPOINTS_DIR)
+        if args.checkpoint_sweeps
+        else None
     )
+    if ckpt_dir is not None and not save_all:
+        # a resume reloads the models finished before the kill from disk,
+        # which only output mode ALL writes: refuse the dead end early
+        raise ValueError("--checkpoint-sweeps requires --output-mode ALL")
+    resuming = (
+        ckpt_dir is not None
+        and os.path.exists(os.path.join(ckpt_dir, CKPT_MANIFEST))
+        and not args.override_output_directory  # override = wipe + fresh run
+    )
+    if resuming:
+        # a resume reuses the existing output tree by definition
+        out_root = args.root_output_directory
+    else:
+        out_root = prepare_output_dir(
+            args.root_output_directory, override=args.override_output_directory
+        )
     emitter = events if events is not None else EventEmitter()
     decoders = {}
     walls: dict[str, float] = {}
@@ -333,10 +424,10 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             validation_evaluator=validation_evaluator,
             device=device,
             events=emitter,
+            max_restarts=args.max_restarts,
         )
 
         emitter.emit("training_start", task=task.name)
-        save_all = ModelOutputMode[args.output_mode] == ModelOutputMode.ALL
 
         def save(directory, result):
             with game_base.phase(walls, "save models"):
@@ -348,21 +439,91 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
                     sparsity_threshold=args.model_sparsity_threshold,
                 )
 
+        grid_results_path = (
+            os.path.join(ckpt_dir, GRID_RESULTS_FILE) if ckpt_dir is not None else None
+        )
+        flushed = set()
+
+        def grid_callback(gi, result):
+            # under --checkpoint-sweeps each grid point's model and its
+            # sidecar line go to disk as the point finishes, because a
+            # resume reloads them from there
+            save(os.path.join(MODELS_DIR, str(gi)), result)
+            flushed.add(gi)
+            with open(grid_results_path, "a") as f:
+                f.write(json.dumps({
+                    "grid_index": gi,
+                    "regularization_weights": result.regularization_weights,
+                    "evaluation": result.evaluation,
+                    "wall_time_s": result.wall_time_s,
+                }) + "\n")
+
         with game_base.phase(walls, "train"):
             results = estimator.fit(
-                data, validation_data=validation_data, initial_model=initial_model
+                data,
+                validation_data=validation_data,
+                initial_model=initial_model,
+                grid_callback=grid_callback if ckpt_dir is not None else None,
+                checkpoint_dir=ckpt_dir,
+                warm_start=args.warm_start_input_directory,
+                model_checkpoint_dir=args.model_checkpoint_directory,
             )
-        # saved after the fit (not from a grid callback, as JAX's driver
-        # does for its checkpoint recovery): the fit's wall holds no I/O
-        if save_all:
-            for gi, result in enumerate(results):
-                save(os.path.join(MODELS_DIR, str(gi)), result)
+        fit_stats = estimator.last_fit_stats
+        if fit_stats["resumed_from"] is not None:
+            log.info("resumed from checkpoint: grid %d, sweep %d", *fit_stats["resumed_from"])
+        for error in fit_stats["restarts"]:
+            log.warning("the fit restarted after %s", error)
+        # None placeholders: grid points finished before a resume
+        if any(r is None for r in results):
+            results = _restore_skipped_grid_results(
+                results, grid_results_path, out_root, index_maps, log
+            )
 
+        tuning_mode = HyperparameterTuningMode[args.hyper_parameter_tuning]
+        if tuning_mode != HyperparameterTuningMode.NONE:
+            if validation_data is None or validation_evaluator is None:
+                raise ValueError("hyperparameter tuning requires validation data + an evaluator")
+            prior_json = None
+            if args.hyper_parameter_prior_json:
+                with open(args.hyper_parameter_prior_json) as f:
+                    prior_json = f.read()
+            with game_base.phase(walls, "hyperparameter tuning"):
+                tuned = run_hyperparameter_tuning(
+                    estimator,
+                    data,
+                    validation_data,
+                    num_iterations=args.hyper_parameter_tuning_iter,
+                    mode=tuning_mode.name,
+                    prior_json=prior_json,
+                    shrink_radius=args.hyper_parameter_shrink_radius,
+                )
+            results = results + tuned
+        if args.hyper_parameter_save_observations:
+            # written for the plain λ grid too (mode NONE): every model
+            # with a validation evaluation is a usable prior
+            observations = [
+                (r.regularization_weights, float(r.evaluation))
+                for r in results
+                if r.evaluation is not None
+            ]
+            with open(args.hyper_parameter_save_observations, "w") as f:
+                f.write(priors_to_json(observations))
+
+        if save_all:
+            for i, r in enumerate(results):
+                if i in flushed or r.model is None:
+                    continue  # written as its grid point finished, now or before a resume
+                save(os.path.join(MODELS_DIR, str(i)), r)
         best = _select_best(results, validation_evaluator)
         log.info(
             "trained %d models; best #%d (metric=%s)", len(results), best, results[best].evaluation
         )
         if ModelOutputMode[args.output_mode] != ModelOutputMode.NONE:
+            if results[best].model is None:
+                raise RuntimeError(
+                    f"best model (grid {best}) was trained by an interrupted run but is "
+                    "not on disk; rerun checkpointed jobs with --output-mode ALL"
+                )
             save(BEST_MODEL_DIR, results[best])
         summary = {
             "models": [
@@ -385,7 +546,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         "output": out_root,
         "index_maps": index_maps,
         "decoders": decoders,
-        "fit_stats": estimator.last_fit_stats,
+        "fit_stats": fit_stats,
         "walls": walls,
     }
 

@@ -62,7 +62,7 @@ _DEFAULT_METRIC = {
     TaskType.POISSON_REGRESSION: EvaluatorType.POISSON_LOSS,
 }
 
-UNPORTED_FLAGS = {"diagnose": ((), "ROADMAP A1: model diagnostics, diagnostics/*")}
+UNPORTED_FLAGS = {"diagnose": ((), "ROADMAP A3: model diagnostics, diagnostics/*")}
 
 
 class DriverStage(enum.IntEnum):

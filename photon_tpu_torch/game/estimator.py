@@ -7,8 +7,10 @@ shard, locked coordinates, an initial model (warm start, with
 ``ignore_threshold_for_new_models`` and the carry-over of prior entities
 that got no new data), per-sweep validation with the best sweep's model
 returned, and fixed-effect, random-effect and matrix-factorization
-coordinates, and the lifecycle events of JAX's ``events=`` bus. No
-streaming, mesh, precompile, checkpoints or telemetry.
+coordinates, the lifecycle events of JAX's ``events=`` bus, the
+divergence policies of the health check, mid-descent checkpoints with
+resume, supervised restarts and model snapshots for warm starts. No
+streaming, mesh, precompile or telemetry.
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
 asked for.
 """
@@ -26,6 +28,7 @@ from photon_tpu_torch.game.config import (
     FixedEffectCoordinateConfig,
     RandomEffectCoordinateConfig,
 )
+from photon_tpu_torch.game.checkpoint import DescentCheckpointer, ModelCheckpointStore
 from photon_tpu_torch.game.coordinate import (
     FixedEffectCoordinate,
     MatrixFactorizationCoordinate,
@@ -37,6 +40,7 @@ from photon_tpu_torch.game.data import (
     ShapePool,
     build_random_effect_dataset,
     profile_random_effect_shapes,
+    re_bucket_entity_cap,
     re_shape_budget,
 )
 from photon_tpu_torch.game.descent import run_coordinate_descent
@@ -45,7 +49,9 @@ from photon_tpu_torch.game.model import (
     RandomEffectModel,
     merge_random_effect_carryover,
 )
+from photon_tpu_torch.game.recovery import max_restarts_from_env, run_with_recovery
 from photon_tpu_torch.game.validation import DeviceValidationScorer
+from photon_tpu_torch.obs.health import resolve_policy
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.types import TaskType, resolve_device
 
@@ -85,8 +91,15 @@ class GameEstimator:
     scores ``validation_data`` after every sweep and picks the model.
     ``events`` (a ``util.events.EventEmitter``) receives ``setup``,
     ``sweep_complete``, ``training_finish`` and ``training_failure`` with
-    the JAX package's payloads; the dispatch, compile and health fields,
-    which the port does not count, are None."""
+    the JAX package's payloads; the dispatch and compile fields, which
+    the port does not count, are None.
+
+    ``on_divergence`` is what a non-finite sweep does (obs/health.py):
+    ``"raise"`` (the default), ``"warn"`` or ``"halt_coordinate"``; None
+    reads ``PHOTON_ON_DIVERGENCE``. ``max_restarts`` > 0 restarts a fit
+    that failed with a transient or divergent error, from its newest
+    checkpoint when ``fit`` has a ``checkpoint_dir``
+    (game/recovery.py); ``PHOTON_MAX_RESTARTS`` wins over it."""
 
     task: TaskType
     coordinate_configs: Mapping[str, object]
@@ -100,9 +113,13 @@ class GameEstimator:
     seed: int = 0
     device: str | torch.device = "cuda"
     events: object | None = None
+    on_divergence: str | None = None
+    max_restarts: int | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.on_divergence = resolve_policy(self.on_divergence)
+        self.max_restarts = max_restarts_from_env(self.max_restarts)
         missing = [c for c in self.update_sequence if c not in self.coordinate_configs]
         if missing:
             raise ValueError(f"update sequence names unknown coordinates: {missing}")
@@ -110,7 +127,8 @@ class GameEstimator:
             self.coordinate_configs
         ):
             raise ValueError("locked coordinates must be configured")
-        #: host seconds of the last fit's phases (build, validation build, grid)
+        #: host seconds of the last fit's phases (build, validation build,
+        #: grid), the checkpoint it resumed from and the errors it restarted on
         self.last_fit_stats: dict | None = None
 
     def _existing_model_keys(self, cid, initial_model):
@@ -181,9 +199,37 @@ class GameEstimator:
         initial_model: GameModel | None = None,
         grid_callback=None,
         shape_pool=None,
+        checkpoint_dir: str | None = None,
+        warm_start: str | None = None,
+        model_checkpoint_dir: str | None = None,
     ) -> list[GameTrainingResult]:
         """One GameModel per λ-grid point, warm-starting across the grid.
-        ``grid_callback(grid_index, result)`` fires as each point ends."""
+        ``grid_callback(grid_index, result)`` fires as each point ends.
+
+        ``checkpoint_dir`` saves the states after every sweep
+        (game/checkpoint.py), and a rerun with the same arguments resumes
+        from the last saved sweep with the same models bit for bit; grid points finished before the interruption
+        come back as None (their models went out through
+        ``grid_callback``). ``warm_start`` names a model snapshot
+        directory whose newest valid snapshot is the initial model (an
+        empty one cold-starts with a warning); it excludes
+        ``initial_model``. ``model_checkpoint_dir`` saves the last grid
+        point's model there as the next snapshot after the fit."""
+        if warm_start is not None:
+            if initial_model is not None:
+                raise ValueError(
+                    "pass either warm_start (a model checkpoint directory) or "
+                    "initial_model, not both"
+                )
+            loaded = ModelCheckpointStore(warm_start).load_latest()
+            if loaded is None:
+                logger.warning(
+                    "warm_start directory %s holds no model snapshot; cold-starting",
+                    warm_start,
+                )
+            else:
+                initial_model, warm_seq = loaded
+                logger.info("warm-starting from model snapshot seq %d in %s", warm_seq, warm_start)
         emitter = self.events
         if emitter is not None:
             emitter.emit(
@@ -194,19 +240,42 @@ class GameEstimator:
                 descent_iterations=self.descent_iterations,
                 num_samples=int(data.num_samples),
             )
-        try:
-            results = self._fit(
+
+        def attempt():
+            return self._fit(
                 data, validation_data=validation_data, initial_model=initial_model,
                 grid_callback=grid_callback, shape_pool=shape_pool,
+                checkpoint_dir=checkpoint_dir,
             )
+
+        restarts = []
+        try:
+            if self.max_restarts:
+                if checkpoint_dir is None:
+                    logger.warning(
+                        "max_restarts=%d without checkpoint_dir: a restart retrains "
+                        "from scratch instead of resuming mid-descent", self.max_restarts,
+                    )
+                results = run_with_recovery(
+                    attempt, max_restarts=self.max_restarts,
+                    on_restart=lambda i, e: restarts.append(f"{type(e).__name__}: {e}"),
+                )
+            else:
+                results = attempt()
         except Exception as e:
             # a failed fit leaves no earlier fit's numbers behind
             self.last_fit_stats = None
             if emitter is not None:
                 emitter.emit("training_failure", error=f"{type(e).__name__}: {e}")
             raise
+        self.last_fit_stats["restarts"] = restarts
+        if model_checkpoint_dir is not None:
+            final = [r for r in results if r is not None]
+            if final:
+                seq = ModelCheckpointStore(model_checkpoint_dir).save(final[-1].model)
+                logger.info("saved model snapshot seq %d to %s", seq, model_checkpoint_dir)
         if emitter is not None:
-            evals = [r.evaluation for r in results if r.evaluation is not None]
+            evals = [r.evaluation for r in results if r is not None and r.evaluation is not None]
             ev = self.validation_evaluator
             pick = max if ev is None or ev.larger_is_better else min
             emitter.emit(
@@ -218,7 +287,29 @@ class GameEstimator:
             )
         return results
 
-    def _fit(self, data, *, validation_data, initial_model, grid_callback, shape_pool):
+    def _fingerprint(self, data: GameData) -> str:
+        """What a checkpoint's states depend on: resuming under anything
+        else is a hard error, not silent reuse (the JAX fingerprint less
+        its mesh term)."""
+        return repr((
+            self.task,
+            sorted((cid, repr(cfg)) for cid, cfg in self.coordinate_configs.items()),
+            tuple(self.update_sequence),
+            self.descent_iterations,
+            sorted(self.locked_coordinates),
+            self.seed,
+            data.num_samples,
+            # layout knobs: they change the per-bucket state shapes
+            re_bucket_entity_cap(),
+            sorted(
+                (cid, re_shape_budget(cfg.shape_budget))
+                for cid, cfg in self.coordinate_configs.items()
+                if isinstance(cfg, RandomEffectCoordinateConfig)
+            ),
+        ))
+
+    def _fit(self, data, *, validation_data, initial_model, grid_callback, shape_pool,
+             checkpoint_dir=None):
         if self.ignore_threshold_for_new_models and initial_model is None:
             raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
@@ -239,8 +330,24 @@ class GameEstimator:
         larger = (
             self.validation_evaluator.larger_is_better if self.validation_evaluator else True
         )
+        checkpointer = ckpt = fingerprint = None
+        if checkpoint_dir is not None:
+            fingerprint = self._fingerprint(data)
+            checkpointer = DescentCheckpointer(checkpoint_dir)
+            ckpt = checkpointer.load(expect_fingerprint=fingerprint, device=self.device)
+            if ckpt is not None:
+                logger.info(
+                    "resuming from checkpoint: grid %d, sweep %d", ckpt.grid_index, ckpt.iteration
+                )
         results, grid_s = [], []
         for gi in range(self._grid_length()):
+            if ckpt is not None and gi < ckpt.grid_index:
+                # finished before the interruption; the checkpoint's states
+                # carry the warm start forward
+                results.append(None)
+                if gi == ckpt.grid_index - 1:
+                    states = ckpt.states
+                continue
             t_grid = time.perf_counter()
             reg_weights = {}
             for cid, coord in coordinates.items():
@@ -248,6 +355,17 @@ class GameEstimator:
                 reg_weights[cid] = ws[min(gi, len(ws) - 1)]
                 if gi > 0:
                     coord.with_regularization_weight(reg_weights[cid])
+            start_iteration, initial_best = 0, None
+            if ckpt is not None and gi == ckpt.grid_index and ckpt.iteration >= 0:
+                states = ckpt.states
+                start_iteration = ckpt.iteration + 1
+                if ckpt.best_states is not None:
+                    initial_best = (ckpt.best_states, ckpt.best_metric)
+            sweep_callback = None
+            if checkpointer is not None:
+                sweep_callback = lambda it, st, bs, bm, _gi=gi: checkpointer.on_sweep(  # noqa: E731
+                    _gi, it, st, bs, bm, fingerprint=fingerprint
+                )
             cd = run_coordinate_descent(
                 coordinates,
                 self.update_sequence,
@@ -256,7 +374,11 @@ class GameEstimator:
                 locked_coordinates=self.locked_coordinates,
                 validation_fn=validation_fn,
                 larger_is_better=larger,
+                start_iteration=start_iteration,
+                initial_best=initial_best,
+                sweep_callback=sweep_callback,
                 sweep_hook=self._sweep_hook(gi),
+                on_divergence=self.on_divergence,
             )
             final, total = cd.states, cd.total
             if cd.best_states is not None:
@@ -278,11 +400,15 @@ class GameEstimator:
             if grid_callback is not None:
                 grid_callback(gi, result)
             states = cd.states  # warm start the next grid point
+            if checkpointer is not None:
+                checkpointer.mark_grid_done(gi, states, fingerprint)
         self.last_fit_stats = {
             "build_s": build_s,
             "validation_build_s": validation_build_s,
             "grid_s": grid_s,
             "wall_s": time.perf_counter() - t0,
+            # (grid, last completed sweep) of the checkpoint this fit resumed
+            "resumed_from": None if ckpt is None else (ckpt.grid_index, ckpt.iteration),
         }
         return results
 
@@ -296,7 +422,7 @@ class GameEstimator:
             sweep_seconds=row["sweep_seconds"],
             dispatches=None,
             compiles=None,
-            health=None,
+            health=row["health"],
         )
 
     def _to_model(self, coordinates, states) -> GameModel:

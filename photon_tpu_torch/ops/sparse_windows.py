@@ -18,6 +18,7 @@ into that one plain version.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -46,6 +47,45 @@ class ColumnWindows(NamedTuple):
         return self.rows.shape[1]
 
 
+#: how the last host build of a layout ran: ``path`` "native" (the
+#: counting sort of native/window_builder.cpp) or "numpy" (an argsort),
+#: ``reason`` why it took numpy (None when native), ``seconds`` its wall,
+#: and ``phases`` that wall split in order: ``library`` (finding and
+#: binding the native library), ``inputs`` (the contiguous int32 and
+#: float32 copies), ``histogram`` (the per-window counts), ``alloc`` (the
+#: output arrays; ``np.zeros`` maps pages that the fill first touches),
+#: ``fill`` (the sort into place) and ``finish`` (``inst2win``)
+last_build: dict = {"path": None, "reason": None, "seconds": None, "phases": None}
+
+
+def _native_window_lib(arr_idx: np.ndarray, arr_val: np.ndarray):
+    """(library, None) when the native build applies, else (None, why).
+    It takes float32 values only, as in the JAX package: a float64
+    layout keeps the numpy path, so both packages give the same arrays at
+    both dtypes."""
+    if arr_val.dtype != np.float32:
+        return None, f"values are {arr_val.dtype}; the native build takes float32"
+    if arr_idx.size == 0:
+        return None, "no slots to sort"
+    from photon_tpu_torch.data import native_index
+
+    lib = native_index.load_native_lib()
+    if lib is None:
+        return None, native_index.native_unavailable_reason
+    if lib.win_fill.argtypes is None:
+        # without argtypes ctypes would pass each pointer as a 32-bit int
+        ll, ptr = ctypes.c_int64, ctypes.c_void_p
+        lib.win_col_histogram.restype = ll
+        lib.win_col_histogram.argtypes = [ptr, ptr, ll, ll, ptr]
+        lib.win_fill.restype = ll
+        lib.win_fill.argtypes = [ptr, ptr, ll, ll, ll, ll, ll, ll, ptr, ptr, ptr, ptr, ptr, ptr]
+    return lib, None
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
 def build_column_windows_numpy(
     indices: np.ndarray,
     values: np.ndarray,
@@ -54,21 +94,55 @@ def build_column_windows_numpy(
     window: int = 128,
     instance_cap: int = 4096,
     chunk: int = 1024,
+    native: bool = True,
 ) -> dict[str, np.ndarray]:
-    """Host build from padded-ELL [N, K] arrays — the numpy path of the JAX
-    build (photon_tpu/ops/sparse_windows.py:196-254), array for array."""
-    arr_idx = np.ascontiguousarray(np.asarray(indices), dtype=np.int32)
-    arr_val = np.asarray(values)
-    n, k = arr_idx.shape
+    """Host build from padded-ELL [N, K] arrays, array for array the JAX
+    build (photon_tpu/ops/sparse_windows.py:196-254). float32 values take
+    the native counting sort by column (O(nnz + d), the JAX package's
+    ``_native_histogram`` / ``_native_fill``); other values, a missing
+    library, or ``native=False`` take numpy's stable argsort. Both give
+    the same arrays. ``last_build`` records which ran and why."""
+    t0 = time.perf_counter()
+    phases, marks = {}, [t0]
+
+    def mark(name):
+        marks.append(time.perf_counter())
+        phases[name] = marks[-1] - marks[-2]
+
+    in_idx, arr_val = np.asarray(indices), np.asarray(values)
+    if arr_val.shape != in_idx.shape:
+        raise ValueError(f"values {arr_val.shape} and indices {in_idx.shape} differ in shape")
+    n, k = in_idx.shape
     num_windows = max(1, -(-num_features // window))
 
-    flat_col = arr_idx.reshape(-1).astype(np.int64)
-    flat_val = arr_val.reshape(-1)
-    flat_row = np.repeat(np.arange(n, dtype=np.int64), k)
-    keep = flat_val != 0.0  # ELL padding slots carry value 0
-    flat_col, flat_val, flat_row = flat_col[keep], flat_val[keep], flat_row[keep]
-    nnz = flat_col.size
-    counts = np.bincount(flat_col // window, minlength=num_windows)
+    lib, reason = (
+        _native_window_lib(in_idx, arr_val) if native else (None, "numpy build asked for")
+    )
+    mark("library")
+    arr_idx = np.ascontiguousarray(in_idx, dtype=np.int32)
+    if lib is not None:
+        nat_vals = np.ascontiguousarray(arr_val, dtype=np.float32)
+    mark("inputs")
+    if lib is not None:
+        col_counts = np.zeros(num_features, dtype=np.int64)
+        nnz = int(lib.win_col_histogram(
+            _ptr(arr_idx), _ptr(nat_vals), arr_idx.size, num_features, _ptr(col_counts)
+        ))
+        if nnz < 0:
+            raise ValueError("sparse column index outside [0, num_features)")
+        counts = np.add.reduceat(
+            np.pad(col_counts, (0, num_windows * window - num_features)),
+            np.arange(num_windows) * window,
+        )
+    else:
+        flat_col = arr_idx.reshape(-1).astype(np.int64)
+        flat_val = arr_val.reshape(-1)
+        flat_row = np.repeat(np.arange(n, dtype=np.int64), k)
+        keep = flat_val != 0.0  # ELL padding slots carry value 0
+        flat_col, flat_val, flat_row = flat_col[keep], flat_val[keep], flat_row[keep]
+        nnz = flat_col.size
+        counts = np.bincount(flat_col // window, minlength=num_windows)
+    mark("histogram")
 
     # the spill cap is rounded to the instance length so full spill
     # instances carry no padding (keeps lcols non-decreasing per instance)
@@ -87,20 +161,42 @@ def build_column_windows_numpy(
 
     rows = np.zeros(w_inst * length, dtype=np.int32)
     lcols = np.full(w_inst * length, window - 1, dtype=np.int32)
-    vals = np.zeros(w_inst * length, dtype=flat_val.dtype)
-    order = np.argsort(flat_col, kind="stable")
-    s_col, s_val, s_row = flat_col[order], flat_val[order], flat_row[order]
-    s_win = s_col // window
-    pos_in_win = np.arange(nnz, dtype=np.int64) - win_start[s_win]
-    dest = (inst_base[s_win] + pos_in_win // cap) * length + (pos_in_win % cap)
-    rows[dest] = s_row
-    lcols[dest] = s_col % window
-    vals[dest] = s_val
+    vals = np.zeros(w_inst * length, dtype=np.float32 if lib is not None else flat_val.dtype)
+    mark("alloc")
+    if lib is not None:
+        if nnz > 0:  # an all-padding layout needs no fill pass
+            col_next = np.concatenate([[0], np.cumsum(col_counts)])[:-1].astype(np.int64)
+            win_start64 = np.ascontiguousarray(win_start, dtype=np.int64)
+            inst_base64 = np.ascontiguousarray(inst_base, dtype=np.int64)
+            rc = int(lib.win_fill(
+                _ptr(arr_idx), _ptr(nat_vals), arr_idx.size, k, num_features, window, cap,
+                length, _ptr(col_next), _ptr(win_start64), _ptr(inst_base64),
+                _ptr(rows), _ptr(lcols), _ptr(vals),
+            ))
+            if rc != 0:
+                raise ValueError(f"native window fill failed rc={rc}")
+    else:
+        order = np.argsort(flat_col, kind="stable")
+        s_col, s_val, s_row = flat_col[order], flat_val[order], flat_row[order]
+        s_win = s_col // window
+        pos_in_win = np.arange(nnz, dtype=np.int64) - win_start[s_win]
+        dest = (inst_base[s_win] + pos_in_win // cap) * length + (pos_in_win % cap)
+        rows[dest] = s_row
+        lcols[dest] = s_col % window
+        vals[dest] = s_val
+    mark("fill")
 
     inst2win = np.concatenate([
         np.repeat(np.arange(num_windows, dtype=np.int32), n_inst),
         np.full(w_inst_pad, num_windows - 1, dtype=np.int32),
     ])
+    mark("finish")
+    last_build.update(
+        path="numpy" if lib is None else "native",
+        reason=reason,
+        seconds=marks[-1] - t0,
+        phases=phases,
+    )
     return {
         "rows": rows.reshape(w_inst, length),
         "lcols": lcols.reshape(w_inst, length),

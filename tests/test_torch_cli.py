@@ -9,19 +9,26 @@ the parsers (flags and parsed configs), the training summary (best index,
 evaluations within 1e-9), saved coefficients (rtol 1e-7), the scoring
 driver's scores (rtol 1e-7 on the host path, 1e-5 through the float32
 device scorer) and evaluations, the lifecycle events, the legacy driver
-on LIBSVM and Avro, and the two index tools. Every flag whose module is
-not ported raises NotImplementedError naming itself.
+on LIBSVM and Avro, and the two index tools. The training driver's
+recovery and tuning flags run against JAX's driver too: a run killed by
+the fault plan and resumed from its checkpoints, supervised restarts
+after an injected NaN, warm starts from model snapshots, RANDOM and
+BAYESIAN tuning, priors with a shrunk search box, and saved
+observations. Every flag whose module is not ported raises
+NotImplementedError naming itself.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +40,7 @@ from photon_tpu.cli import game_training as j_gt
 from photon_tpu.cli import legacy_driver as j_ld
 from photon_tpu.cli import name_term_bags as j_ntb
 from photon_tpu.cli import parsing as j_parse
+from photon_tpu.util import faults as j_faults
 from photon_tpu.data import dataset as j_dataset
 from photon_tpu.data.native_index import load_partitioned_store as j_load_store
 from photon_tpu.io.avro import read_avro_dir, write_avro_file
@@ -46,10 +54,22 @@ from photon_tpu_torch.cli import name_term_bags as t_ntb
 from photon_tpu_torch.cli import parsing as t_parse
 from photon_tpu_torch.data.native_index import load_partitioned_store as t_load_store
 from photon_tpu_torch.types import TaskType as TTask
+from photon_tpu_torch.util import faults as t_faults
 from photon_tpu_torch.util.events import EventEmitter as TEmitter
 from test_cli import SHARD_ARG, _make_records, _write_libsvm
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_compiled_programs():
+    """Drop the JAX programs this module compiled when it ends: each keeps
+    memory maps of its code, and one process running many such modules
+    would reach the kernel's limit on maps (vm.max_map_count)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +754,274 @@ def test_feature_indexing_and_name_term_bags_equal_jax(avro_dirs, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# recovery, warm starts and tuning, against JAX's driver
+# ---------------------------------------------------------------------------
+
+
+def _train_argv(avro_dirs, out, *extra):
+    return [
+        "--input-data-directories", str(avro_dirs / "train"),
+        "--validation-data-directories", str(avro_dirs / "valid"),
+        "--root-output-directory", str(out), *TRAIN_ARGS, *extra,
+    ]
+
+
+def _each(avro_dirs, root: Path, extra=lambda sub: ()):
+    """Run the training command line (plus ``extra(sub)``) through JAX's
+    driver and then the port's, at float64, outputs under root/<sub>."""
+    out = {}
+    with float64_drivers():
+        for sub, run in (("jax", j_gt.run), ("port", functools.partial(t_gt.run, device="cpu"))):
+            out[sub] = run(_train_argv(avro_dirs, root / sub, *extra(sub)))
+    return out["jax"], out["port"]
+
+
+@pytest.fixture
+def clear_faults():
+    yield
+    j_faults.clear()
+    t_faults.clear()
+
+
+def _summary(out: Path) -> dict:
+    return json.loads((out / "training-summary.json").read_text())
+
+
+def _assert_summaries_close(a: dict, b: dict, tol=1e-9):
+    assert a["best"] == b["best"] and len(a["models"]) == len(b["models"])
+    for ma, mb in zip(a["models"], b["models"]):
+        assert ma["regularizationWeights"].keys() == mb["regularizationWeights"].keys()
+        for k, v in ma["regularizationWeights"].items():
+            np.testing.assert_allclose(mb["regularizationWeights"][k], v, rtol=tol)
+        np.testing.assert_allclose(ma["evaluation"], mb["evaluation"], rtol=0, atol=tol)
+
+
+def _assert_models_equal(a: Path, b: Path):
+    assert _coefficients(a) == _coefficients(b)
+
+
+def _assert_uninterrupted(trained, root: Path):
+    """The port's run under root/port wrote the uninterrupted run's
+    summary and models: bit for bit against the port's, within the parity
+    tolerances against JAX's (both from the shared ``trained`` runs of the
+    same command line)."""
+    out = trained[0]
+    got = _summary(root / "port")
+    assert got["best"] == _summary(out / "port")["best"]
+    for a, b in zip(got["models"], _summary(out / "port")["models"], strict=True):
+        assert a["evaluation"] == b["evaluation"]
+    _assert_summaries_close(_summary(out / "jax"), got)
+    for sub in ("best", "models/0", "models/1"):
+        _assert_models_equal(out / "port" / sub, root / "port" / sub)
+        _assert_models_close(out / "jax" / sub, root / "port" / sub)
+
+
+def _crash_then_resume(avro_dirs, root, monkeypatch, plan):
+    """The port's --checkpoint-sweeps run under ``plan`` dies with
+    InjectedCrash, then the same command line with no plan resumes."""
+    argv = _train_argv(avro_dirs, root / "port", "--checkpoint-sweeps")
+    with float64_drivers():
+        monkeypatch.setenv("PHOTON_FAULTS", plan)
+        with pytest.raises(BaseException) as crash:
+            t_gt.run(argv, device="cpu")
+        assert type(crash.value).__name__ == "InjectedCrash"
+        assert (root / "port" / "checkpoints" / "descent-checkpoint.json").is_file()
+        monkeypatch.delenv("PHOTON_FAULTS")
+        return t_gt.run(argv, device="cpu")
+
+
+def _port_run(avro_dirs, root, *extra):
+    with float64_drivers():
+        return t_gt.run(_train_argv(avro_dirs, root / "port", *extra), device="cpu")
+
+
+def test_killed_run_resumes_to_the_uninterrupted_models(avro_dirs, trained, tmp_path,
+                                                        monkeypatch, clear_faults):
+    """Occurrence 4 of descent.sweep is grid 1's second sweep: grid 0's
+    model is on disk, the resume starts after grid 1's sweep 0, and every
+    model equals the uninterrupted run's (bit for bit in the port, within
+    the parity tolerances against JAX)."""
+    t = _crash_then_resume(avro_dirs, tmp_path, monkeypatch, "descent.sweep@4=crash")
+    assert t["fit_stats"]["resumed_from"] == (1, 0)
+    assert "resumed from checkpoint: grid 1, sweep 0" in (
+        tmp_path / "port" / "driver.log").read_text()
+    assert t["results"][0].tracker == [] and t["results"][1].tracker
+    _assert_uninterrupted(trained, tmp_path)
+    lines = (tmp_path / "port" / "checkpoints" / "grid-results.jsonl").read_text().splitlines()
+    assert [json.loads(x)["grid_index"] for x in lines] == [0, 1]
+
+
+def test_resume_after_the_last_sweep_trains_no_sweep(avro_dirs, trained, tmp_path, monkeypatch,
+                                                     clear_faults):
+    """Write 6 of checkpoint.write is grid 1's grid-done snapshot, after
+    its model went to disk: the rerun resumes after grid 1's last sweep,
+    takes no sweep, restores grid 0 from disk and writes the uninterrupted
+    run's summary and models."""
+    t = _crash_then_resume(avro_dirs, tmp_path, monkeypatch, "checkpoint.write@6=crash")
+    assert t["fit_stats"]["resumed_from"] == (1, 1)
+    assert t["results"][0].tracker == []
+    assert not [r for r in t["results"][1].tracker if "sweep_seconds" in r]
+    _assert_uninterrupted(trained, tmp_path)
+
+
+def test_max_restarts_recovers_from_an_injected_nan(avro_dirs, trained, tmp_path, monkeypatch,
+                                                   clear_faults):
+    """descent.coordinate@3 poisons grid 0's sweep-1 fixed effect; the
+    health check raises, the supervisor restarts once from the sweep-0
+    checkpoint, and the models equal the uninterrupted run's."""
+    monkeypatch.setenv("PHOTON_FAULTS", "descent.coordinate@3=nan")
+    t = _port_run(avro_dirs, tmp_path, "--checkpoint-sweeps", "--max-restarts", "1")
+    assert len(t["fit_stats"]["restarts"]) == 1
+    assert t["fit_stats"]["restarts"][0].startswith("DivergenceError: coordinate 'global'")
+    assert "the fit restarted after DivergenceError" in (
+        tmp_path / "port" / "driver.log").read_text()
+    _assert_uninterrupted(trained, tmp_path)
+
+
+def test_max_restarts_recovers_from_a_transient_sweep_fault(avro_dirs, trained, tmp_path,
+                                                           monkeypatch, clear_faults):
+    """descent.sweep@2=unavailable (a transient failure at grid 0's second
+    sweep) with PHOTON_MAX_RESTARTS=1: one restart from the sweep-0
+    checkpoint, and the uninterrupted models."""
+    monkeypatch.setenv("PHOTON_FAULTS", "descent.sweep@2=unavailable")
+    monkeypatch.setenv("PHOTON_MAX_RESTARTS", "1")
+    t = _port_run(avro_dirs, tmp_path, "--checkpoint-sweeps")
+    assert [e.split(":")[0] for e in t["fit_stats"]["restarts"]] == ["InjectedFault"]
+    _assert_uninterrupted(trained, tmp_path)
+
+
+def test_injected_nan_without_restarts_raises_divergence(avro_dirs, tmp_path, monkeypatch,
+                                                         clear_faults):
+    from photon_tpu.obs.health import DivergenceError as JDivergence
+    from photon_tpu_torch.obs.health import DivergenceError as TDivergence
+
+    monkeypatch.setenv("PHOTON_FAULTS", "descent.coordinate@3=nan")
+    with float64_drivers():
+        with pytest.raises(JDivergence, match="'global' diverged at sweep 1"):
+            j_gt.run(_train_argv(avro_dirs, tmp_path / "jax"))
+        with pytest.raises(TDivergence, match="'global' diverged at sweep 1"):
+            t_gt.run(_train_argv(avro_dirs, tmp_path / "port"), device="cpu")
+
+
+def test_model_snapshot_then_warm_start_equal_jax(avro_dirs, trained, tmp_path):
+    """--model-checkpoint-directory saves the final model as a snapshot
+    equal to the run's last model; a second run with
+    --warm-start-input-directory starts from it; both packages agree, and
+    each package's snapshot loads in the other with equal arrays."""
+    from photon_tpu.game.checkpoint import ModelCheckpointStore as JStore
+    from photon_tpu_torch.game.checkpoint import ModelCheckpointStore as TStore
+
+    _each(avro_dirs, tmp_path / "snap",
+          lambda sub: ("--model-checkpoint-directory", str(tmp_path / "ckpt" / sub)))
+    t_model, t_seq = TStore(str(tmp_path / "ckpt" / "port")).load_latest()
+    j_model, j_seq = JStore(str(tmp_path / "ckpt" / "jax")).load_latest()
+    assert t_seq == j_seq == 0
+    trained_last = _coefficients(tmp_path / "snap" / "port" / "models" / "1")
+    assert trained_last == _coefficients(tmp_path / "snap" / "port" / "models" / "1")
+    for cid in ("global", "per-user"):
+        assert type(t_model[cid]).__name__ == type(j_model[cid]).__name__
+    np.testing.assert_allclose(t_model["global"].coefficients.means,
+                               np.asarray(j_model["global"].model.coefficients.means),
+                               rtol=1e-7, atol=1e-10)
+    # the other package's snapshot loads with the same arrays it saved
+    cross_t, _ = TStore(str(tmp_path / "ckpt" / "jax")).load_latest()
+    np.testing.assert_array_equal(cross_t["global"].coefficients.means,
+                                  np.asarray(j_model["global"].model.coefficients.means))
+    cross_j, _ = JStore(str(tmp_path / "ckpt" / "port")).load_latest()
+    np.testing.assert_array_equal(np.asarray(cross_j["global"].model.coefficients.means),
+                                  t_model["global"].coefficients.means)
+
+    j, t = _each(avro_dirs, tmp_path / "warm",
+                 lambda sub: ("--warm-start-input-directory", str(tmp_path / "ckpt" / sub)))
+    _assert_summaries_close(_summary(tmp_path / "warm" / "jax"), _summary(tmp_path / "warm" / "port"))
+    for sub in ("best", "models/0", "models/1"):
+        _assert_models_close(tmp_path / "warm" / "jax" / sub, tmp_path / "warm" / "port" / sub)
+    # a warm start is not the cold fit
+    assert _coefficients(tmp_path / "warm" / "port" / "models" / "0") != _coefficients(
+        tmp_path / "snap" / "port" / "models" / "0")
+
+
+def test_tuning_random_equals_jax(avro_dirs, tmp_path):
+    """RANDOM tuning: the same candidates (regularization weights) and
+    evaluations as JAX's within 1e-9, after the 2 grid models."""
+    j, t = _each(avro_dirs, tmp_path, lambda sub: (
+        "--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "2"))
+    ts, js = _summary(tmp_path / "port"), _summary(tmp_path / "jax")
+    assert len(ts["models"]) == 4
+    _assert_summaries_close(js, ts)
+    for sub in ("best", "models/2", "models/3"):
+        _assert_models_close(tmp_path / "jax" / sub, tmp_path / "port" / sub)
+
+
+def test_tuning_bayesian_equals_jax(avro_dirs, tmp_path):
+    """BAYESIAN tuning: the GP's expected-improvement argmax picks the
+    same candidates as JAX's (the same numpy code on evaluations within
+    roundoff), with the same evaluations."""
+    j, t = _each(avro_dirs, tmp_path, lambda sub: (
+        "--hyper-parameter-tuning", "BAYESIAN", "--hyper-parameter-tuning-iter", "3"))
+    ts, js = _summary(tmp_path / "port"), _summary(tmp_path / "jax")
+    assert len(ts["models"]) == 5
+    _assert_summaries_close(js, ts)
+    assert all(np.isfinite(m["evaluation"]) for m in ts["models"])
+
+
+def test_saved_observations_and_priors_with_shrink_radius_equal_jax(avro_dirs, tmp_path):
+    """--hyper-parameter-save-observations writes the grid's observations
+    as prior JSON (tuning mode NONE); fed back with a shrink radius, RANDOM
+    tuning searches the same shrunk box in both packages."""
+    from photon_tpu_torch.hyperparameter.serialization import priors_from_json
+
+    obs = {sub: tmp_path / f"obs-{sub}.json" for sub in ("jax", "port")}
+    _each(avro_dirs, tmp_path / "grid",
+          lambda sub: ("--hyper-parameter-save-observations", str(obs[sub])))
+    tj, tt = (json.loads(obs[s].read_text()) for s in ("jax", "port"))
+    assert len(tt["records"]) == len(tj["records"]) == 2
+    for a, b in zip(tt["records"], tj["records"]):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-9)
+    parsed = priors_from_json(obs["port"].read_text(), ["global", "per-user"],
+                              {"global": 1.0, "per-user": 1.0})
+    assert [p for p, _ in parsed] == [{"global": 1.0, "per-user": 1.0},
+                                      {"global": 10.0, "per-user": 1.0}]
+
+    _each(avro_dirs, tmp_path / "tuned", lambda sub: (
+        "--hyper-parameter-tuning", "RANDOM", "--hyper-parameter-tuning-iter", "2",
+        "--hyper-parameter-prior-json", str(obs[sub]),
+        "--hyper-parameter-shrink-radius", "0.2"))
+    ts, js = _summary(tmp_path / "tuned" / "port"), _summary(tmp_path / "tuned" / "jax")
+    assert len(ts["models"]) == 4
+    _assert_summaries_close(js, ts)
+    # the tuned weights lie in the box shrunk around the best prior
+    for m in ts["models"][2:]:
+        for v in m["regularizationWeights"].values():
+            assert 1e-4 <= v <= 1e4
+
+
+def test_recovery_flag_errors_equal_jax(avro_dirs, tmp_path):
+    """--checkpoint-sweeps without --output-mode ALL is refused, as are a
+    warm start together with an initial model, and tuning without
+    validation data."""
+    cases = [
+        (["--checkpoint-sweeps", "--output-mode", "BEST"], "requires --output-mode ALL"),
+        (["--warm-start-input-directory", "w", "--model-input-directory", "m"],
+         "mutually exclusive"),
+    ]
+    for extra, match in cases:
+        for sub, run in (("jax", j_gt.run), ("port", functools.partial(t_gt.run, device="cpu"))):
+            with pytest.raises(ValueError, match=match):
+                run(_train_argv(avro_dirs, tmp_path / sub, *extra))
+            assert not (tmp_path / sub).exists()
+    argv = [a for a in _train_argv(avro_dirs, tmp_path / "nv", "--hyper-parameter-tuning",
+                                   "RANDOM")]
+    i = argv.index("--validation-data-directories")
+    del argv[i:i + 2]
+    with float64_drivers():
+        with pytest.raises(ValueError, match="requires validation data"):
+            t_gt.run(argv, device="cpu")
+
+
+# ---------------------------------------------------------------------------
 # flags whose modules are not ported
 # ---------------------------------------------------------------------------
 
@@ -749,18 +1037,6 @@ _INDEX = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--feature-shard-configurations", SHARD_ARG]
 
 UNPORTED = [
-    (t_gt, _TRAIN, ["--hyper-parameter-tuning", "BAYESIAN"], "--hyper-parameter-tuning"),
-    (t_gt, _TRAIN, ["--hyper-parameter-tuning", "RANDOM"], "--hyper-parameter-tuning"),
-    (t_gt, _TRAIN, ["--hyper-parameter-tuning-iter", "3"], "--hyper-parameter-tuning-iter"),
-    (t_gt, _TRAIN, ["--hyper-parameter-prior-json", "p.json"], "--hyper-parameter-prior-json"),
-    (t_gt, _TRAIN, ["--hyper-parameter-shrink-radius", "0.3"],
-     "--hyper-parameter-shrink-radius"),
-    (t_gt, _TRAIN, ["--hyper-parameter-save-observations", "o.json"],
-     "--hyper-parameter-save-observations"),
-    (t_gt, _TRAIN, ["--checkpoint-sweeps"], "--checkpoint-sweeps"),
-    (t_gt, _TRAIN, ["--max-restarts", "2"], "--max-restarts"),
-    (t_gt, _TRAIN, ["--warm-start-input-directory", "w"], "--warm-start-input-directory"),
-    (t_gt, _TRAIN, ["--model-checkpoint-directory", "c"], "--model-checkpoint-directory"),
     (t_gt, _TRAIN, ["--stream-chunk-rows", "96"], "--stream-chunk-rows"),
     (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
     (t_gt, _TRAIN, ["--precompile"], "--precompile"),

@@ -140,6 +140,103 @@ def test_kernel_entry_takes_float32_and_float64(dtype):
         tsw.windowed_rmatvec_cuda(tw, torch.as_tensor(r).to(dtype), d)
 
 
+# --- the native host build (native/window_builder.cpp) --------------------
+
+
+def _native_cases():
+    """Name → (idx, val, d, build kwargs): CASES plus the edge layouts."""
+    out = {name: _case(name)[:3] + (_case(name)[4],) for name in
+           ("d300-hot1", "d1024-hot0", "deep-spill", "pad-to-8")}
+    rng = np.random.default_rng(21)
+    out["empty"] = (np.zeros((0, 4), np.int32), np.zeros((0, 4), np.float32), 64,
+                    dict(window=32))
+    out["all-padding"] = (rng.integers(0, 64, (50, 3)).astype(np.int32),
+                          np.zeros((50, 3), np.float32), 64, dict(window=32))
+    # one column taking every row's slot 0 spills across many instances
+    idx, val = _random_ell(rng, 2000, 3, 200, hot_column=True)
+    out["hot-column-spill"] = (idx, val, 200, dict(window=64, instance_cap=256, chunk=64))
+    return out
+
+
+NATIVE_CASES = _native_cases()
+
+
+@pytest.fixture(scope="module")
+def port_native():
+    from photon_tpu_torch.data.native_index import load_native_lib
+
+    if load_native_lib() is None:
+        pytest.skip("native library unavailable")
+
+
+def _jax_build(idx, val, d, kw, native: bool):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PHOTON_NATIVE_WINDOWS", "1" if native else "0")
+        w = jsw.build_column_windows(idx, val, d, host=True, **kw)
+    return {f: np.asarray(getattr(w, f)) for f in FIELDS}
+
+
+def _port_numpy_build(idx, val, d, kw):
+    out = tsw.build_column_windows_numpy(idx, val, d, native=False, **kw)
+    assert tsw.last_build["path"] == "numpy"
+    return out
+
+
+def _assert_same(got, want, label):
+    for f in FIELDS:
+        assert got[f].dtype == want[f].dtype, (label, f)
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f"{label}: {f}")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", sorted(NATIVE_CASES))
+def test_native_build_matches_numpy_and_jax(port_native, name, dtype):
+    """The port's build takes the native counting sort for float32 values
+    and numpy's argsort otherwise; either way its arrays equal its own
+    numpy build's and JAX's native and numpy builds', field for field."""
+    idx, val, d, kw = NATIVE_CASES[name]
+    val = val.astype(dtype)
+    got = tsw.build_column_windows_numpy(idx, val, d, **kw)
+    native = dtype == np.float32 and idx.size > 0
+    assert tsw.last_build["path"] == ("native" if native else "numpy")
+    assert (tsw.last_build["reason"] is None) == native
+    if dtype == np.float64:
+        assert "float64" in tsw.last_build["reason"]
+    assert tsw.last_build["seconds"] >= 0.0
+    phases = tsw.last_build["phases"]
+    assert list(phases) == ["library", "inputs", "histogram", "alloc", "fill", "finish"]
+    assert sum(phases.values()) == pytest.approx(tsw.last_build["seconds"], abs=1e-9)
+    _assert_same(got, _port_numpy_build(idx, val, d, kw), "port numpy")
+    _assert_same(got, _jax_build(idx, val, d, kw, native=True), "jax native")
+    _assert_same(got, _jax_build(idx, val, d, kw, native=False), "jax numpy")
+
+
+@pytest.mark.parametrize("bad", [-1, 64])
+def test_native_build_rejects_out_of_range_columns(port_native, bad):
+    """A column outside [0, num_features) is a ValueError in both native
+    builds (the native histogram returns < 0)."""
+    idx, val = _random_ell(np.random.default_rng(5), 40, 3, 64, zero_slots=False)
+    idx[7, 1] = bad
+    with pytest.raises(ValueError, match="outside"):
+        tsw.build_column_windows_numpy(idx, val, 64, window=32)
+    with pytest.raises(ValueError, match="outside"):
+        _jax_build(idx, val, 64, dict(window=32), native=True)
+
+
+def test_build_says_why_it_took_numpy(monkeypatch):
+    """Without the library the build takes numpy and names the reason
+    the loader gave."""
+    from photon_tpu_torch.data import native_index
+
+    monkeypatch.setattr(native_index, "load_native_lib", lambda: None)
+    monkeypatch.setattr(native_index, "native_unavailable_reason", "g++ not found")
+    idx, val, d, kw = NATIVE_CASES["d300-hot1"]
+    got = tsw.build_column_windows_numpy(idx, val, d, **kw)
+    assert tsw.last_build["path"] == "numpy"
+    assert tsw.last_build["reason"] == "g++ not found"
+    _assert_same(got, _jax_build(idx, val, d, kw, native=True), "jax native")
+
+
 def test_kernel_entry_refuses_instance_length_not_multiple_of_4():
     """The kernel's bulk copies move whole 16-byte groups of an instance."""
     idx, val, d, r, kw = _case("d64-hot0")
