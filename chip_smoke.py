@@ -18,10 +18,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    widths of bench config 5 (``game_ctr_scale``: sparse fixed effect with
    2^17 columns and 24 nonzeros per row, per-user and per-item random
    effects at d=16), depth cut to 2^20 rows / 2^19 users / 2^16 items,
-   then ``GameScorer(device="cuda").score_data`` on the same rows; checks
-   that the kernel ran, every value is finite, grouped AUC ≥ 0.8, the
-   scorer agrees with the fit's final scores, and a small fit on the card
-   agrees with the same fit on the CPU, at float32 and at float64;
+   then ``GameScorer(device="cuda").score_data`` on the same rows (the
+   streaming pipeline); checks that the kernel ran, every value is finite,
+   grouped AUC ≥ 0.8, the scorer agrees with the fit's final scores, the
+   streamed scores equal the batches scored one after another with
+   blocking copies bit for bit, and a small fit on the card agrees with
+   the same fit on the CPU, at float32 and at float64;
 5. the single-GLM path, ``train_glm_grid(device="cuda")``, at the widths
    of bench configs 1-3: ``glm_a1a`` (a1a's shape, L-BFGS over a 3-λ grid
    with STANDARDIZATION and SIMPLE variances; bands, AUC > 0.5, float64
@@ -50,7 +52,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must come back within rtol 1e-6) and ``game_ctr_mf`` (bench config 6's
    model trained and scored at full width: 2^20 rows, fixed, per-user,
    per-item and user × item MF coordinates; the scorer within 1e-4 of the
-   fit and within config 6's 1e-3 of the host float64 path);
+   fit, within config 6's 1e-3 of the host float64 path, and equal to the
+   sequential batches bit for bit); the windowed-variance layout is held
+   and timed by ``kernel_case``;
 7. the command-line drivers: ``cli_game`` writes bench config 5's
    widths (FE 2^17 columns, 23 sparse features per row plus the shard's
    intercept, per-user and per-item d=16; depth cut to 2^17 rows, 2^16
@@ -82,8 +86,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the final model, and a run with ``--warm-start-input-directory``
    starts from its scores within 1e-4) and ``cli_game_tuning`` (BAYESIAN
    tuning for 3 iterations: 5 finite evaluations, the kernel launched in
-   every tuned fit, the saved observations read back as priors);
-9. print one ``{"kernels": [...]}`` line and, last, the ok line.
+   every tuned fit, the saved observations read back as priors) and
+   ``cli_game_cache`` (the feature cache built by
+   ``photon_tpu_torch.cli.cache_tool build``; the training driver with
+   ``--feature-cache require`` replays it, launches the kernel as often
+   as ``cli_game`` and gives every model of ``cli_game`` bit for bit; the
+   scoring driver with ``--feature-cache require`` gives ``cli_game``'s
+   scores bit for bit);
+9. ``scoring_stream``: bench config 6's model and traffic at full widths,
+   depth cut to 2^18 rows in 16 Avro parts, through ``GameScorer.stream``
+   in 16,384-row batches to 8 output partitions: the Avro stream, the
+   monolithic host path, a cold (``rebuild``) and a warm (``require``)
+   cache stream; stream vs monolithic within 1e-3, warm cache vs Avro
+   stream within 1e-6 with no Avro read, staging bounded; rows/s, stage
+   p50/p99, the overlap of the work stages, and the device-busy share of
+   a second, profiled warm stream;
+10. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -563,6 +581,52 @@ def sync_census(data, seed) -> None:
     }))
 
 
+def sequential_scores(scorer, data):
+    """The scorer's batches one after another with no pipeline: each batch
+    assembled on the host, copied with a blocking ``.to(device)`` from
+    pageable memory, scored, and every score read back once at the end.
+    The streamed ``score_data`` must equal it bit for bit: the same batch
+    program on the same batch shapes, so a read-back before its copy has
+    landed (stale numbers) cannot pass."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.game.data import slice_game_data
+
+    def to_device(tree):
+        if isinstance(tree, dict):
+            return {k: to_device(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to_device(v) for v in tree)
+        return torch.as_tensor(tree).to(scorer.device)
+
+    n, rows = data.num_samples, scorer.batch_rows
+    parts = []
+    for lo in range(0, n, rows):
+        hi = min(lo + rows, n)
+        batch = to_device(scorer._host_batch(slice_game_data(data, lo, hi)))
+        parts.append(scorer._score_fn(batch)[: hi - lo])
+    return torch.cat(parts).cpu().numpy().astype(np.float64)
+
+
+def streamed_vs_sequential(phase, scorer, data, streamed, turns=False):
+    """Fails unless the streamed scores equal ``sequential_scores``.
+    Returns the sequential path's wall; with ``turns``, the walls of
+    sequential, streamed, sequential run after the caller's streamed run
+    (whose first call builds the model's entity indices, a one-off)."""
+    import numpy as np
+
+    walls = []
+    for run in (["sequential", "streamed", "sequential"] if turns else ["sequential"]):
+        t0 = time.perf_counter()
+        got = sequential_scores(scorer, data) if run == "sequential" else scorer.score_data(data)
+        walls.append((run, time.perf_counter() - t0))
+        if streamed.dtype != np.float64 or not np.array_equal(streamed, got):
+            diff = float(np.abs(streamed - got).max()) if streamed.shape == got.shape else None
+            fail(f"{phase}: streamed scores differ from the {run} run (max_abs_err={diff})")
+    return walls if turns else walls[0][1]
+
+
 def main_path(data, seed):
     import numpy as np
     import torch
@@ -579,9 +643,11 @@ def main_path(data, seed):
     fit_launches = windowed_rmatvec.launches
     wbuild = window_build("main_path")
     t1 = time.perf_counter()
-    scores = GameScorer(result.model, device="cuda", batch_rows=1 << 16).score_data(data)
+    scorer = GameScorer(result.model, device="cuda", batch_rows=1 << 16)
+    scores = scorer.score_data(data)
     score_wall = time.perf_counter() - t1
     launches = windowed_rmatvec.launches
+    score_turns = streamed_vs_sequential("main_path", scorer, data, scores, turns=True)
     if fit_launches <= 0:
         fail("the fit never launched the windowed Xᵀr kernel")
 
@@ -621,7 +687,8 @@ def main_path(data, seed):
         "fe_iterations_sweep0": int(info.iterations),
         "fe_feature_passes_sweep0": int(info.n_feature_passes),
         "kernel_launches_fit": fit_launches,
-        "score_wall_s": score_wall,
+        "score_wall_s": score_wall, "score_turns_s": score_turns,
+        "streamed_equals_sequential": True,
         "grouped_auc_user": auc,
         "scorer_vs_fit_max_abs_err": score_err,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1218,8 +1285,10 @@ def game_ctr_mf(seed):
     fit_wall = time.perf_counter() - t0
     fit_walls = walls(est, result)
     t0 = time.perf_counter()
-    scores = GameScorer(result.model, device="cuda", batch_rows=16384).score_data(data)
+    scorer = GameScorer(result.model, device="cuda", batch_rows=16384)
+    scores = scorer.score_data(data)
     score_wall = time.perf_counter() - t0
+    sequential_wall = streamed_vs_sequential("game_ctr_mf", scorer, data, scores)
     if scores.shape != (MF_N,) or not np.all(np.isfinite(scores)):
         fail("game_ctr_mf: scores are not finite or have the wrong shape")
     fit_err = float(np.max(np.abs(scores - data.offsets - result.scores)
@@ -1242,12 +1311,342 @@ def game_ctr_mf(seed):
         "items": MF_ITEMS, "k": MF_K, "sweeps": 2, "data_gen_s": gen_s,
         "fit_wall_s": fit_wall, **fit_walls, "steady_coordinate_s": per_coord,
         "mf_iterations_evals": mf_steps, "score_wall_s": score_wall,
-        "rows_per_s": MF_N / score_wall, "host_score_wall_s": host_wall,
+        "rows_per_s": MF_N / score_wall, "sequential_score_wall_s": sequential_wall,
+        "streamed_equals_sequential": True, "host_score_wall_s": host_wall,
         "scorer_vs_fit_max_rel": fit_err, "scorer_vs_host_f64_max_rel": host_rel,
         "grouped_auc_user": auc, "kernel_launches": windowed_rmatvec.launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }))
     return windowed_rmatvec.launches
+
+
+# --- the streaming scorer and the feature cache at bench config 6 ----------------
+
+SS_N, SS_FULL_N = 1 << 18, 1 << 20  # depth cut: the pure-Python Avro write
+SS_BATCH, SS_PARTS_IN, SS_PARTS_OUT = 16384, 16, 8
+# stages that wait rather than work: a chunk waiting for the consumer, and
+# batch i held while batch i+1 is assembled and copied (counted there)
+SS_WAIT_STAGES = ("queue", "pipeline")
+CACHE_PARITY_MAX = 1e-6  # bench.py QUALITY_BANDS game_scoring_stream
+
+
+def _write_stream_part(path, row0, cols, vals, labels, ids, item_ids):
+    """One Avro part of ``scoring_stream``'s rows, as bench.py config 6
+    writes them (run in a worker process)."""
+    from photon_tpu_torch.io.avro import AvroFileWriter
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    def records():
+        for i in range(len(labels)):
+            yield {
+                "uid": f"s{row0 + i}", "label": float(labels[i]),
+                "features": [{"name": f"f{c}", "term": "", "value": v}
+                             for c, v in zip(cols[i].tolist(), vals[i].tolist())],
+                "metadataMap": {"userId": f"u{ids[i]}", "itemId": f"it{item_ids[i]}"},
+                "weight": 1.0, "offset": 0.0,
+            }
+
+    with AvroFileWriter(path, TRAINING_EXAMPLE_AVRO) as w:
+        w.append(records())
+
+
+def stream_model_and_parts(seed, in_dir):
+    """Bench config 6's traffic and model (bench.py:2189-2330) at its
+    widths: FE d = 64 with 24 nonzeros per row, per-user (2^16) and
+    per-item (4096) random effects on the same 64 columns, a user × item
+    MF term at k = 8; the model is the weights the labels were drawn from,
+    in the reader's feature order. The rows go to 16 Avro parts, written
+    by 8 worker processes. Returns the model, the index maps and the
+    write's seconds."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from photon_tpu_torch.data.index_map import DefaultIndexMap, feature_key
+    from photon_tpu_torch.game.model import (
+        BucketCoefficients,
+        FixedEffectModel,
+        GameModel,
+        MatrixFactorizationModel,
+        RandomEffectModel,
+    )
+    from photon_tpu_torch.models.coefficients import Coefficients
+    from photon_tpu_torch.types import TaskType
+
+    n, d, nnz, users, items, k = SS_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K
+    rng = np.random.default_rng(seed + 6)
+    vrng = np.random.default_rng(seed + 7)
+    ids = rng.integers(0, users, size=n)
+    item_ids = rng.integers(0, items, size=n)
+    cols = np.sort(np.argsort(rng.random((n, d)), axis=1)[:, :nnz], axis=1)
+    vals = vrng.normal(size=(n, nnz)) / np.sqrt(nnz)
+    w_fe = vrng.normal(size=d) * 0.5
+    w_re = vrng.normal(size=(users, d)) * 0.5
+    w_it = vrng.normal(size=(items, d)) * 0.5
+    uf = vrng.normal(size=(users, k)) * 0.3
+    vf = vrng.normal(size=(items, k)) * 0.3
+    margin = (np.einsum("nk,nk->n", vals, w_fe[cols])
+              + np.einsum("nk,nk->n", vals, w_re[ids[:, None], cols])
+              + np.einsum("nk,nk->n", vals, w_it[item_ids[:, None], cols])
+              + np.einsum("nk,nk->n", uf[ids], vf[item_ids]))
+    labels = (vrng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(float)
+
+    os.makedirs(in_dir)
+    t0 = time.perf_counter()
+    per_part = -(-n // SS_PARTS_IN)
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = [ex.submit(_write_stream_part, os.path.join(in_dir, f"part-{p:05d}.avro"), lo,
+                             cols[lo:lo + per_part], vals[lo:lo + per_part],
+                             labels[lo:lo + per_part], ids[lo:lo + per_part],
+                             item_ids[lo:lo + per_part])
+                   for p, lo in enumerate(range(0, n, per_part))]
+        for f in futures:
+            f.result()
+    write_s = time.perf_counter() - t0
+
+    imap = DefaultIndexMap.from_keys([feature_key(f"f{j}") for j in range(d)],
+                                     add_intercept=False)
+    perm = np.array([imap.get_index(feature_key(f"f{j}")) for j in range(d)])
+    task = TaskType.LOGISTIC_REGRESSION
+
+    def aligned(w):
+        out = np.zeros_like(w)
+        out[..., perm] = w
+        return out
+
+    def random_effect(tag, prefix, coefs):
+        e_n = len(coefs)
+        vocab = np.array(sorted(f"{prefix}{i}" for i in range(e_n)))
+        order = [int(key[len(prefix):]) for key in vocab]
+        return RandomEffectModel(
+            random_effect_type=tag, feature_shard="global", task=task, vocab=vocab,
+            buckets=(BucketCoefficients(
+                entity_ids=np.arange(e_n), col_index=np.tile(np.arange(d), (e_n, 1)),
+                coefficients=aligned(coefs)[order]),),
+            num_features=d)
+
+    model = GameModel({
+        "fixed": FixedEffectModel(Coefficients(means=aligned(w_fe)), "global", task),
+        "per-user": random_effect("userId", "u", w_re),
+        "per-item": random_effect("itemId", "it", w_it),
+        "mf": MatrixFactorizationModel(
+            row_entity_type="userId", col_entity_type="itemId",
+            row_vocab=np.array([f"u{i}" for i in range(users)]),
+            col_vocab=np.array([f"it{i}" for i in range(items)]),
+            row_factors=uf, col_factors=vf),
+    }, task)
+    return model, {"global": imap}, write_s
+
+
+def device_busy_share(run):
+    """``run()`` under torch.profiler: the union of the card's kernel and
+    copy intervals over the window's wall (both from the trace), and the
+    window's host wall. Returns (run's result, row)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                             "gpu_memset"))
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    host = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("cpu_op", "python_function",
+                                                      "user_annotation", "cuda_runtime")]
+    window_us = (max(b for _, b in host + spans) - min(a for a, _ in host + spans)
+                 if host or spans else 0.0)
+    return out, {"source": "torch.profiler", "device_events": len(spans),
+                 "device_busy_s": busy / 1e6,
+                 "trace_window_s": window_us / 1e6, "wall_s": wall,
+                 "device_busy_share": busy / 1e6 / wall if spans else None}
+
+
+def busy_from_events(scorer, reader, wall):
+    """When the profiler shows no device time: each warm batch staged and
+    scored alone between two CUDA events on the compute stream (the copy
+    stream's copies are inside: the compute stream waits on them), summed
+    over the batches, over the warm stream's wall."""
+    import torch
+
+    device_ms = 0.0
+    for chunk in reader.iter_chunks(SS_BATCH):
+        host = scorer._host_batch(chunk)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        scorer._read_back(scorer._enqueue(scorer._stage(host), chunk.num_samples))
+        b.record()
+        b.synchronize()
+        device_ms += a.elapsed_time(b)
+    return {"source": "cuda_events", "device_busy_s": device_ms / 1e3,
+            "device_busy_share": device_ms / 1e3 / wall}
+
+
+def scoring_stream(seed, tmp):
+    """Bench config 6 (``game_scoring_stream``): its model and traffic at
+    full widths, 16 Avro parts of 2^18 rows (the depth cut from 2^20), in
+    16,384-row batches to 8 output partitions, through ``GameScorer.stream``
+    on the card, four legs in turns: the Avro stream, the monolithic host
+    path (read everything, ``GameTransformer.score``), a ``rebuild`` cache
+    stream (cold: decodes Avro and builds the cache) and a ``require``
+    cache stream (warm: mmap replay), then the warm stream once more under
+    torch.profiler for the device-busy share alone. Checks: stream vs
+    monolithic max |Δ|/(1+|s|) ≤ 1e-3, warm cache vs Avro stream ≤ 1e-6,
+    every warm chunk from the cache with no Avro read, staging within
+    MAX_STAGED_CHUNKS + 2. Prints rows/s, stage p50/p99, the overlap (the
+    work stages' summed walls over the stream wall, with the waits
+    ``queue`` and ``pipeline`` beside it) and the warm window's
+    device-busy share."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.cache import CachedDataReader, resolve_reader
+    from photon_tpu_torch.game.scoring import MAX_STAGED_CHUNKS, GameScorer
+    from photon_tpu_torch.game.transformer import GameTransformer
+    from photon_tpu_torch.io.data_reader import AvroDataReader, FeatureShardConfig
+    from photon_tpu_torch.io.model_io import ShardedScoringWriter
+
+    in_dir, out_root = f"{tmp}/stream-in", f"{tmp}/stream-out"
+    t0 = time.perf_counter()
+    model, maps, write_s = stream_model_and_parts(seed, in_dir)
+    gen_s = time.perf_counter() - t0 - write_s
+    shards = {"global": FeatureShardConfig(feature_bags=("features",), has_intercept=False)}
+    tags = ("userId", "itemId")
+    scorer = GameScorer(model, device="cuda", batch_rows=SS_BATCH)
+    reads = {"n": 0}
+    avro_read = AvroDataReader.read
+
+    def counting_read(self, *args, **kwargs):
+        reads["n"] += 1
+        return avro_read(self, *args, **kwargs)
+
+    def stream_leg(name, chunks):
+        writer = ShardedScoringWriter(f"{out_root}/{name}", num_partitions=SS_PARTS_OUT,
+                                      model_id="smoke")
+        provenance = []
+
+        def sink(chunk, scores):
+            provenance.append(chunk.provenance)
+            writer.write_chunk(scores, labels=chunk.labels, weights=chunk.weights,
+                               uids=chunk.uids)
+
+        reads["n"] = 0
+        t0 = time.perf_counter()
+        res = scorer.stream(chunks(), on_batch=sink)
+        writer.close()
+        wall = time.perf_counter() - t0
+        stats = res.stats
+        if res.scores.shape != (SS_N,) or not np.all(np.isfinite(res.scores)):
+            fail(f"scoring_stream[{name}]: scores not finite or of the wrong shape")
+        if stats.max_staged_chunks > MAX_STAGED_CHUNKS + 2:
+            fail(f"scoring_stream[{name}]: {stats.max_staged_chunks} chunks staged")
+        stage_s = {k: float(sum(v)) for k, v in stats.stage_walls_s.items()}
+        work_s = sum(v for k, v in stage_s.items() if k not in SS_WAIT_STAGES)
+        row = {"wall_s": wall, "stream_wall_s": stats.wall_s, "rows_per_s": SS_N / wall,
+               "batches": stats.batches, "max_staged_chunks": stats.max_staged_chunks,
+               "avro_reads": reads["n"],
+               "stage_p50_p99_s": {k: [v["p50"], v["p99"]]
+                                   for k, v in stats.stage_percentiles().items()},
+               "stage_sum_s": stage_s, "work_sum_s": work_s,
+               "wait_sum_s": {k: stage_s.get(k, 0.0) for k in SS_WAIT_STAGES},
+               "overlap": work_s / stats.wall_s,
+               "e2e_latency": stats.e2e_percentiles()}
+        return res.scores, provenance, row
+
+    def resolved(mode):
+        return resolve_reader(in_dir, shards, index_maps=maps, id_tags=tags, mode=mode)
+
+    AvroDataReader.read = counting_read
+    try:
+        avro, _, avro_row = stream_leg("avro", lambda: AvroDataReader(index_maps=maps)
+                                       .iter_chunks(in_dir, shards, id_tags=tags,
+                                                    chunk_rows=SS_BATCH))
+        t0 = time.perf_counter()
+        data = AvroDataReader(index_maps=maps).read(in_dir, shards, id_tags=tags)
+        read_s = time.perf_counter() - t0
+        mono = np.asarray(GameTransformer(model, model.task, device="cuda").score(data))
+        mono_score_s = time.perf_counter() - t0 - read_s
+        writer = ShardedScoringWriter(f"{out_root}/mono", model_id="smoke")
+        writer.write_chunk(mono, labels=data.labels, weights=data.weights, uids=data.uids)
+        writer.close()
+        mono_s = time.perf_counter() - t0
+        del data
+        t0 = time.perf_counter()
+        cold_reader = resolved("rebuild")
+        cold, cold_prov, cold_row = stream_leg("cache_cold",
+                                               lambda: cold_reader.iter_chunks(SS_BATCH))
+        cold_row["wall_with_open_s"] = time.perf_counter() - t0
+        cache = CachedDataReader(cold_reader.cache_dir).manifest
+        t0 = time.perf_counter()
+        warm_reader = resolved("require")
+        open_s = time.perf_counter() - t0
+        warm, warm_prov, warm_row = stream_leg("cache_warm",
+                                               lambda: warm_reader.iter_chunks(SS_BATCH))
+        warm_row["wall_with_open_s"] = warm_row["wall_s"] + open_s
+        # the same warm stream again under the profiler, for the busy share
+        # only: its rows/s and stage walls come from the run above
+        (profiled, _, profiled_row), busy = device_busy_share(
+            lambda: stream_leg("cache_warm_profiled", lambda: warm_reader.iter_chunks(SS_BATCH)))
+        busy["profiled_rows_per_s"] = profiled_row["rows_per_s"]
+        if not np.array_equal(profiled, warm):
+            fail("scoring_stream: the profiled warm stream scored differently")
+        if busy["device_busy_share"] is None:
+            busy.update(busy_from_events(scorer, warm_reader, warm_row["wall_s"]))
+    finally:
+        AvroDataReader.read = avro_read
+
+    rel = float(np.max(np.abs(avro - mono) / (1.0 + np.abs(mono))))
+    if not rel <= SCORE_PARITY_REL_MAX:
+        fail(f"scoring_stream: stream vs monolithic max |Δ|/(1+|s|) = {rel}")
+    cache_err = float(np.max(np.abs(warm - avro)))
+    if not cache_err <= CACHE_PARITY_MAX or not np.array_equal(cold, avro):
+        fail(f"scoring_stream: cache streams vs the Avro stream max_abs_err={cache_err} "
+             f"(cold equal: {np.array_equal(cold, avro)})")
+    if warm_row["avro_reads"] != 0 or any(p is None or p.get("source") != "cache"
+                                          for p in warm_prov):
+        fail(f"scoring_stream: the warm stream read Avro {warm_row['avro_reads']} times or "
+             "served a chunk not from the cache")
+    if cold_row["avro_reads"] == 0 or any(p is not None for p in cold_prov):
+        fail("scoring_stream: the cold stream did not decode Avro")
+    if len(os.listdir(f"{out_root}/cache_warm")) != SS_PARTS_OUT:
+        fail("scoring_stream: the warm stream wrote another number of partitions")
+    log(json.dumps({
+        "phase": "scoring_stream", "cut": {"rows": [SS_N, SS_FULL_N]},
+        "d": MF_D, "nnz": MF_NNZ, "users": MF_USERS, "items": MF_ITEMS, "k": MF_K,
+        "batch_rows": SS_BATCH, "parts_in": SS_PARTS_IN, "parts_out": SS_PARTS_OUT,
+        "data_gen_s": gen_s, "avro_write_s": write_s,
+        "avro": avro_row,
+        "monolithic": {"wall_s": mono_s, "read_s": read_s, "host_score_s": mono_score_s,
+                       "rows_per_s": SS_N / mono_s},
+        "cache_cold": cold_row, "cache_warm": warm_row, "cache_open_s": open_s,
+        "cache_bytes": sum(c["bytes"] for c in cache["columns"].values()),
+        "warm_device": busy,
+        "stream_vs_monolithic_max_rel": rel, "warm_vs_avro_max_abs": cache_err,
+        "cold_equals_avro": True,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }))
 
 
 def small_game_data(seed, n=4096, users=96, items=24):
@@ -1373,14 +1772,14 @@ def small_game_parity(seed):
         np.array_equal(x, y)
         for (_, x), (_, y) in zip(model_arrays(mf_fits[0].model), model_arrays(mf_fits[1].model))
     )
-    variance_launches, rows["windowed_variance"] = windowed_variance_parity(seed)
+    variance_launches, rows["windowed_variance"], krow = windowed_variance_parity(seed)
     worst = max(worst, rows["windowed_variance"])
     log(json.dumps({"phase": "small_game_parity", "rows": data.num_samples,
                     "wall_s": time.perf_counter() - t0,
                     "max_abs_err_by_case": rows, "max_abs_err": worst, "tolerance": 1e-9,
                     "mf_two_card_fits_bitwise_equal": mf_bitwise,
                     "variance_kernel_launches": variance_launches}))
-    return variance_launches
+    return variance_launches, krow
 
 
 def windowed_variance_parity(seed):
@@ -1389,8 +1788,9 @@ def windowed_variance_parity(seed):
     on the card and on the CPU at float64: coefficients and variances
     within 1e-9. On the card ``hessian_diagonal`` runs the kernel over the
     squared values and, for the shifts, over the values. Returns the
-    kernel's launches inside the variance computation, and the largest
-    difference."""
+    kernel's launches inside the variance computation, the largest
+    difference, and the kernel's row on that layout (held and timed by
+    ``kernel_case`` over the squared values, as the variance runs it)."""
     import numpy as np
     import torch
 
@@ -1455,7 +1855,10 @@ def windowed_variance_parity(seed):
         worst = max(worst, err)
         if got.shape != ref.shape or not np.allclose(got, ref, rtol=1e-9, atol=1e-9):
             fail(f"small_game_parity[windowed_variance]: card vs cpu {key} max_abs_err={err}")
-    return counted["launches"], worst
+    fe = data.feature_shards["global"]
+    idx, val = fe.to_ell(dtype=np.float64)
+    krow = kernel_case("small_game_variance", idx, val * val, fe.num_cols, dtype=torch.float64)
+    return counted["launches"], worst, krow
 
 
 # --- the command-line drivers (cli_game, cli_legacy) -------------------------
@@ -1670,6 +2073,8 @@ def cli_game(seed, tmp):
         out["wall_s"] = time.perf_counter() - t0
         out["records"] = {r["uid"]: r["predictionScore"]
                           for r in read_avro_dir(f"{tmp}/scoring-{name}/scores")}
+        if out["scoring"]["mode"] != "streaming":
+            fail(f"cli_game: the scoring driver ran {out['scoring']['mode']!r}, not 'streaming'")
         scored[name] = out
 
     t0 = time.perf_counter()
@@ -1714,6 +2119,7 @@ def cli_game(seed, tmp):
              "from the scoring driver on the validation data")
 
     tw, sw = res["walls"], scored["train"]["walls"]
+    stream = scored["train"]["scoring"]
     log(json.dumps({
         "phase": "cli_game",
         "cut": {"rows": [CLI_N, FULL_N], "users": [CLI_USERS, FULL_USERS],
@@ -1732,11 +2138,13 @@ def cli_game(seed, tmp):
         "validation_s": [[t["validation_seconds"] for t in r.tracker
                           if "validation_seconds" in t] for r in res["results"]],
         "save_s": tw["save models"], "training_driver_s": train_wall,
-        "scoring_load_s": sw["load model"], "scoring_read_s": sw["read scoring data"],
-        "score_s": sw["score"], "scoring_write_s": sw["save scores"],
+        "scoring_load_s": sw["load model"], "scoring_stream_s": sw["stream scores"],
+        "scoring_stream_wall_s": stream["streamSeconds"],
+        "scoring_stage_s": stream["stageSeconds"], "scoring_stage_latency": stream["stageLatency"],
+        "scoring_max_staged_chunks": stream["maxStagedChunks"],
         "evaluate_s": sw["evaluate"], "scoring_driver_s": scored["train"]["wall_s"],
         "scoring_rows_per_s": CLI_N / scored["train"]["wall_s"],
-        "score_phase_rows_per_s": CLI_N / sw["score"],
+        "score_stream_rows_per_s": CLI_N / sw["stream scores"],
         "load_check_s": load_check_s, "best": res["best"],
         "kernel_launches_fit": launches, "scorer_vs_fit_max_abs_err": fit_err,
         "grouped_auc_user_train": auc, "auc_user_valid_summary": summary_auc,
@@ -1745,7 +2153,8 @@ def cli_game(seed, tmp):
     }))
     return launches, krow, {
         "tmp": tmp, "train": f"{tmp}/train", "valid": f"{tmp}/valid", "res": res,
-        "summary": summary,
+        "summary": summary, "launches": launches, "read_s": tw["read training data"],
+        "train_scores": train_scores, "scoring_stream_s": sw["stream scores"],
     }
 
 
@@ -2036,6 +2445,102 @@ def cli_game_tuning(ctx):
     return launches
 
 
+def cli_game_cache(ctx):
+    """The feature cache on ``cli_game``'s Avro parts: the training data's
+    cache built by ``photon_tpu_torch.cli.cache_tool build``, the
+    validation data's by the front door with the training index maps (as
+    a cold ``--feature-cache use`` run builds it; the tool generates maps
+    from the data it reads, and the validation rows alone would give other
+    ones). Then the training driver with ``--feature-cache require`` and
+    ``cli_game``'s command line (no model files): both reads replay the
+    cache, the fit launches the kernel as often as ``cli_game``'s, and every
+    model equals ``cli_game``'s bit for bit. Then the scoring driver with
+    ``--feature-cache require`` and 16,384-row batches: a cache hit, and
+    its scores, joined on uid, equal ``cli_game``'s scoring driver bit for
+    bit. Returns the kernel's launches."""
+    import os
+
+    import numpy as np
+
+    from photon_tpu_torch.cache import CachedDataReader, resolve_reader
+    from photon_tpu_torch.cli import cache_tool, game_base, game_scoring, game_training
+    from photon_tpu_torch.io.avro import read_avro_dir
+
+    train_args = game_training.build_parser().parse_args(cli_args(ctx, "unused"))
+    shards = game_base.parse_shard_configs(train_args)
+    tags = ["itemId", "userId"]
+    t0 = time.perf_counter()
+    if cache_tool.run(["build", "--input-data-directories", ctx["train"], *CLI_SHARDS,
+                       "--id-tags", ",".join(tags), "--chunk-rows", "16384"]) != 0:
+        fail("cli_game_cache: cache_tool build failed")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    valid = resolve_reader([ctx["valid"]], shards, index_maps=ctx["res"]["index_maps"],
+                           id_tags=tags, mode="rebuild")
+    valid.read()
+    valid_build_s = time.perf_counter() - t0
+    cache_bytes = {}
+    for name, reader in (("train", resolve_reader([ctx["train"]], shards, id_tags=tags,
+                                                  mode="require")), ("valid", valid)):
+        manifest = CachedDataReader(reader.cache_dir).manifest
+        cache_bytes[name] = sum(c["bytes"] for c in manifest["columns"].values())
+
+    t0 = time.perf_counter()
+    res, launches = launches_since_zero(lambda: game_training.run(cli_args(
+        ctx, "cache-train", "--feature-cache", "require", "--output-mode", "NONE"),
+        device="cuda"))
+    train_s = time.perf_counter() - t0
+    if res["decoders"] != {"training": {"decoder": "cache", "reason": None},
+                           "validation": {"decoder": "cache", "reason": None}}:
+        fail(f"cli_game_cache: the training driver did not replay the cache: {res['decoders']}")
+    if launches != ctx["launches"]:
+        fail(f"cli_game_cache: the fit launched the kernel {launches} times, cli_game's "
+             f"{ctx['launches']}")
+    want = ctx["res"]["results"]
+    if len(res["results"]) != len(want) or res["best"] != ctx["res"]["best"]:
+        fail("cli_game_cache: another grid or best model than cli_game's")
+    for i, (a, b) in enumerate(zip(want, res["results"])):
+        differs = model_mismatch(a.model, b.model)
+        if differs or a.evaluation != b.evaluation:
+            fail(f"cli_game_cache: grid point {i}: {differs or 'the evaluation'} differs "
+                 "from cli_game's")
+
+    t0 = time.perf_counter()
+    out = game_scoring.run([
+        "--input-data-directories", ctx["train"],
+        "--root-output-directory", f"{ctx['tmp']}/cache-scoring", *CLI_SHARDS,
+        "--model-input-directory", f"{ctx['tmp']}/training/best",
+        "--evaluators", "AUC:userId,AUC", "--num-output-partitions", "3",
+        "--score-batch-rows", "16384", "--feature-cache", "require",
+    ], device="cuda")
+    score_s = time.perf_counter() - t0
+    scoring = out["scoring"]
+    if scoring["mode"] != "streaming" or scoring["featureCache"]["state"] != "hit" or (
+            scoring["decoder"] != "cache"):
+        fail(f"cli_game_cache: the scoring driver ran {scoring['mode']} with cache "
+             f"{scoring['featureCache']} and decoder {scoring['decoder']}")
+    got = {r["uid"]: r["predictionScore"]
+           for r in read_avro_dir(f"{ctx['tmp']}/cache-scoring/scores")}
+    if got.keys() != ctx["train_scores"].keys() or any(
+            got[uid] != v for uid, v in ctx["train_scores"].items()):
+        fail("cli_game_cache: the scores replayed from the cache differ from cli_game's")
+    log(json.dumps({
+        "phase": "cli_game_cache",
+        "cache_build_s": build_s, "cache_bytes": cache_bytes,
+        "validation_cache_build_s": valid_build_s,
+        "replay_read_s": res["walls"]["read training data"],
+        "replay_read_validation_s": res["walls"]["read validation data"],
+        "avro_read_s": ctx["read_s"], "training_driver_s": train_s,
+        "fit_wall_s": res["fit_stats"]["wall_s"], "kernel_launches_fit": launches,
+        "models_bit_equal": True, "scoring_driver_s": score_s,
+        "scoring_stream_s": out["walls"]["stream scores"],
+        "avro_scoring_stream_s": ctx["scoring_stream_s"],
+        "scoring_stage_s": scoring["stageSeconds"], "feature_cache": scoring["featureCache"],
+        "scores_bit_equal": True, "cache_dirs": sorted(os.listdir(f"{ctx['train']}/_photon_cache")),
+    }))
+    return launches
+
+
 def cli_game_parity(seed):
     """``cli_game``'s training command line on the card and on the CPU,
     both at float64 (the driver module's ``GameEstimator`` swapped for one
@@ -2237,7 +2742,7 @@ def main() -> None:
     k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
     del idx3, vals3
 
-    variance_launches = small_game_parity(args.seed)
+    variance_launches, kvar = small_game_parity(args.seed)
     game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
         cli_launches, kcli, ctx = cli_game(args.seed, tmp)
@@ -2247,9 +2752,12 @@ def main() -> None:
         recovery_launches["cli_game_warm"] = cli_game_warm(ctx, train)
         del train, valid, settings
         recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
+        cache_launches = cli_game_cache(ctx)
         del ctx
     cli_game_parity(args.seed)
     cli_legacy(args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
+        scoring_stream(args.seed, tmp)
 
     def timings(row):
         return {key: row[key] for key in (
@@ -2272,12 +2780,14 @@ def main() -> None:
             **{path: n for path, n in game_launches.items() if n > 0},
             "cli_game": cli_launches,
             **recovery_launches,
+            "cli_game_cache": cache_launches,
             "small_game_parity.windowed_variance": variance_launches,
         },
         "layouts": {
             "config5_fe": {"launches": launches, **timings(kmain)},
             "config3_fe": {"launches": owlqn_launches, **timings(k3)},
             "cli_game_fe": {"launches": cli_launches, **timings(kcli)},
+            "small_game_variance": {"launches": variance_launches, **timings(kvar)},
         },
     }]}))
     log(json.dumps({"ok": True, "device": {

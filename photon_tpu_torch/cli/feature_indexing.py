@@ -34,7 +34,6 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
-    game_base.refuse_unported(args, parser, game_base.UNPORTED_COMMON)
     shard_configs = game_base.parse_shard_configs(args)
     out_root = prepare_output_dir(
         args.root_output_directory, override=args.override_output_directory

@@ -3,9 +3,9 @@ common CLI parameters, feature-map preparation (off-heap store vs
 generated), date-ranged input resolution, and the refusal of flags whose
 modules are not ported yet.
 
-Counterpart of photon_tpu/cli/game_base.py. The port reads through
-``AvroDataReader`` directly (no feature cache) and writes no telemetry
-artifacts.
+Counterpart of photon_tpu/cli/game_base.py. Reads go through the
+feature cache's front door (``photon_tpu_torch.cache.resolve_reader``,
+``--feature-cache``); the port writes no telemetry artifacts.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ from photon_tpu_torch.cli.parsing import parse_evaluators, parse_feature_shard_c
 from photon_tpu_torch.data.index_map import IndexMap
 from photon_tpu_torch.data.native_index import load_partitioned_store
 from photon_tpu_torch.game.data import GameData
-from photon_tpu_torch.io.data_reader import AvroDataReader, FeatureShardConfig
+from photon_tpu_torch.cache import resolve_reader
+from photon_tpu_torch.io.data_reader import FeatureShardConfig
 from photon_tpu_torch.util import DateRange, DaysRange, Timed, resolve_date_range_paths
 
 
@@ -55,8 +56,11 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
         "--feature-cache",
         default=None,
         choices=["off", "use", "require", "rebuild"],
-        help="packed columnar feature cache: not ported yet, any mode but "
-        "'off' raises (ROADMAP A2)",
+        help="packed columnar feature cache (photon_tpu_torch/cache): 'use' "
+        "replays a fresh cache (and builds one on a miss), 'require' refuses to "
+        "decode avro (python -m photon_tpu_torch.cli.cache_tool builds and "
+        "verifies caches), 'rebuild' forces a fresh build; env "
+        "PHOTON_FEATURE_CACHE overrides (default off)",
     )
     p.add_argument("--root-output-directory", required=True, help="driver output root")
     p.add_argument(
@@ -66,11 +70,6 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--log-level", default="info")
     p.add_argument("--application-name", default="photon-tpu")
-
-
-#: flags of the common parser whose modules are not ported:
-#: argparse dest → (the value that is accepted, the ROADMAP item)
-UNPORTED_COMMON = {"feature_cache": (("off",), "ROADMAP A2: feature cache, cache/*")}
 
 
 def refuse_unported(args, parser: argparse.ArgumentParser, table: dict) -> None:
@@ -126,27 +125,39 @@ def prepare_feature_maps(
     }
 
 
+def log_decoder(log, rows: int, decoder: dict) -> None:
+    """Say which decoder served ``rows`` rows (a Python fallback loudly)."""
+    if decoder["decoder"] == "cache":
+        log.info("replayed %d samples from the feature cache", rows)
+    elif decoder["reason"] is None:
+        log.info("decoded %d samples with the native decoder", rows)
+    else:
+        log.warning("decoded %d samples with the Python decoder: %s", rows, decoder["reason"])
+
+
 def read_game_data(
     paths,
     shard_configs: dict[str, FeatureShardConfig],
     index_maps: dict[str, IndexMap] | None,
     id_tags=(),
     log=None,
+    cache: str | None = None,
 ) -> tuple[GameData, dict[str, IndexMap], dict]:
-    """One materialized GameData, its index maps, and which decoder read
-    it (``{"decoder": ..., "reason": ...}``, also logged)."""
-    reader = AvroDataReader(index_maps=index_maps)
-    data = reader.read(paths, shard_configs, id_tags=tuple(id_tags))
-    decoder = {"decoder": reader.last_decoder, "reason": reader.last_decoder_reason}
+    """One materialized GameData through the ingest front door, its index
+    maps, and what read it: ``{"decoder": "native" | "python" | "cache",
+    "reason": ...}`` (also logged). ``cache`` is the
+    ``--feature-cache`` mode (env ``PHOTON_FEATURE_CACHE`` wins; default
+    off, the plain avro read)."""
+    resolved = resolve_reader(
+        paths, shard_configs, index_maps=index_maps, id_tags=tuple(id_tags), mode=cache
+    )
+    data = resolved.read()
+    decoder = resolved.decoder
     if log is not None:
-        if reader.last_decoder_reason is None:
-            log.info("decoded %d samples with the native decoder", data.num_samples)
-        else:
-            log.warning(
-                "decoded %d samples with the Python decoder: %s",
-                data.num_samples, reader.last_decoder_reason,
-            )
-    return data, reader.index_maps, decoder
+        if resolved.mode != "off":
+            log.info("feature cache: %s", resolved.describe())
+        log_decoder(log, data.num_samples, decoder)
+    return data, resolved.index_maps, decoder
 
 
 @contextlib.contextmanager

@@ -2,51 +2,52 @@
 load a saved GAME model, score a dataset, optionally evaluate, write
 ScoringResultAvro part files).
 
-Counterpart of photon_tpu/cli/game_scoring.py with the same parser. By
-default the input is read in chunks of ``--score-batch-rows`` rows
-(``AvroDataReader.iter_chunks``), the device scorer (``GameScorer``)
-scores each chunk in turn on ``device`` (the card unless
-``run(..., device="cpu")``), and ``ShardedScoringWriter`` writes the
-scores round-robin into ``--num-output-partitions`` part files. The JAX
-driver's producer thread, double-buffered copies and latency/SLO fields
-are not ported (ROADMAP A1). ``--monolithic-scoring`` reads the whole
-dataset and scores it with ``GameTransformer.score`` on the host; it is
-also the fallback for model layouts the device scorer cannot express.
-Evaluators run on the rows with a finite label, on ``device``.
+Counterpart of photon_tpu/cli/game_scoring.py with the same parser.
+Scoring streams by default: the input goes through the feature cache's
+front door (``cache.resolve_reader``, ``--feature-cache``) in chunks of
+``--score-batch-rows`` rows, decoded (or replayed from the cache) on the
+streaming scorer's producer thread; ``GameScorer.stream`` assembles each
+batch on the host, copies it to ``device`` (the card unless
+``run(..., device="cpu")``) on a copy stream double-buffered against the
+score program of the batch before, reads the scores back behind an event,
+and ``ShardedScoringWriter`` writes them round-robin into
+``--num-output-partitions`` part files. ``--monolithic-scoring`` reads the
+whole dataset and scores it with ``GameTransformer.score`` on the host; it
+is also the fallback for model layouts the device scorer cannot express,
+and, only when asked for with ``--degrade-on-stream-failure`` or
+``PHOTON_SCORE_DEGRADE=1``, for a streaming failure that the monolithic
+path does not share (logged, and recorded as ``mode: "monolithic"`` in
+the summary). Evaluators run on the rows with a finite label, on
+``device``. The summary's ``slo`` is null: the latency SLO plane is not
+ported (ROADMAP A5).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import sys
-import time
 
 import numpy as np
 import torch
 
+from photon_tpu_torch.cache import resolve_reader
 from photon_tpu_torch.cli import game_base
 from photon_tpu_torch.evaluation.evaluators import evaluate
 from photon_tpu_torch.evaluation.multi import GroupedEvaluatorSpec
-from photon_tpu_torch.game.scoring import UnsupportedModelLayout, score_batch_rows
+from photon_tpu_torch.game.scoring import StreamError, UnsupportedModelLayout, score_batch_rows
 from photon_tpu_torch.game.transformer import GameTransformer
-from photon_tpu_torch.io.data_reader import AvroDataReader
 from photon_tpu_torch.io.model_io import (
     ShardedScoringWriter,
     load_game_model,
     read_model_feature_keys,
 )
 from photon_tpu_torch.types import resolve_device
-from photon_tpu_torch.util import EventEmitter, PhotonLogger, prepare_output_dir
+from photon_tpu_torch.util import EventEmitter, PhotonLogger, faults, prepare_output_dir
+from photon_tpu_torch.util.retry import is_transient, is_transient_io
 
 SCORES_DIR = "scores"
-
-UNPORTED_FLAGS = {
-    **game_base.UNPORTED_COMMON,
-    "degrade_on_stream_failure": (
-        (), "ROADMAP A1: the streaming pipeline's degrade-to-monolithic escape"
-    ),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,9 +85,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--degrade-on-stream-failure",
         action="store_true",
-        help="not ported yet (env PHOTON_SCORE_DEGRADE=1 raises too)",
+        help="opt-in escape: when the streaming pipeline fails (a dead or hung "
+        "producer, chunk decode failures past their retries), fall back to the "
+        "monolithic path instead of failing the run (env PHOTON_SCORE_DEGRADE=1). "
+        "Off by default: it trades bounded host memory for completion",
     )
     return p
+
+
+def _degrade_enabled(args) -> bool:
+    env = os.environ.get("PHOTON_SCORE_DEGRADE", "").strip()
+    if env and env not in ("0", "1"):
+        # an operator who set =true believing the escape armed must not
+        # find out from a dead run
+        raise ValueError(f"PHOTON_SCORE_DEGRADE must be 0 or 1, got {env!r}")
+    if env:
+        return env == "1"
+    return bool(args.degrade_on_stream_failure)
+
+
+def _stream_degradable(exc: BaseException) -> bool:
+    """The streaming failures the opt-in escape may absorb: pipeline
+    errors the monolithic path does not share (watchdog, producer death,
+    exhausted I/O or transport retries). Programming errors propagate."""
+    return isinstance(exc, StreamError) or is_transient_io(exc) or is_transient(exc)
 
 
 def _run_evaluators(log, requested, scores, labels, weights, tag_cols, device) -> dict:
@@ -125,10 +147,12 @@ def _run_evaluators(log, requested, scores, labels, weights, tag_cols, device) -
 
 def _score_streaming(args, log, model, index_maps, shard_configs, id_tags, out_root,
                      requested, device, walls):
-    """Chunks → device scorer → sharded writer; the label, weight and
-    id-tag columns are kept only when evaluators will read them. None
-    when the model layout needs the monolithic path. The seconds spent
-    decoding, scoring and writing are added to ``walls``."""
+    """Chunks through the front door → ``GameScorer.stream`` → sharded
+    writer; the label, weight and id-tag columns are kept only when
+    evaluators will read them. None when the model layout needs the
+    monolithic path."""
+    # knobs are validated before the layout fallback: a bad value raises
+    # instead of demoting the run to the monolithic path
     batch_rows = score_batch_rows(args.score_batch_rows)
     partitions = 1 if args.num_output_partitions is None else args.num_output_partitions
     if partitions < 1:
@@ -141,41 +165,37 @@ def _score_streaming(args, log, model, index_maps, shard_configs, id_tags, out_r
         log.warning("device scorer unavailable (%s); falling back to the monolithic path", e)
         return None
 
-    reader = AvroDataReader(index_maps=index_maps)
-    chunks = reader.iter_chunks(
-        game_base.resolve_input_paths(args), shard_configs,
-        id_tags=tuple(id_tags), chunk_rows=batch_rows,
+    resolved = resolve_reader(
+        game_base.resolve_input_paths(args), shard_configs, index_maps=index_maps,
+        id_tags=tuple(id_tags), mode=args.feature_cache,
     )
+    if resolved.mode != "off":
+        log.info("feature cache: %s", resolved.describe())
     writer = ShardedScoringWriter(
         os.path.join(out_root, SCORES_DIR), num_partitions=partitions, model_id=args.model_id
     )
-    parts, labels_acc, weights_acc = [], [], []
+    labels_acc, weights_acc = [], []
     tag_acc: dict[str, list] = {t: [] for t in id_tags}
-    clock = {"read scoring data": 0.0, "score": 0.0, "save scores": 0.0}
-    t0 = time.perf_counter()
-    for chunk in chunks:
-        t1 = time.perf_counter()
-        scores = scorer.score_data(chunk)
-        t2 = time.perf_counter()
+
+    def on_batch(chunk, scores):
         writer.write_chunk(scores, labels=chunk.labels, weights=chunk.weights, uids=chunk.uids)
-        parts.append(scores)
+        # without evaluators nothing is kept: host memory stays bounded
         if requested:
             labels_acc.append(chunk.labels)
             weights_acc.append(chunk.weights)
             for t in id_tags:
                 tag_acc[t].append(np.asarray(chunk.id_tags[t]))
-        t3 = time.perf_counter()
-        clock["read scoring data"] += t1 - t0
-        clock["score"] += t2 - t1
-        clock["save scores"] += t3 - t2
-        t0 = t3
-    n = writer.close()
-    clock["save scores"] += time.perf_counter() - t0
-    for k, v in clock.items():
-        walls[k] = walls.get(k, 0.0) + v
-    log.info("scored %d samples in %d batches of %d rows -> %d partition(s), %s decoder, "
-             "%s writer", n, len(parts), batch_rows, partitions, reader.last_decoder,
-             "/".join(sorted(writer.encoders)))
+
+    with game_base.phase(walls, "stream scores"):
+        result = scorer.stream(resolved.iter_chunks(chunk_rows=batch_rows), on_batch=on_batch)
+        n = writer.close()
+    stats = result.stats
+    decoder = resolved.decoder
+    log.info("streamed %d samples in %d batches of %d rows -> %d partition(s), %s decoder, "
+             "%s writer", stats.samples, stats.batches, batch_rows, partitions,
+             decoder["decoder"], "/".join(sorted(writer.encoders)))
+    if decoder["reason"] is not None:
+        log.warning("the Python decoder read the input: %s", decoder["reason"])
     columns = {
         "labels": np.concatenate(labels_acc) if labels_acc else np.zeros(0),
         "weights": np.concatenate(weights_acc) if weights_acc else np.zeros(0),
@@ -186,29 +206,32 @@ def _score_streaming(args, log, model, index_maps, shard_configs, id_tags, out_r
         "mode": "streaming",
         "batchRows": batch_rows,
         "numOutputPartitions": partitions,
-        "batches": len(parts),
+        "batches": stats.batches,
+        "maxStagedChunks": stats.max_staged_chunks,
+        "batchLatency": stats.latency_percentiles(),
+        "stageLatency": stats.stage_percentiles(),
+        "e2eLatency": stats.e2e_percentiles(),
+        "slo": None,
         "outputFiles": writer.paths(),
-        "decoder": reader.last_decoder,
-        "decoderReason": reader.last_decoder_reason,
+        "featureCache": resolved.describe(),
+        "decoder": decoder["decoder"],
+        "decoderReason": decoder["reason"],
         "writer": sorted(writer.encoders),
+        # the stream's wall against the sum of each stage's walls: what
+        # the overlap hid
+        "streamSeconds": stats.wall_s,
+        "stageSeconds": {k: float(sum(v)) for k, v in stats.stage_walls_s.items()},
     }
-    scores = np.concatenate(parts) if parts else np.zeros(0)
-    return scores, n, columns, detail
+    return result.scores, n, columns, detail
 
 
 def run(argv=None, *, device="cuda", events=None) -> dict:
     """``events``: an ``EventEmitter`` whose listeners hear ``setup`` and
     ``scoring_finish``."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = resolve_device(device)
-    game_base.refuse_unported(args, parser, UNPORTED_FLAGS)
-    degrade = os.environ.get("PHOTON_SCORE_DEGRADE", "").strip()
-    if degrade not in ("", "0"):
-        raise NotImplementedError(
-            f"PHOTON_SCORE_DEGRADE={degrade!r} is not ported to photon_tpu_torch yet "
-            "(ROADMAP A1: the streaming pipeline's degrade-to-monolithic escape)"
-        )
+    # (re)install the PHOTON_FAULTS plan per run
+    faults.install_from_env()
 
     shard_configs = game_base.parse_shard_configs(args)
     out_root = prepare_output_dir(
@@ -235,17 +258,30 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
 
         streamed = None
         if not args.monolithic_scoring:
-            streamed = _score_streaming(
-                args, log, model, index_maps, shard_configs, id_tags, out_root, requested,
-                device, walls,
-            )
+            # validated before streaming: a bad value raises up front
+            degrade = _degrade_enabled(args)
+            try:
+                streamed = _score_streaming(
+                    args, log, model, index_maps, shard_configs, id_tags, out_root, requested,
+                    device, walls,
+                )
+            except Exception as e:
+                if not (degrade and _stream_degradable(e)):
+                    raise
+                log.warning(
+                    "streaming scoring failed (%s: %s); degrading to the monolithic path "
+                    "(--degrade-on-stream-failure)", type(e).__name__, e,
+                )
+                # the monolithic path writes part-00000.avro into the same
+                # directory: a partial streamed part would double-count
+                shutil.rmtree(os.path.join(out_root, SCORES_DIR), ignore_errors=True)
         if streamed is not None:
             scores, n, columns, score_detail = streamed
         else:
             with game_base.phase(walls, "read scoring data"):
                 data, _, decoder = game_base.read_game_data(
                     game_base.resolve_input_paths(args), shard_configs, index_maps, id_tags,
-                    log=log,
+                    log=log, cache=args.feature_cache,
                 )
             log.info("scoring %d samples (monolithic)", data.num_samples)
             with game_base.phase(walls, "score"):

@@ -8,10 +8,11 @@ Counterpart of photon_tpu/cli/game_training.py with the same parser; the
 fit runs on ``device`` (the card unless ``run(..., device="cpu")``).
 Hyperparameter tuning, checkpoints with resume (``--checkpoint-sweeps``,
 which needs ``--output-mode ALL``), supervised restarts, warm starts from
-model snapshots and the ``PHOTON_FAULTS`` fault plan work as in JAX's
-driver. Flags whose modules are not ported yet (streaming training, the
-mesh, precompile, the feature cache) raise NotImplementedError when set
-away from their defaults.
+model snapshots, the feature cache (``--feature-cache``: the training
+and validation reads go through ``cache.resolve_reader``) and the
+``PHOTON_FAULTS`` fault plan work as in JAX's driver. Flags whose modules
+are not ported yet (streaming training, the mesh, precompile) raise
+NotImplementedError when set away from their defaults.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -77,7 +78,6 @@ class HyperparameterTuningMode(enum.Enum):
 
 #: argparse dest → (accepted values besides the default, ROADMAP item)
 UNPORTED_FLAGS = {
-    **game_base.UNPORTED_COMMON,
     "stream_chunk_rows": ((), "ROADMAP A6: streaming training, game/streaming"),
     "mesh": ((), "ROADMAP A7: mesh over NCCL"),
     "precompile": ((), "ROADMAP A8: warm-up of the sweep and score programs"),
@@ -369,7 +369,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             paths = game_base.resolve_input_paths(args)
             index_maps = game_base.prepare_feature_maps(args, shard_configs)
             data, index_maps, decoders["training"] = game_base.read_game_data(
-                paths, shard_configs, index_maps, id_tags, log=log
+                paths, shard_configs, index_maps, id_tags, log=log, cache=args.feature_cache
             )
         log.info(
             "read %d samples, shards %s",
@@ -387,7 +387,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
                 )
                 validation_data, _, decoders["validation"] = game_base.read_game_data(
                     game_base.resolve_input_paths(v_args), shard_configs, index_maps,
-                    validation_id_tags, log=log,
+                    validation_id_tags, log=log, cache=args.feature_cache,
                 )
 
         with game_base.phase(walls, "data validation"):

@@ -72,6 +72,11 @@ class GameData:
     feature_shards: Mapping[str, CSRMatrix]
     id_tags: Mapping[str, np.ndarray]
     uids: Sequence[str | None] | None = None
+    #: ingest provenance set by the reader that produced the data (the
+    #: feature cache tags ``{"source": "cache", ...}``); None for data
+    #: built on the host or decoded from Avro. Informational only: slices,
+    #: concatenations and padding drop it, as in the JAX package
+    provenance: Mapping | None = None
 
     def __post_init__(self):
         n = self.num_samples

@@ -33,7 +33,10 @@ class GameTransformer:
         return self.model.score(data) + data.offsets
 
     def streaming_scorer(self, **kwargs):
-        """The device scorer of this model (GameScorer) on this device."""
+        """The streaming device scorer of this model (GameScorer) on this
+        device; ``kwargs`` reach its constructor (``batch_rows``,
+        ``dtype``). Raises UnsupportedModelLayout for a
+        layout it cannot express."""
         from photon_tpu_torch.game.scoring import GameScorer
 
         return GameScorer(self.model, device=self.device, **kwargs)

@@ -7,7 +7,12 @@ Counterpart of photon_tpu/io/data_reader.py: the C++ columnar decoder
 (io/native_avro.py) first, the record-dict decode when it declines or
 fails; both give identical GameData. The reader records which decoder
 produced the data and why the native one did not
-(``last_decoder``/``last_decoder_reason``). No retry or fault hooks.
+(``last_decoder``/``last_decoder_reason``). A read is retried on a
+transient I/O failure (``retry_call`` with ``IO_RETRY_POLICY``; reads are
+idempotent), so ``iter_chunks`` retries each part file on its own; the
+fault points ``io.decode`` (inside that retry) and ``io.native_decode``
+(per file of the native decode, which then falls back) inject those
+failures.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from photon_tpu_torch.data.index_map import (
 )
 from photon_tpu_torch.game.data import CSRMatrix, GameData, concat_game_data, slice_game_data
 from photon_tpu_torch.io.avro import avro_part_files, read_avro_dir
+from photon_tpu_torch.util import faults
+from photon_tpu_torch.util.retry import IO_RETRY_POLICY, is_transient_io, retry_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,10 +105,19 @@ class AvroDataReader:
         id_tags: Sequence[str] = (),
     ) -> GameData:
         """Read avro files/dirs into one GameData (reference readMerged).
-        ``PHOTON_NO_NATIVE_AVRO=1`` skips the native decoder."""
+        ``PHOTON_NO_NATIVE_AVRO=1`` skips the native decoder. A transient
+        I/O failure retries the whole read; a permanent one (a missing
+        file, a bad schema) propagates at once."""
         if isinstance(paths, (str, bytes, os.PathLike)):
             paths = [paths]
         paths = [str(p) for p in paths]
+        return retry_call(
+            lambda: self._read(paths, shard_configs, id_tags),
+            policy=IO_RETRY_POLICY, classify=is_transient_io, label="avro_read",
+        )
+
+    def _read(self, paths, shard_configs, id_tags) -> GameData:
+        faults.fault_point("io.decode")
         native = None
         if os.environ.get("PHOTON_NO_NATIVE_AVRO") == "1":
             reason = "PHOTON_NO_NATIVE_AVRO=1"

@@ -42,6 +42,8 @@ from photon_tpu_torch.io.avro import read_avro_dir, read_avro_file, write_avro_f
 from photon_tpu_torch.models.coefficients import Coefficients as GLMCoefficients
 from photon_tpu_torch.models.glm import GeneralizedLinearModel, model_for_task
 from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.util import faults
+from photon_tpu_torch.util.retry import IO_RETRY_POLICY, is_transient_io, retry_call
 
 logger = logging.getLogger("photon_tpu_torch")
 
@@ -525,13 +527,22 @@ class ShardedScoringWriter:
         def flush_part(part: int):
             s, lab, w, u = self._parts.get(part, ([], [], [], []))
             path = self.out_dir / f"part-{part:05d}.avro"
-            n, encoder = _write_scores(
-                path,
-                np.concatenate(s) if s else np.zeros(0),
-                self.model_id,
-                col(lab, np.concatenate),
-                col(w, np.concatenate),
-                col(u, lambda us: [x for c in us for x in c]),
+
+            def write():
+                # a flush rewrites the whole part file, so a transient
+                # failure (or an injected one) is retried safely
+                faults.fault_point("io.shard_flush")
+                return _write_scores(
+                    path,
+                    np.concatenate(s) if s else np.zeros(0),
+                    self.model_id,
+                    col(lab, np.concatenate),
+                    col(w, np.concatenate),
+                    col(u, lambda us: [x for c in us for x in c]),
+                )
+
+            n, encoder = retry_call(
+                write, policy=IO_RETRY_POLICY, classify=is_transient_io, label="shard_flush"
             )
             return str(path), n, encoder
 

@@ -28,6 +28,7 @@ from photon_tpu_torch.data.index_map import (
     IndexMap,
 )
 from photon_tpu_torch.data.native_index import load_native_lib
+from photon_tpu_torch.util import faults
 
 _KIND = {
     "null": 0,
@@ -428,6 +429,9 @@ def read_game_data_native(
     files = [f for p in paths for f in avro_part_files(p)]
     decoded: list[DecodedFile] = []
     for fp in files:
+        # fault point: a failed native decode diverts the read to the
+        # record decoder with the reason recorded, never aborts it
+        faults.fault_point("io.native_decode")
         try:
             compiled = compile_program(read_schema(fp), all_bags)
         except (ValueError, KeyError, OSError):

@@ -21,7 +21,16 @@ Fault points of the port: ``descent.sweep`` (start of each sweep),
 ``descent.coordinate`` (before each coordinate step; ``nan`` poisons the
 coordinate's state on its device), ``checkpoint.write`` (before a
 snapshot is written) and ``checkpoint.replace`` (after a snapshot's
-temporary file is written, before its rename).
+temporary file is written, before its rename); the I/O points
+``io.decode`` (each Avro read, inside its retry), ``io.native_decode``
+(each file of the native decode, which then falls back to the record
+decoder) and ``io.shard_flush`` (each score part file, inside its retry);
+the streaming scorer's ``scoring.producer`` (the producer thread's start,
+outside its error hand-off), ``scoring.chunk`` (each chunk pull, inside
+it) and ``scoring.batch`` (each batch attempt, inside its retry); and the
+feature cache's ``cache.open``, ``cache.read`` (each replayed chunk),
+``cache.write`` (each appended chunk) and ``cache.replace`` (the publish
+window between moving the old cache aside and renaming the new one in).
 
 Fault plan
 ----------

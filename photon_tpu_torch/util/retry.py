@@ -12,24 +12,31 @@ Backoff is jittered exponential with a cap: ``wait = min(cap,
 base·mult^k)`` scaled by ``1 ± jitter``. Jitter randomizes wall time
 only and cannot touch numerics.
 
-The JAX package's ``retry_call`` and ``IO_RETRY_POLICY`` serve its I/O
-fault points (the data reader, model I/O, the scorer); they are not
-carried until those are, and the restart loop is this module's only
-user.
+``retry_call`` runs one call under a policy; the Avro reader (per part
+file, ``io.decode``), the score shard flush (``io.shard_flush``) and the
+streaming scorer's per-batch requeue (``scoring.batch``) use it. The JAX
+package's ``retry.*`` counters are log lines here (ROADMAP A5).
 """
 from __future__ import annotations
 
 import dataclasses
 import errno
+import logging
 import random
+import time
+from typing import Callable
 
 __all__ = [
+    "IO_RETRY_POLICY",
     "RetryPolicy",
     "TRANSIENT_MARKERS",
     "is_transient",
     "is_transient_io",
     "jitter_rng",
+    "retry_call",
 ]
+
+logger = logging.getLogger(__name__)
 
 #: error-message markers of transient device or transport failures
 TRANSIENT_MARKERS = ("UNAVAILABLE", "DEADLINE_EXCEEDED", "Unavailable")
@@ -109,3 +116,41 @@ def jitter_rng() -> random.Random:
     """The shared backoff-jitter RNG — the public handle other retry
     consumers (game/recovery.py) pass to :meth:`RetryPolicy.wait_s`."""
     return _jitter_rng
+
+
+#: I/O retries: reads are idempotent, and a score shard flush rewrites
+#: its whole file
+IO_RETRY_POLICY = RetryPolicy(attempts=3, base_s=0.5, cap_s=15.0)
+
+
+def retry_call(
+    fn: Callable,
+    *,
+    policy: RetryPolicy = RetryPolicy(),
+    classify: Callable[[BaseException], bool] = is_transient,
+    label: str = "",
+    sleep: Callable[[float], None] = time.sleep,
+):
+    """``fn()``, retrying the failures ``classify`` calls transient, at most
+    ``policy.attempts`` attempts in all with the policy's waits between
+    them. A failure that is not transient propagates at once; the last
+    transient one propagates when the attempts run out."""
+    last: BaseException | None = None
+    where = f" in {label}" if label else ""
+    for attempt in range(policy.attempts):
+        try:
+            return fn()
+        except Exception as e:
+            if not classify(e):
+                raise
+            last = e
+            if attempt + 1 < policy.attempts:
+                wait = policy.wait_s(attempt, _jitter_rng)
+                logger.warning(
+                    "transient failure%s (attempt %d/%d), retrying in %.1fs: %s",
+                    where, attempt + 1, policy.attempts, wait,
+                    str(e).splitlines()[0][:200] if str(e) else type(e).__name__,
+                )
+                sleep(wait)
+    logger.warning("transient failure%s: %d attempts exhausted", where, policy.attempts)
+    raise last

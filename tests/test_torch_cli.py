@@ -14,8 +14,12 @@ recovery and tuning flags run against JAX's driver too: a run killed by
 the fault plan and resumed from its checkpoints, supervised restarts
 after an injected NaN, warm starts from model snapshots, RANDOM and
 BAYESIAN tuning, priors with a shrunk search box, and saved
-observations. Every flag whose module is not ported raises
-NotImplementedError naming itself.
+observations. The feature cache runs through both packages' drivers: a
+cold then warm ``--feature-cache use`` scoring run (JAX's driver opening
+the port's cache), caches built by the port's cache tool feeding both
+training drivers with ``require``, and the scoring drivers' degrade
+escape after an injected producer death. Every flag whose module is not
+ported raises NotImplementedError naming itself.
 """
 from __future__ import annotations
 
@@ -507,6 +511,120 @@ def test_scoring_driver_streamed_path_equals_jax(scored):
     for uid, r in _scores_by_uid(out / "port" / "stream" / "scores").items():
         np.testing.assert_allclose(r["predictionScore"], mono[uid]["predictionScore"],
                                    rtol=1e-5, atol=1e-5)
+
+
+def test_scoring_driver_feature_cache_cold_then_warm_equals_jax(avro_dirs, trained, scored,
+                                                               tmp_path, monkeypatch):
+    """``--feature-cache use`` twice on the port's streaming driver: the
+    cold run decodes Avro and builds the cache, the warm run replays it
+    (no decode) to the same scores bit for bit; JAX's driver with
+    ``require`` opens the port's cache, and both equal the uncached
+    streamed runs of ``scored``."""
+    out, res = scored
+    monkeypatch.setenv("PHOTON_FEATURE_CACHE_DIR", str(tmp_path / "croot"))
+    base = ["--input-data-directories", str(avro_dirs / "valid"),
+            "--feature-shard-configurations", SHARD_ARG,
+            "--evaluators", "AUC,LOGISTIC_LOSS,AUC:userId", "--model-id", "m1",
+            "--model-input-directory", str(trained[0] / "jax" / "best"),
+            "--num-output-partitions", "3", "--score-batch-rows", "64"]
+    runs, summaries = {}, {}
+    for key, run, mode in (("cold", functools.partial(t_gs.run, device="cpu"), "use"),
+                           ("warm", functools.partial(t_gs.run, device="cpu"), "use"),
+                           ("jax", j_gs.run, "require")):
+        runs[key] = run([*base, "--root-output-directory", str(tmp_path / key),
+                         "--feature-cache", mode])
+        summaries[key] = json.loads((tmp_path / key / "scoring-summary.json").read_text())
+    cold, warm = (summaries[k]["scoring"] for k in ("cold", "warm"))
+    assert cold["mode"] == warm["mode"] == "streaming"
+    assert (cold["featureCache"]["state"], cold["featureCache"]["source"]) == ("miss", "avro")
+    assert (warm["featureCache"]["state"], warm["featureCache"]["source"]) == ("hit", "cache")
+    assert summaries["jax"]["scoring"]["featureCache"]["state"] == "hit"
+    assert cold["featureCache"]["cacheDir"] == warm["featureCache"]["cacheDir"] == (
+        summaries["jax"]["scoring"]["featureCache"]["cacheDir"])
+    assert (cold["decoder"], warm["decoder"], warm["decoderReason"]) == ("native", "cache", None)
+    assert cold["slo"] is warm["slo"] is None
+    assert warm["maxStagedChunks"] <= 4 and warm["batches"] == cold["batches"] == 4
+    assert set(warm["stageLatency"]) == {"decode", "queue", "assemble", "h2d", "dispatch",
+                                         "pipeline", "readback", "write"}
+    np.testing.assert_array_equal(runs["warm"]["scores"], runs["cold"]["scores"])
+    np.testing.assert_array_equal(runs["cold"]["scores"], res["port", "stream"]["scores"])
+    np.testing.assert_array_equal(runs["jax"]["scores"], res["jax", "stream"]["scores"])
+    np.testing.assert_allclose(runs["warm"]["scores"], runs["jax"]["scores"], rtol=1e-5,
+                               atol=1e-5)
+    for k, v in runs["jax"]["evaluations"].items():
+        np.testing.assert_allclose(runs["warm"]["evaluations"][k], v, rtol=1e-5, atol=1e-5)
+    for part in range(3):
+        name = f"part-{part:05d}.avro"
+        assert list(read_avro_dir(tmp_path / "warm" / "scores" / name)) == list(
+            read_avro_dir(tmp_path / "cold" / "scores" / name))
+
+
+def test_scoring_driver_degrades_on_a_dead_producer_like_jax(avro_dirs, trained, scored,
+                                                             tmp_path, monkeypatch):
+    """``scoring.producer@1=error`` kills the producer thread: without the
+    escape both drivers raise ProducerDiedError; with
+    PHOTON_SCORE_DEGRADE=1 both fall back to the monolithic path, record
+    it in the summary and write the host path's scores."""
+    out, res = scored
+    base = ["--input-data-directories", str(avro_dirs / "valid"),
+            "--feature-shard-configurations", SHARD_ARG,
+            "--evaluators", "AUC,LOGISTIC_LOSS,AUC:userId", "--model-id", "m1",
+            "--model-input-directory", str(trained[0] / "jax" / "best"),
+            "--num-output-partitions", "3", "--score-batch-rows", "64"]
+    monkeypatch.setenv("PHOTON_FAULTS", "scoring.producer@1=error")
+    drivers = (("jax", j_gs.run), ("port", functools.partial(t_gs.run, device="cpu")))
+    try:
+        for key, run in drivers:
+            with pytest.raises(Exception, match="producer thread died") as err:
+                run([*base, "--root-output-directory", str(tmp_path / "fail" / key)])
+            assert type(err.value).__name__ == "ProducerDiedError"
+        monkeypatch.setenv("PHOTON_SCORE_DEGRADE", "1")
+        got = {key: run([*base, "--root-output-directory", str(tmp_path / key)])
+               for key, run in drivers}
+    finally:
+        monkeypatch.delenv("PHOTON_FAULTS")
+        t_faults.clear()
+        j_faults.clear()
+    for key in ("jax", "port"):
+        summary = json.loads((tmp_path / key / "scoring-summary.json").read_text())
+        assert summary["scoring"]["mode"] == "monolithic" and summary["numScored"] == 200
+        assert sorted(os.listdir(tmp_path / key / "scores")) == ["part-00000.avro"]
+    np.testing.assert_allclose(got["port"]["scores"], got["jax"]["scores"], rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(got["port"]["scores"], res["jax", "mono"]["scores"], rtol=1e-7,
+                               atol=1e-9)
+    for k, v in got["jax"]["evaluations"].items():
+        np.testing.assert_allclose(got["port"]["evaluations"][k], v, rtol=1e-9, atol=1e-9)
+
+
+def test_training_driver_feature_cache_require_equals_jax(avro_dirs, trained, tmp_path,
+                                                          monkeypatch):
+    """Caches built by the port's cache tool feed both training drivers
+    with ``--feature-cache require``: the port's models equal its uncached
+    run bit for bit, and JAX's run on the same caches within the driver
+    tolerances."""
+    from photon_tpu_torch.cli import cache_tool
+
+    monkeypatch.setenv("PHOTON_FEATURE_CACHE_DIR", str(tmp_path / "croot"))
+    for name in ("train", "valid"):
+        assert cache_tool.run(["build", "--input-data-directories", str(avro_dirs / name),
+                               "--feature-shard-configurations", SHARD_ARG,
+                               "--id-tags", "userId"]) == 0
+    argv = ["--input-data-directories", str(avro_dirs / "train"),
+            "--validation-data-directories", str(avro_dirs / "valid"),
+            "--root-output-directory", "{out}", *TRAIN_ARGS, "--feature-cache", "require"]
+    with float64_drivers():
+        j, t = _both(j_gt.run, t_gt.run, argv, tmp_path / "train")
+    assert t["decoders"] == {"training": {"decoder": "cache", "reason": None},
+                             "validation": {"decoder": "cache", "reason": None}}
+    assert t["best"] == j["best"] == trained[2]["best"]
+    for a, b, c in zip(t["results"], j["results"], trained[2]["results"]):
+        assert a.evaluation == c.evaluation
+        np.testing.assert_allclose(a.evaluation, b.evaluation, rtol=0, atol=1e-9)
+    for sub in ("best", "models/0", "models/1"):
+        _assert_models_close(trained[0] / "port" / sub, tmp_path / "train" / "port" / sub,
+                             rtol=0, atol=0)
+        _assert_models_close(tmp_path / "train" / "jax" / sub,
+                             tmp_path / "train" / "port" / sub)
 
 
 def test_models_cross_load_and_score(avro_dirs, trained, tmp_path):
@@ -1040,11 +1158,7 @@ UNPORTED = [
     (t_gt, _TRAIN, ["--stream-chunk-rows", "96"], "--stream-chunk-rows"),
     (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
     (t_gt, _TRAIN, ["--precompile"], "--precompile"),
-    (t_gt, _TRAIN, ["--feature-cache", "use"], "--feature-cache"),
-    (t_gs, _SCORE, ["--feature-cache", "require"], "--feature-cache"),
-    (t_gs, _SCORE, ["--degrade-on-stream-failure"], "--degrade-on-stream-failure"),
     (t_ld, _LEGACY, ["--diagnose"], "--diagnose"),
-    (t_fi, _INDEX, ["--feature-cache", "rebuild"], "--feature-cache"),
 ]
 
 
@@ -1073,11 +1187,17 @@ def test_accepted_defaults_do_not_raise(tmp_path):
     assert isinstance(args, argparse.Namespace)
 
 
-def test_score_degrade_env_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("PHOTON_SCORE_DEGRADE", "1")
-    argv = [str(tmp_path / "o") if a == "{out}" else a for a in _SCORE]
-    with pytest.raises(NotImplementedError, match="PHOTON_SCORE_DEGRADE"):
-        t_gs.run(argv, device="cpu")
+def test_score_degrade_env_raises(tmp_path, monkeypatch, avro_dirs, trained):
+    """An invalid PHOTON_SCORE_DEGRADE raises up front in both drivers,
+    before any streaming starts."""
+    monkeypatch.setenv("PHOTON_SCORE_DEGRADE", "true")
+    argv = ["--input-data-directories", str(avro_dirs / "valid"),
+            "--feature-shard-configurations", SHARD_ARG,
+            "--model-input-directory", str(trained[0] / "jax" / "best")]
+    for key, run in (("jax", j_gs.run), ("port", functools.partial(t_gs.run, device="cpu"))):
+        with pytest.raises(ValueError, match="PHOTON_SCORE_DEGRADE must be 0 or 1"):
+            run([*argv, "--root-output-directory", str(tmp_path / key)])
+        assert not (tmp_path / key / "scores").exists()
 
 
 # ---------------------------------------------------------------------------
