@@ -29,10 +29,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    with STANDARDIZATION and SIMPLE variances; bands, AUC > 0.5, float64
    card vs CPU within 1e-9), ``glm_tron`` (2^19 × 2048 float32 made on the
    card, TRON; band, achieved bandwidth, float64 card vs CPU on a small
-   problem) and ``glm_owlqn`` (a DataSet of 2^20 × 2^20 with 56 slots per
-   row, OWL-QN elastic-net Poisson through the window layout; the kernel
-   launched, exact zeros, band, float64 card vs CPU on a small problem);
-   then the kernel held and timed on the config-3 layout; ``main_path``,
+   problem; then the same block stored as bfloat16 through the bfloat16
+   product: the product within its rounding bound of its plain version,
+   no widened copy in the solve's peak memory, the final loss within 1e-2
+   of the float32 leg's, the band) and ``glm_owlqn`` (a DataSet of 2^20 ×
+   2^20 with 56 slots per row, OWL-QN elastic-net Poisson through the
+   window layout; the kernel launched, exact zeros, band, float64 card vs
+   CPU on a small problem); then the kernel held and timed on the config-3
+   layout; ``glm_owlqn_diagnose`` (``diagnose_models`` on that model and
+   data with a 2^18-row validation set: 3 learning-curve and 9 bootstrap
+   retrains, each launching the kernel with finite coefficients, the point
+   fit's objective that of ``glm_owlqn``); ``owlqn_segmented_and_full``
+   (on the small config-3 problem at float64, ``SegmentedOWLQN`` equals
+   ``minimize_owlqn`` bit for bit and ``PHOTON_GLM_LINESEARCH=full``
+   reaches the same objective within 1e-6); ``main_path``,
    ``glm_owlqn`` and ``cli_game`` print how their window layout was built
    (the native counting sort or numpy, and its seconds), and fail if a
    float32 layout took numpy although the native library built; the
@@ -73,7 +83,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``cli_legacy`` runs ``legacy_driver.run`` on LIBSVM files of a1a's
    shape (STANDARDIZATION, a 3-λ grid): bench config 1's band, and the
    coefficients of ``train_glm_grid(device="cuda")`` called directly
-   within rtol 1e-6;
+   within rtol 1e-6; ``cli_legacy_diagnose`` adds ``--diagnose``: the
+   stages end at DIAGNOSED, the report files hold every model's AUC,
+   Hosmer–Lemeshow χ² and Kendall τ and the fitting and bootstrap (8
+   replicates) chapters, and the same run at float64 on the card and on
+   the CPU gives report.json within 1e-9 relative;
 8. recovery and tuning, on ``cli_game``'s Avro parts and widths:
    ``cli_game_resume`` (the training command line with
    ``--checkpoint-sweeps`` killed by the fault plan at grid 1's second
@@ -841,12 +855,21 @@ def glm_tron(seed):
     """Bench config 2 at full size: 2^19 × 2048 float32 generated on the
     card, squared loss, L2 λ = 1, TRON with its defaults, through
     train_glm_grid; a small TRON problem card vs CPU at float64 first
-    (it also warms cuBLAS)."""
+    (it also warms cuBLAS). Then bench config 2's bfloat16 leg: the same
+    block rounded to bfloat16 (float32 labels and coefficients), solved
+    through the bfloat16 product (the other operand rounded to bfloat16,
+    float32 accumulation): the product held against its plain version,
+    no widened float32 copy of the block during the solve (peak memory),
+    the final loss within 1e-2 of the float32 leg's and the gradient
+    within glm_tron's band, each widened by the floor that rounding to
+    bfloat16 puts under it."""
     import numpy as np
     import torch
 
     from photon_tpu_torch.model_training import train_glm_grid
+    from photon_tpu_torch.ops.objective import bf16_product
     from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.optimize.problem import GLMProblem
     from photon_tpu_torch.types import LabeledBatch
 
     cfg = glm_config("LINEAR_REGRESSION", "TRON", "L2")
@@ -890,6 +913,76 @@ def glm_tron(seed):
         "card_vs_cpu_f64_max_abs_err": err,
     }))
 
+    xb = x.to(torch.bfloat16)
+    del x, batch
+    # the product on the card (cuBLAS, float32 out) vs its plain version on
+    # a slice of rows: the same rounded operands (their products exact in
+    # float32), float32 sums in another order, so each entry within Higham's
+    # 2·m·u·Σ|terms| (m the contraction length, u = 2^-24)
+    rows = xb[: 1 << 16]
+    prod_err = 0.0
+    for a, vec in ((rows, w_true), (rows.t(), y[: 1 << 16])):
+        got = bf16_product(a, vec)
+        vb = vec.bfloat16().float()
+        want = a.float() @ vb
+        bound = 2.0 * a.shape[1] * 2.0**-24 * (a.float().abs() @ vb.abs())
+        if got.dtype != torch.float32:
+            fail(f"glm_tron: the bfloat16 product returned {got.dtype}, not float32")
+        ratio = float(((got - want).abs() / bound.clamp(min=1e-30)).max())
+        prod_err = max(prod_err, float((got - want).abs().max() / want.abs().max()))
+        if not ratio <= 1.01:
+            fail(f"glm_tron: bfloat16 product vs its plain version: {ratio} of the bound")
+    del rows
+    batch_b = LabeledBatch(xb, y, torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"))
+    problem = GLMProblem.build(cfg.with_regularization_weight(1.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res_b = problem.solve(batch_b, torch.zeros(d, device="cuda"))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - resident
+    if extra > n * d:  # a widened float32 copy would add 4·n·d bytes
+        fail(f"glm_tron: the bfloat16 solve allocated {extra / 2**30:.2f} GiB above the "
+             "resident block (a widened copy?)")
+    gnorm_b = float(torch.linalg.vector_norm(res_b.gradient))
+    if not bool(torch.isfinite(res_b.x).all()):
+        fail("glm_tron: bfloat16 coefficients are not finite")
+    # every product rounds the coefficients to bfloat16 (u = 2^-8), so the
+    # computed gradient cannot fall below what that rounding displaces:
+    # ‖XᵀX·δw‖ ≤ λmax·u·‖w‖, λmax(XᵀX) ≈ (√n + √d)² for these Gaussian
+    # features; the band is glm_tron's plus that floor
+    band_b = GNORM_BANDS["glm_tron"] + (n**0.5 + d**0.5) ** 2 * 2.0**-8 * float(
+        torch.linalg.vector_norm(res_b.x))
+    if int(res_b.reason) in (2, 3) and not gnorm_b <= band_b:
+        fail(f"glm_tron: bfloat16 gradient norm {gnorm_b} > {band_b}")
+    loss_rel = abs(float(res_b.value) - float(res.value)) / max(abs(float(res.value)), 1e-12)
+    # rounding the features and the coefficients to bfloat16 each moves a
+    # row's margin by up to u·‖w‖ (u = 2^-8), which adds up to 2·u²·‖w‖²
+    # to the mean squared residual σ² = 2·loss/n of the float32 fit: at
+    # 2048 columns that floor lies above 1e-2, so the bound is 1e-2 plus it
+    sigma2 = 2.0 * float(res.value) / n
+    loss_band = 1e-2 + 2.0 * 2.0**-16 * float(torch.linalg.vector_norm(res.x)) ** 2 / sigma2
+    if not loss_rel < loss_band:
+        fail(f"glm_tron: bfloat16 final loss {float(res_b.value)} vs float32 "
+             f"{float(res.value)}: relative {loss_rel} ≥ {loss_band}")
+    passes_b = int(res_b.n_feature_passes)
+    log(json.dumps({
+        "phase": "glm_tron_bf16", "n": n, "d": d, "dtype": "bfloat16",
+        "solve_wall_s": wall_b, "iterations": int(res_b.iterations),
+        "reason": int(res_b.reason), "n_evals": int(res_b.n_evals), "n_hvp": int(res_b.n_hvp),
+        "n_feature_passes": passes_b,
+        "achieved_bytes_per_s": 2.0 * n * d * passes_b / wall_b,
+        "hbm_bytes_per_s": HBM_BYTES_PER_S,
+        "gnorm": gnorm_b, "gnorm_band": band_b, "final_loss_rel_diff": loss_rel,
+        "final_loss_rel_band": loss_band,
+        "block_gib": 2.0 * n * d / 2**30,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_above_resident_gib": extra / 2**30,
+        "product_vs_plain_max_rel": prod_err,
+    }))
+
 
 def config3_arrays(seed, n, d, k):
     """Bench config 3's data (bench.py config_sparse_poisson): k slots per
@@ -920,13 +1013,20 @@ def ell_dataset(idx, vals, labels, d):
     )
 
 
+def owlqn_config():
+    """Bench config 3's problem: elastic-net Poisson, OWL-QN, 100 iterations."""
+    return glm_config("POISSON_REGRESSION", "OWLQN", "ELASTIC_NET",
+                      max_iterations=100, tolerance=1e-7)
+
+
 def glm_owlqn(seed):
     """Bench config 3 at full width: a DataSet of 2^20 rows × 2^20 columns
     with 56 slots per row through train_glm_grid (choose_sparse →
     to_device_sparse_batch → the window layout → OWL-QN elastic net, whose
     every gradient runs the windowed Xᵀr kernel); a small sparse OWL-QN
     with windows card vs CPU at float64 first. Returns the host arrays for
-    the config-3 kernel case and the fit's kernel launches."""
+    the config-3 kernel case, the DataSet and the fit (for the
+    diagnostics) and the fit's kernel launches."""
     import numpy as np
     import torch
 
@@ -934,8 +1034,7 @@ def glm_owlqn(seed):
     from photon_tpu_torch.model_training import train_glm_grid
     from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
-    cfg = glm_config("POISSON_REGRESSION", "OWLQN", "ELASTIC_NET",
-                     max_iterations=100, tolerance=1e-7)
+    cfg = owlqn_config()
     ds_small = ell_dataset(*config3_arrays(seed + 5, 8192, 2048, 16), 2048)
 
     def small(dev):
@@ -979,7 +1078,202 @@ def glm_owlqn(seed):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card_vs_cpu_f64_max_abs_err": err,
     }))
-    return idx, vals, launches
+    return idx, vals, ds, model, launches
+
+
+def recording(modules, name, sink, *, sync=True):
+    """Swap ``module.<name>`` in each of ``modules`` for a wrapper that
+    appends (wall seconds, kernel launches, result) of every call to
+    ``sink`` (the card synchronized before the clock stops); returns a
+    function that puts the originals back."""
+    import torch
+
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    saved = [(m, getattr(m, name)) for m in modules]
+
+    def wrap(fn):
+        def rec(*a, **kw):
+            n0, t0 = windowed_rmatvec.launches, time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0, windowed_rmatvec.launches - n0, out))
+            return out
+        return rec
+
+    for m, fn in saved:
+        setattr(m, name, wrap(fn))
+
+    def restore():
+        for m, fn in saved:
+            setattr(m, name, fn)
+
+    return restore
+
+
+def diagnose_recorded(call):
+    """``call()`` (a diagnostics run) with every retrain of the fitting and
+    bootstrap diagnostics and every batch build of ``diagnose_models``
+    recorded: (result, wall, [(wall, launches, TrainedModel)] in call
+    order — the fractions, the point fit, the replicates — and the batch
+    build walls)."""
+    from photon_tpu_torch import diagnostics
+    from photon_tpu_torch.diagnostics import bootstrap, fitting
+
+    retrains, builds = [], []
+    undo = [recording([fitting, bootstrap], "train_glm_grid", retrains),
+            recording([diagnostics], "to_device_auto_batch", builds)]
+    try:
+        t0 = time.perf_counter()
+        out = call()
+        wall = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    return out, wall, [(w, n, tm) for w, n, (tm,) in retrains], [w for w, _, _ in builds]
+
+
+def check_report(phase, report, out_dir, replicates, logistic):
+    """The report files exist and parse; every model has its metrics (AUC,
+    the Hosmer–Lemeshow χ² for a logistic model) and Kendall τ; the fitting
+    and bootstrap chapters are there with ``replicates`` replicates.
+    Returns the parsed report.json."""
+    import math
+    import os
+
+    for name in ("report.html", "report.txt", "report.json"):
+        if not os.path.getsize(os.path.join(out_dir, name)) > 0:
+            fail(f"{phase}: {name} is empty")
+    with open(os.path.join(out_dir, "report.json")) as f:
+        parsed = json.load(f)
+    for m in parsed["models"]:
+        needed = [m["error_independence"]["tau"]]
+        if logistic:
+            needed += [m["metrics"]["AREA UNDER ROC"], m["hosmer_lemeshow"]["chi_square"]]
+        if not all(math.isfinite(v) for v in needed):
+            fail(f"{phase}: non-finite diagnostics at λ={m['lambda']}: {needed}")
+    if "fitting" not in parsed or "bootstrap" not in parsed:
+        fail(f"{phase}: the fitting or bootstrap chapter is missing")
+    if parsed["bootstrap"]["replicates"] != replicates:
+        fail(f"{phase}: {parsed['bootstrap']['replicates']} bootstrap replicates, not {replicates}")
+    if not (report.get("fitting") and report.get("bootstrap")):
+        fail(f"{phase}: the returned report lacks its retrain chapters")
+    return parsed
+
+
+def glm_owlqn_diagnose(seed, ds, fit):
+    """``diagnose_models`` on the config-3 model at full width: the
+    training DataSet ``glm_owlqn`` built (2^20 × 2^20, 56 slots), a
+    validation DataSet of 2^18 rows of the same generator under another
+    seed, 8 bootstrap replicates and the fractions 0.25, 0.5 and 1.0. Every
+    retrain runs on the card through the window layout: each must launch
+    the windowed Xᵀr kernel and give finite coefficients; the bootstrap's
+    point fit is glm_owlqn's fit (same data, λ and layout: objective within
+    1e-5); report.json parses. Returns the kernel launches."""
+    import torch
+
+    from photon_tpu_torch import diagnostics
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import TaskType
+
+    t0 = time.perf_counter()
+    valid = ell_dataset(*config3_arrays(seed + 7, 1 << 18, OWLQN_D, OWLQN_K), OWLQN_D)
+    gen_s = time.perf_counter() - t0
+    fractions = (0.25, 0.5, 1.0)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-diagnose-") as tmp:
+        windowed_rmatvec.launches = 0
+        report, wall, retrains, builds = diagnose_recorded(lambda: diagnostics.diagnose_models(
+            [fit], valid, TaskType.POISSON_REGRESSION, output_dir=tmp, train_data=ds,
+            config=owlqn_config(), best_index=0, bootstrap_replicates=8,
+            fitting_fractions=fractions, seed=seed, device="cuda",
+        ))
+        launches = windowed_rmatvec.launches
+        check_report("glm_owlqn_diagnose", report, tmp, 8, logistic=False)
+    if len(retrains) != len(fractions) + 1 + 8:
+        fail(f"glm_owlqn_diagnose: {len(retrains)} retrains, not {len(fractions) + 9}")
+    for i, (_, n, tm) in enumerate(retrains):
+        if n <= 0:
+            fail(f"glm_owlqn_diagnose: retrain {i} never launched the windowed Xᵀr kernel")
+        if not bool(torch.isfinite(tm.model.coefficients.means).all()):
+            fail(f"glm_owlqn_diagnose: retrain {i} has non-finite coefficients")
+    point = retrains[len(fractions)][2]
+    want = float(fit.result.value)
+    point_rel = abs(float(point.result.value) - want) / abs(want)
+    if not point_rel <= 1e-5:
+        fail(f"glm_owlqn_diagnose: the point fit's objective {float(point.result.value)} vs "
+             f"glm_owlqn's {want} (relative {point_rel})")
+    solves = [tm.wall_time_s for _, _, tm in retrains]
+    log(json.dumps({
+        "phase": "glm_owlqn_diagnose", "n": OWLQN_N, "d": OWLQN_D, "slots": OWLQN_K,
+        "validation_rows": valid.num_samples, "validation_gen_s": gen_s,
+        "diagnose_wall_s": wall, "batch_build_s": builds,
+        "retrain_solve_s": solves, "retrain_wall_s": [w for w, _, _ in retrains],
+        "retrain_iterations": [int(tm.result.iterations) for _, _, tm in retrains],
+        "retrain_launches": [n for _, n, _ in retrains],
+        "glm_owlqn_solve_s": fit.wall_time_s, "point_fit_objective_rel_diff": point_rel,
+        "kernel_launches": launches,
+        "bootstrap_unstable_fraction": report["bootstrap"]["unstable_fraction"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }))
+    return launches
+
+
+def owlqn_segmented_and_full(seed):
+    """On config 3's small problem (8192 × 2048, 16 slots, the window
+    layout on the card, float64): ``SegmentedOWLQN`` in segments of 16
+    equals ``minimize_owlqn`` bit for bit, and ``PHOTON_GLM_LINESEARCH=full``
+    (black-box trials) reaches the margin-space solve's objective within
+    1e-6. Returns the kernel launches."""
+    import os
+
+    import torch
+
+    from photon_tpu_torch.data.dataset import to_device_sparse_batch
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.optimize.owlqn import SegmentedOWLQN, minimize_owlqn
+    from photon_tpu_torch.optimize.problem import GLMProblem
+
+    ds = ell_dataset(*config3_arrays(seed + 5, 8192, 2048, 16), 2048)
+    batch = to_device_sparse_batch(ds, dtype=torch.float64, device="cuda", column_windows=True)
+    problem = GLMProblem.build(owlqn_config().with_regularization_weight(1.0))
+    obj, cfg = problem.objective, problem.config.optimizer_config
+    x0 = torch.zeros(2048, dtype=torch.float64, device="cuda")
+    windowed_rmatvec.launches = 0
+    mono = minimize_owlqn(None, x0, obj.l1_weight, cfg, oracle=obj.smooth_margin_oracle(batch))
+    solver = SegmentedOWLQN(None, obj.l1_weight, cfg,
+                            oracle_factory=obj.smooth_margin_oracle, segment_iters=16)
+    seg = solver(x0, batch)
+    for name, a, b in zip(mono._fields, mono, seg):
+        if not torch.equal(a, b):
+            fail(f"owlqn_segmented: {name} differs from minimize_owlqn")
+    if solver.last_num_segments < 2:
+        fail(f"owlqn_segmented: {solver.last_num_segments} segment(s)")
+    saved = os.environ.get("PHOTON_GLM_LINESEARCH")
+    os.environ["PHOTON_GLM_LINESEARCH"] = "full"
+    try:
+        full = problem.solve(batch, x0)
+    finally:
+        if saved is None:
+            del os.environ["PHOTON_GLM_LINESEARCH"]
+        else:
+            os.environ["PHOTON_GLM_LINESEARCH"] = saved
+    margin = problem.solve(batch, x0)
+    rel = abs(float(full.value) - float(margin.value)) / abs(float(margin.value))
+    if not rel <= 1e-6:
+        fail(f"owlqn_full_linesearch: objective {float(full.value)} vs margin-space "
+             f"{float(margin.value)} (relative {rel})")
+    if int(full.n_feature_passes) != 2 * int(full.n_evals):
+        fail("owlqn_full_linesearch: the full line search did not take black-box trials")
+    log(json.dumps({
+        "phase": "owlqn_segmented_and_full", "n": 8192, "d": 2048, "dtype": "float64",
+        "iterations": int(mono.iterations), "segments": solver.last_num_segments,
+        "segmented_bit_equal": True,
+        "full_n_feature_passes": int(full.n_feature_passes),
+        "margin_n_feature_passes": int(margin.n_feature_passes),
+        "full_vs_margin_objective_rel": rel, "kernel_launches": windowed_rmatvec.launches,
+    }))
+    return windowed_rmatvec.launches
 
 
 def config3_kernel_rows(idx, vals):
@@ -2606,6 +2900,34 @@ def cli_game_parity(seed):
     }))
 
 
+LEGACY_GRID = [10.0, 1.0, 0.1]
+
+
+def write_a1a_libsvm(path, data):
+    """``a1a_data`` as a LIBSVM file (the reader adds the intercept)."""
+    import numpy as np
+
+    x = data.to_dense(np.float64)
+    with open(path, "w") as f:
+        for i in range(data.num_samples):
+            cols = np.flatnonzero(x[i, 1:]) + 1  # column 0 is a1a_data's intercept
+            feats = " ".join(f"{c}:{x[i, c]:g}" for c in cols)
+            f.write(f"{'+1' if data.labels[i] > 0.5 else '-1'} {feats}\n")
+
+
+def legacy_argv(tmp, out, *extra):
+    """``cli_legacy``'s command line on ``tmp``/a1a.libsvm (validated on
+    itself), writing to ``tmp``/``out``."""
+    return [
+        "--training-data-directory", f"{tmp}/a1a.libsvm",
+        "--validating-data-directory", f"{tmp}/a1a.libsvm",
+        "--output-directory", f"{tmp}/{out}", "--input-format", "LIBSVM",
+        "--task", "LOGISTIC_REGRESSION", "--regularization-type", "L2",
+        "--regularization-weights", ",".join(str(w) for w in LEGACY_GRID),
+        "--normalization-type", "STANDARDIZATION", *extra,
+    ]
+
+
 def cli_legacy(seed):
     """``photon_tpu_torch.cli.legacy_driver.run`` on a LIBSVM file of a1a's
     shape (validated on itself), STANDARDIZATION and λ = 10, 1, 0.1 on the
@@ -2622,28 +2944,13 @@ def cli_legacy(seed):
     from photon_tpu_torch.ops.normalization import NormalizationContext
     from photon_tpu_torch.types import NormalizationType
 
-    def write_libsvm(path, data):
-        x = data.to_dense(np.float64)
-        with open(path, "w") as f:
-            for i in range(data.num_samples):
-                cols = np.flatnonzero(x[i, 1:]) + 1  # column 0 is a1a_data's intercept
-                feats = " ".join(f"{c}:{x[i, c]:g}" for c in cols)
-                f.write(f"{'+1' if data.labels[i] > 0.5 else '-1'} {feats}\n")
-
-    grid = [10.0, 1.0, 0.1]
     with tempfile.TemporaryDirectory(prefix="chip-smoke-legacy-") as tmp:
-        write_libsvm(f"{tmp}/a1a.libsvm", a1a_data(seed))
+        write_a1a_libsvm(f"{tmp}/a1a.libsvm", a1a_data(seed))
         t0 = time.perf_counter()
-        driver = legacy_driver.run([
-            "--training-data-directory", f"{tmp}/a1a.libsvm",
-            "--validating-data-directory", f"{tmp}/a1a.libsvm",
-            "--output-directory", f"{tmp}/out", "--input-format", "LIBSVM",
-            "--task", "LOGISTIC_REGRESSION", "--regularization-type", "L2",
-            "--regularization-weights", ",".join(str(w) for w in grid),
-            "--normalization-type", "STANDARDIZATION",
-        ], device="cuda")
+        driver = legacy_driver.run(legacy_argv(tmp, "out"), device="cuda")
         wall = time.perf_counter() - t0
         data = read_libsvm(f"{tmp}/a1a.libsvm")
+    grid = LEGACY_GRID
     check_bands("glm_a1a", driver.models)
     stats = BasicStatisticalSummary.of(data)
     norm = NormalizationContext.build(
@@ -2672,6 +2979,91 @@ def cli_legacy(seed):
         "gnorm": [float(torch.linalg.vector_norm(m.result.gradient)) for m in driver.models],
         "training_auc": aucs, "best_index": driver.best_index,
         "driver_vs_direct_max_abs_err": worst,
+    }))
+
+
+def report_rel_diff(got, want, path=""):
+    """The largest relative difference between two parsed report.json
+    trees (an absolute floor of 1e-12 under the denominator); structure
+    and every non-float value must be equal."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            fail(f"cli_legacy_diagnose: report keys differ at {path or '/'}")
+        return max([report_rel_diff(got[k], want[k], f"{path}/{k}") for k in want] + [0.0])
+    if isinstance(want, list):
+        if len(got) != len(want):
+            fail(f"cli_legacy_diagnose: report lengths differ at {path}")
+        return max([report_rel_diff(a, b, f"{path}[{i}]")
+                    for i, (a, b) in enumerate(zip(got, want))] + [0.0])
+    if isinstance(want, float):
+        return abs(got - want) / max(abs(want), 1e-12)
+    if got != want:
+        fail(f"cli_legacy_diagnose: {path}: {got!r} vs {want!r}")
+    return 0.0
+
+
+def cli_legacy_diagnose(seed):
+    """``cli_legacy``'s command line plus ``--diagnose`` on the card (bench
+    config 1, a1a's shape, the dense path): the stages end at DIAGNOSED,
+    report.{html,txt,json} exist, every model has AUC, the Hosmer–Lemeshow
+    χ² and Kendall τ, the fitting and bootstrap chapters are there with 8
+    replicates. Then the same command line with the driver fitting at
+    float64 (its ``train_glm_grid`` and ``NormalizationContext`` swapped
+    for float64 ones, as the parity tests do; the diagnostics take the
+    models' type) on the card and on the CPU: report.json within 1e-9
+    relative."""
+    import functools
+    import os
+
+    import torch
+
+    from photon_tpu_torch.cli import legacy_driver
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-legacy-diagnose-") as tmp:
+        write_a1a_libsvm(f"{tmp}/a1a.libsvm", a1a_data(seed))
+        diag = []
+        undo = recording([legacy_driver], "diagnose_models", diag)
+        try:
+            (driver, wall, retrains, builds) = diagnose_recorded(
+                lambda: legacy_driver.run(legacy_argv(tmp, "card", "--diagnose"), device="cuda"))
+        finally:
+            undo()
+        stages = [s.name for s in driver.stage_history] + [driver.stage.name]
+        if stages[-1] != "DIAGNOSED":
+            fail(f"cli_legacy_diagnose: stages {stages}")
+        check_report("cli_legacy_diagnose", driver.diagnostics_report,
+                     f"{tmp}/card/diagnostics", 8, logistic=True)
+
+        saved = legacy_driver.train_glm_grid, legacy_driver.NormalizationContext
+        norm = saved[1]
+        legacy_driver.train_glm_grid = functools.partial(saved[0], dtype=torch.float64)
+        legacy_driver.NormalizationContext = type("Float64Normalization", (), {
+            "build": staticmethod(functools.partial(norm.build, dtype=torch.float64)),
+            "identity": staticmethod(norm.identity),
+        })
+        reports = {}
+        try:
+            for i, dev in enumerate(("cuda", "cpu")):
+                legacy_driver.run(legacy_argv(tmp, f"f64-{i}", "--diagnose"), device=dev)
+                with open(os.path.join(tmp, f"f64-{i}", "diagnostics", "report.json")) as f:
+                    reports[i] = json.load(f)
+        finally:
+            legacy_driver.train_glm_grid, legacy_driver.NormalizationContext = saved
+    rel = report_rel_diff(reports[0], reports[1])
+    if not rel <= 1e-9:
+        fail(f"cli_legacy_diagnose: float64 report.json card vs CPU: relative {rel} > 1e-9")
+    models = driver.diagnostics_report["models"]
+    log(json.dumps({
+        "phase": "cli_legacy_diagnose", "n": A1A_N, "d": A1A_D, "grid": LEGACY_GRID,
+        "driver_wall_s": wall, "diagnose_wall_s": diag[0][0], "batch_build_s": builds,
+        "retrain_solve_s": [tm.wall_time_s for _, _, tm in retrains],
+        "retrain_iterations": [int(tm.result.iterations) for _, _, tm in retrains],
+        "stages": stages,
+        "auc": [m["metrics"]["AREA UNDER ROC"] for m in models],
+        "hosmer_lemeshow_chi2": [m["hosmer_lemeshow"]["chi_square"] for m in models],
+        "kendall_tau": [m["error_independence"]["tau"] for m in models],
+        "bootstrap_replicates": driver.diagnostics_report["bootstrap"]["replicates"],
+        "f64_card_vs_cpu_report_rel": rel,
     }))
 
 
@@ -2738,9 +3130,12 @@ def main() -> None:
 
     glm_a1a(args.seed)
     glm_tron(args.seed)
-    idx3, vals3, owlqn_launches = glm_owlqn(args.seed)
+    idx3, vals3, ds3, fit3, owlqn_launches = glm_owlqn(args.seed)
     k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
     del idx3, vals3
+    diagnose_launches = glm_owlqn_diagnose(args.seed, ds3, fit3)
+    del ds3, fit3
+    segmented_launches = owlqn_segmented_and_full(args.seed)
 
     variance_launches, kvar = small_game_parity(args.seed)
     game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
@@ -2756,6 +3151,7 @@ def main() -> None:
         del ctx
     cli_game_parity(args.seed)
     cli_legacy(args.seed)
+    cli_legacy_diagnose(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
         scoring_stream(args.seed, tmp)
 
@@ -2777,6 +3173,8 @@ def main() -> None:
         "library_ms": kmain["library_ms"],
         "launches_by_path": {
             "main_path": launches, "glm_owlqn": owlqn_launches,
+            "glm_owlqn_diagnose": diagnose_launches,
+            "owlqn_segmented_and_full": segmented_launches,
             **{path: n for path, n in game_launches.items() if n > 0},
             "cli_game": cli_launches,
             **recovery_launches,

@@ -1,12 +1,14 @@
 """Legacy single-GLM driver (reference photon-client Driver.scala:71-740).
 
 Staged pipeline with stage assertions (DriverStage.scala:45-46):
-INIT → PREPROCESSED → TRAINED → VALIDATED. Trains one GLM per
+INIT → PREPROCESSED → TRAINED → VALIDATED → DIAGNOSED. Trains one GLM per
 regularization weight with warm starts (``train_glm_grid`` on ``device``,
 the card unless ``run(..., device="cpu")``), computes validation metrics
-per λ, selects the best model, and writes text coefficients and an Avro
-model. Counterpart of photon_tpu/cli/legacy_driver.py with the same
-parser; ``--diagnose`` (model diagnostics) is not ported yet and raises.
+per λ, selects the best model, with ``--diagnose`` writes the model
+diagnostics (``diagnostics/report.{html,txt,json}``, the bootstrap and
+learning-curve retrains on the device), and writes text coefficients and
+an Avro model. Counterpart of photon_tpu/cli/legacy_driver.py with the
+same parser.
 
 Usage:
     python -m photon_tpu_torch.cli.legacy_driver \
@@ -25,7 +27,6 @@ import sys
 import numpy as np
 import torch
 
-from photon_tpu_torch.cli import game_base
 from photon_tpu_torch.data.dataset import (
     DataSet,
     choose_sparse,
@@ -35,6 +36,7 @@ from photon_tpu_torch.data.dataset import (
 from photon_tpu_torch.data.libsvm import read_libsvm
 from photon_tpu_torch.data.stats import BasicStatisticalSummary
 from photon_tpu_torch.data.validators import DataValidationType, validate
+from photon_tpu_torch.diagnostics import diagnose_models
 from photon_tpu_torch.evaluation.evaluators import EvaluatorType, evaluate
 from photon_tpu_torch.io.data_reader import AvroDataReader, FeatureShardConfig
 from photon_tpu_torch.io.model_io import save_glm
@@ -61,9 +63,6 @@ _DEFAULT_METRIC = {
     TaskType.LINEAR_REGRESSION: EvaluatorType.RMSE,
     TaskType.POISSON_REGRESSION: EvaluatorType.POISSON_LOSS,
 }
-
-UNPORTED_FLAGS = {"diagnose": ((), "ROADMAP A3: model diagnostics, diagnostics/*")}
-
 
 class DriverStage(enum.IntEnum):
     """Reference DriverStage.scala — strictly ordered pipeline stages."""
@@ -94,6 +93,7 @@ class LegacyDriver:
         self.best_index: int | None = None
         self.num_features = 0
         self.index_maps: dict = {}
+        self.diagnostics_report: dict | None = None
 
     def _assert_stage(self, expected: DriverStage) -> None:
         if self.stage != expected:
@@ -226,7 +226,7 @@ class LegacyDriver:
             metric_types.append(EvaluatorType.LOGISTIC_LOSS)
         # the layout the training path chose: a shard trained sparse is
         # scored sparse, never densified here
-        dtype = self.models[0].model.coefficients.means.dtype if self.models else torch.float32
+        dtype = self._model_dtype()
         to_device = (
             to_device_sparse_batch
             if choose_sparse(data.num_samples, data.num_features, len(data.values))
@@ -251,6 +251,34 @@ class LegacyDriver:
                 best_val, best_i = v, i
         self.best_index = best_i
         self._advance(DriverStage.VALIDATED)
+
+    def _model_dtype(self) -> torch.dtype:
+        """The trained models' type (float32 unless the fit ran wider):
+        validation and diagnostics build their batches at it."""
+        return self.models[0].model.coefficients.means.dtype if self.models else torch.float32
+
+    def diagnose(self) -> None:
+        """Model diagnostics of every trained model on the validation data
+        (the training data without it), with the bootstrap and
+        learning-curve retrains of the validation-selected model under the
+        driver's own problem configuration and normalization."""
+        self._assert_stage(DriverStage.VALIDATED)
+        data = self.validation_data or self.train_data
+        with Timed("diagnostics"):
+            self.diagnostics_report = diagnose_models(
+                self.models,
+                data,
+                TaskType[self.args.task],
+                output_dir=os.path.join(self.args.output_directory, "diagnostics"),
+                train_data=self.train_data,
+                config=self.problem_config,
+                normalization=self.normalization,
+                best_index=self.best_index,
+                index_to_name=self.index_maps.get("global"),
+                dtype=self._model_dtype(),
+                device=self.device,
+            )
+        self._advance(DriverStage.DIAGNOSED)
 
     def save(self) -> None:
         out = self.args.output_directory
@@ -307,6 +335,8 @@ class LegacyDriver:
             self.train()
             emitter.emit("training_finish")
             self.validate_models()
+            if self.args.diagnose:
+                self.diagnose()
             self.save()
             log.info(
                 "stages completed: %s",
@@ -345,7 +375,13 @@ def build_parser() -> argparse.ArgumentParser:
         "projection after every optimizer step "
         "(reference PhotonOptionNames.scala:42, GLMSuite.scala:190-290)",
     )
-    p.add_argument("--diagnose", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--diagnose",
+        action="store_true",
+        help="write model diagnostics (metrics, calibration, error independence, "
+        "feature importance, learning curves and bootstrap intervals) to "
+        "<output>/diagnostics/report.{html,txt,json}",
+    )
     p.add_argument("--log-level", default="info")
     return p
 
@@ -353,10 +389,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None, *, device="cuda", events=None) -> LegacyDriver:
     """``events``: an ``EventEmitter`` whose listeners hear
     ``photon_setup``, ``training_start`` and ``training_finish``."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = resolve_device(device)
-    game_base.refuse_unported(args, parser, UNPORTED_FLAGS)
     prepare_output_dir(args.output_directory, override=args.override_output_directory)
     driver = LegacyDriver(args, device=device, events=events)
     driver.run()

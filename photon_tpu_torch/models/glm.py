@@ -13,6 +13,7 @@ import torch
 
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.ops.losses import sigmoid
+from photon_tpu_torch.ops.objective import matvec
 from photon_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -28,12 +29,25 @@ class GeneralizedLinearModel:
         z = self.coefficients.compute_score(features)
         return z if offsets is None else z + offsets
 
+    def compute_margin_batch(self, batch) -> Tensor:
+        """Margins for either batch layout (dense ``LabeledBatch`` or
+        sparse-ELL ``SparseBatch``), offsets included, on the batch's
+        device."""
+        return matvec(batch, self.coefficients.means) + batch.offsets
+
     def compute_mean(self, margins: Tensor) -> Tensor:
         """Inverse link of the margins; identity by default."""
         return margins
 
     def predict(self, features: Tensor, offsets: Tensor | None = None) -> Tensor:
         return self.compute_mean(self.compute_margin(features, offsets))
+
+    def update_coefficients(self, coefficients: Coefficients) -> "GeneralizedLinearModel":
+        return dataclasses.replace(self, coefficients=coefficients)
+
+    @property
+    def model_class_name(self) -> str:
+        return type(self).__name__
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,13 +33,31 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
     return (a * b).sum(-1)
 
 
+def bf16_product(x: Tensor, v: Tensor) -> Tensor:
+    """x @ v for a bfloat16 matrix ``x`` [M, K] (a transposed view is
+    fine) and a vector ``v`` [K] as JAX's ``dot_general(...,
+    preferred_element_type=float32)`` computes it: ``v`` rounded to
+    bfloat16, products accumulated in float32, a float32 result. On the
+    card one cuBLAS GEMV with a float32 output, no widened copy of ``x``;
+    on the CPU the plain version (a bf16×bf16 product is exact in
+    float32, so it differs from XLA only in summation order)."""
+    if x.dim() != 2:
+        raise ValueError(f"a bfloat16 feature block must be [N, D], got {tuple(x.shape)}")
+    vb = v.to(torch.bfloat16).unsqueeze(-1)
+    if x.device.type == "cpu":
+        return (x.float() @ vb.float()).squeeze(-1)
+    return torch.mm(x, vb, out_dtype=torch.float32).squeeze(-1)
+
+
 def matvec(batch, v: Tensor) -> Tensor:
     """X·v. Sparse ELL: gather the K coefficient slots per row and row-sum
-    (padding slots hold value 0). Dense: a batched matrix-vector product.
-    Features stored narrower than ``v`` (bfloat16) are widened to its type
-    first, so every product accumulates in the coefficients' type."""
+    (padding slots hold value 0; bfloat16 values are widened, as JAX's
+    promotion does). Dense: a batched matrix-vector product; a bfloat16
+    block goes through :func:`bf16_product` (float32 result)."""
     if isinstance(batch, SparseBatch):
         return (take_1d(v, batch.indices) * batch.values.to(v.dtype)).sum(-1)
+    if batch.features.dtype == torch.bfloat16:
+        return bf16_product(batch.features, v)
     return torch.matmul(batch.features.to(v.dtype), v.unsqueeze(-1)).squeeze(-1)
 
 
@@ -49,13 +67,16 @@ def _use_windows(batch, per_row: Tensor) -> bool:
 
 def rmatvec(batch, per_row: Tensor, dim: int) -> Tensor:
     """Xᵀ·per_row. Sparse with windows: the windowed kernel; sparse
-    without: a flat scatter-add; dense: a batched matrix-vector product."""
+    without: a flat scatter-add; dense: a batched matrix-vector product
+    (:func:`bf16_product` for a bfloat16 block)."""
     if isinstance(batch, SparseBatch):
         if _use_windows(batch, per_row):
             return windowed_rmatvec(batch.windows, per_row, dim)
         flat = (batch.values.to(per_row.dtype) * per_row[:, None]).reshape(-1)
         out = torch.zeros(dim, dtype=flat.dtype, device=flat.device)
         return out.index_add_(0, batch.indices.reshape(-1).long(), flat)
+    if batch.features.dtype == torch.bfloat16:
+        return bf16_product(batch.features.t(), per_row)
     x = batch.features.to(per_row.dtype)
     return torch.matmul(x.transpose(-1, -2), per_row.unsqueeze(-1)).squeeze(-1)
 

@@ -249,6 +249,12 @@ def build_column_windows(
     )
 
 
+def windows_wanted(device, num_features: int) -> bool:
+    """Whether a sparse batch on ``device`` gets the window layout: on a
+    CUDA device at d ≥ 1024."""
+    return torch.device(device).type == "cuda" and num_features >= 1024
+
+
 def maybe_build_windows(
     indices: np.ndarray,
     values: np.ndarray,
@@ -260,10 +266,11 @@ def maybe_build_windows(
     window: int = 128,
     instance_cap: int = 4096,
 ) -> ColumnWindows | None:
-    """Layout policy: windows on a CUDA device at d ≥ 1024, and on any
-    device when ``force`` is set (the CPU tests run the plain Xᵀr so)."""
+    """Layout policy: windows where :func:`windows_wanted` says, and on
+    any device when ``force`` is set (the CPU tests run the plain Xᵀr
+    so)."""
     device = torch.device(device)
-    if force or (device.type == "cuda" and num_features >= 1024):
+    if force or windows_wanted(device, num_features):
         return build_column_windows(
             indices, values, num_features,
             window=window, instance_cap=instance_cap,

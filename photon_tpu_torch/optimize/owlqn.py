@@ -11,10 +11,16 @@ is judged on F.
 Lanes are written out as in optimize/lbfgs.py: state [B, ...], a converged
 lane keeps its state, one host check of "any lane active" per iteration
 and per line-search trial. An ``x0`` of shape [D] runs as one lane.
+
+The solve is built from init / iteration / finalize pieces
+(``_owlqn_machinery``, as JAX's of the same name): ``minimize_owlqn`` runs
+them in one loop, ``SegmentedOWLQN`` in bounded segments from the host.
+Both call the same pieces in the same order, so on one device they give
+the same result bit for bit.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -71,22 +77,48 @@ def _solo(oracle: SmoothMarginOracle) -> SmoothMarginOracle:
     )
 
 
-def minimize_owlqn(
-    value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]] | None,
-    x0: Tensor,
-    l1_weight: float,
-    config: OptimizerConfig = OptimizerConfig(),
-    *,
-    oracle: SmoothMarginOracle | None = None,
-) -> OptimizeResult:
-    """Minimize f(x) + l1_weight·‖x‖₁, with ``value_and_grad`` or
-    ``oracle`` evaluating the smooth part f. ``x0`` is [D] or [B, D]. The
-    result's ``gradient`` is the pseudo-gradient at the solution.
+class _OWLQNState(NamedTuple):
+    """Lane-batched solver state ([B, ...] tensors). ``carry`` holds the
+    accepted point's margins with a margin oracle, else ()."""
 
-    With a ``SmoothMarginOracle`` a backtracking trial computes the value
-    only (one forward pass) and the accepted point's gradient comes from
-    its margins (one backward pass): trials + 1 passes per iteration, where
-    black-box trials cost two each."""
+    it: Tensor
+    x: Tensor
+    f: Tensor  # the full objective F = f + l1·‖x‖₁
+    g: Tensor  # gradient of the smooth part f
+    s_hist: Tensor
+    y_hist: Tensor
+    rho: Tensor
+    num_pairs: Tensor
+    pos: Tensor
+    reason: Tensor
+    loss_hist: Tensor
+    gnorm_hist: Tensor
+    n_evals: Tensor
+    n_passes: Tensor
+    loss_abs_tol: Tensor
+    grad_abs_tol: Tensor
+    carry: object
+
+
+def _any_active(s: _OWLQNState) -> bool:
+    """The host check (one scalar sync): is any lane still running?"""
+    return bool((s.reason == ConvergenceReason.NOT_CONVERGED).any())
+
+
+def _owlqn_machinery(
+    value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]] | None,
+    l1_weight: float,
+    config: OptimizerConfig,
+    *,
+    oracle: SmoothMarginOracle | None,
+    solo: bool,
+):
+    """The solve's pieces ``(make_init, step, finalize)``: ``make_init(x0)``
+    with x0 [B, D] evaluates the zero state (the absolute tolerances) and
+    x0; ``step(s)`` is one OWL-QN iteration (a converged lane keeps its
+    state); ``finalize(s)`` the ``OptimizeResult``, without the lane axis
+    when ``solo``. The oracle sees [B, D] (``solo`` wraps a lane-free
+    one)."""
     if oracle is not None and value_and_grad is not None:
         raise ValueError("pass value_and_grad=None when oracle is given")
     if oracle is None:
@@ -98,61 +130,63 @@ def minimize_owlqn(
             return f, g, ()
 
         oracle = SmoothMarginOracle(full=_full, value_margins=None, grad_from_margins=None)
-    solo = x0.dim() == 1
     if solo:
         oracle = _solo(oracle)
-        x0 = x0.unsqueeze(0)
-
-    dtype, dev = x0.dtype, x0.device
-    b, d = x0.shape
     m, t = config.num_corrections, config.max_iterations
-    lanes = torch.arange(b, device=dev)
-    l1 = torch.as_tensor(l1_weight, dtype=dtype, device=dev)
     has_box = config.has_box
     margin_trials = oracle.value_margins is not None
 
     def eval_smooth(x):
         f, g, carry = oracle.full(x)
-        return f.to(dtype), g.to(dtype), carry
+        return f.to(x.dtype), g.to(x.dtype), carry
 
-    def full_value(f_smooth, x):
+    def full_value(f_smooth, x, l1):
         return f_smooth + l1 * x.abs().sum(-1)
 
     def box(x):
         return project_to_box(x, config.lower_bounds, config.upper_bounds)
 
-    if has_box:
-        x0 = box(x0)
-    # absolute tolerances from the zero state (Optimizer.scala:181)
-    zeros = torch.zeros_like(x0)
-    f_zero, g_zero, _ = eval_smooth(zeros)
-    loss_abs_tol = torch.abs(f_zero) * config.tolerance
-    grad_abs_tol = (
-        torch.linalg.vector_norm(pseudo_gradient(zeros, g_zero, l1), dim=-1)
-        * config.tolerance
-    )
-    f_s, g, carry = eval_smooth(x0)
-    x, f = x0, full_value(f_s, x0)
+    def make_init(x0: Tensor) -> _OWLQNState:
+        dtype, dev = x0.dtype, x0.device
+        b, d = x0.shape
+        l1 = torch.as_tensor(l1_weight, dtype=dtype, device=dev)
+        if has_box:
+            x0 = box(x0)
+        # absolute tolerances from the zero state (Optimizer.scala:181)
+        zeros = torch.zeros_like(x0)
+        f_zero, g_zero, _ = eval_smooth(zeros)
+        loss_abs_tol = torch.abs(f_zero) * config.tolerance
+        grad_abs_tol = (
+            torch.linalg.vector_norm(pseudo_gradient(zeros, g_zero, l1), dim=-1)
+            * config.tolerance
+        )
+        f_s, g, carry = eval_smooth(x0)
+        f = full_value(f_s, x0, l1)
+        it = torch.zeros(b, dtype=torch.int32, device=dev)
+        s_hist = torch.zeros((b, m, d), dtype=dtype, device=dev)
+        return _OWLQNState(
+            it=it, x=x0, f=f, g=g,
+            s_hist=s_hist, y_hist=torch.zeros_like(s_hist),
+            rho=torch.zeros((b, m), dtype=dtype, device=dev),
+            num_pairs=torch.zeros_like(it), pos=torch.zeros_like(it),
+            reason=torch.zeros_like(it),
+            loss_hist=f.unsqueeze(-1).repeat(1, t + 1),
+            gnorm_hist=(
+                torch.linalg.vector_norm(pseudo_gradient(x0, g, l1), dim=-1)
+                .unsqueeze(-1).repeat(1, t + 1)
+            ),
+            n_evals=torch.full_like(it, 2),  # zero-state + initial point
+            n_passes=torch.full_like(it, 4),
+            loss_abs_tol=loss_abs_tol, grad_abs_tol=grad_abs_tol, carry=carry,
+        )
 
-    it = torch.zeros(b, dtype=torch.int32, device=dev)
-    s_hist = torch.zeros((b, m, d), dtype=dtype, device=dev)
-    y_hist = torch.zeros_like(s_hist)
-    rho = torch.zeros((b, m), dtype=dtype, device=dev)
-    num_pairs = torch.zeros_like(it)
-    pos = torch.zeros_like(it)
-    reason = torch.zeros_like(it)
-    loss_hist = f.unsqueeze(-1).repeat(1, t + 1)
-    gnorm_hist = (
-        torch.linalg.vector_norm(pseudo_gradient(x, g, l1), dim=-1)
-        .unsqueeze(-1).repeat(1, t + 1)
-    )
-    n_evals = torch.full_like(it, 2)  # zero-state + initial point
-    n_passes = torch.full_like(it, 4)
-
-    for _ in range(t):
-        active = reason == ConvergenceReason.NOT_CONVERGED
-        if not bool(active.any()):
-            break
+    def step(s: _OWLQNState) -> _OWLQNState:
+        x, f, g, carry = s.x, s.f, s.g, s.carry
+        dtype, dev = x.dtype, x.device
+        lanes = torch.arange(x.shape[0], device=dev)
+        l1 = torch.as_tensor(l1_weight, dtype=dtype, device=dev)
+        active = s.reason == ConvergenceReason.NOT_CONVERGED
+        s_hist, y_hist, rho, num_pairs, pos = s.s_hist, s.y_hist, s.rho, s.num_pairs, s.pos
         pg = pseudo_gradient(x, g, l1)
         direction = two_loop_direction(pg, s_hist, y_hist, rho, num_pairs, pos)
         # orthant alignment: drop components that do not descend along pg;
@@ -163,7 +197,7 @@ def minimize_owlqn(
         # the orthant: sign(x), or sign(−pg) where x is 0
         xi = torch.where(x != 0.0, torch.sign(x), torch.sign(-pg))
         pg_norm = torch.linalg.vector_norm(pg, dim=-1)
-        step = torch.where(
+        step_len = torch.where(
             num_pairs == 0,
             torch.clamp(1.0 / torch.clamp(pg_norm, min=1e-12), max=1.0),
             torch.ones_like(pg_norm),
@@ -171,7 +205,7 @@ def minimize_owlqn(
 
         # backtracking with orthant projection; Armijo on F along the
         # projected displacement (Andrew & Gao eq. 4)
-        ls_iters = torch.zeros_like(it)
+        ls_iters = torch.zeros_like(s.it)
         done = ~active
         ls_ok = torch.zeros_like(active)
         x_new, f_new = x, f
@@ -180,14 +214,14 @@ def minimize_owlqn(
             run = ~done
             if not bool(run.any()):
                 break
-            x_cand = x + step.unsqueeze(-1) * direction
+            x_cand = x + step_len.unsqueeze(-1) * direction
             x_cand = torch.where(torch.sign(x_cand) == xi, x_cand, torch.zeros_like(x_cand))
             if margin_trials:
                 f_s, aux_cand = oracle.value_margins(x_cand)
                 f_s = f_s.to(dtype)
             else:
                 f_s, aux_cand, _ = eval_smooth(x_cand)
-            f_cand = full_value(f_s, x_cand)
+            f_cand = full_value(f_s, x_cand, l1)
             dx = x_cand - x
             ok = (
                 (f_cand <= f + config.ls_c1 * (pg * dx).sum(-1))
@@ -196,7 +230,7 @@ def minimize_owlqn(
             )
             x_new, f_new, aux = select_lanes(ok, (x_cand, f_cand, aux_cand), (x_new, f_new, aux))
             ls_iters = torch.where(run, ls_iters + 1, ls_iters)
-            step = torch.where(run, step * 0.5, step)
+            step_len = torch.where(run, step_len * 0.5, step_len)
             done = done | ok
             ls_ok = ls_ok | ok
 
@@ -215,7 +249,7 @@ def minimize_owlqn(
             # box projection after every step, like the reference's OWLQN
             x_new = box(x_new)
             f_s, g_new, carry_new = eval_smooth(x_new)
-            f_new = full_value(f_s, x_new)
+            f_new = full_value(f_s, x_new, l1)
             ls_iters = ls_iters + 1
             passes = passes + 2
 
@@ -232,35 +266,128 @@ def minimize_owlqn(
         pos = torch.where(pair, (pos + 1) % m, pos)
         num_pairs = torch.where(pair, num_pairs + 1, num_pairs)
 
-        it_new = it + 1
+        it_new = s.it + 1
         pg_new_norm = torch.linalg.vector_norm(pseudo_gradient(x_new, g_new, l1), dim=-1)
         reason_new = convergence_check(
             it=it_new, value=f_new, prev_value=f, grad_norm=pg_new_norm,
-            loss_abs_tol=loss_abs_tol, grad_abs_tol=grad_abs_tol,
+            loss_abs_tol=s.loss_abs_tol, grad_abs_tol=s.grad_abs_tol,
             max_iterations=t, step_failed=~ls_ok,
         )
+        loss_hist, gnorm_hist = s.loss_hist, s.gnorm_hist
         slot = it_new.long()
         loss_hist[lanes, slot] = torch.where(active, f_new, loss_hist[lanes, slot])
         gnorm_hist[lanes, slot] = torch.where(active, pg_new_norm, gnorm_hist[lanes, slot])
-        n_evals = torch.where(active, n_evals + ls_iters, n_evals)
-        n_passes = torch.where(active, n_passes + passes, n_passes)
+        n_evals = torch.where(active, s.n_evals + ls_iters, s.n_evals)
+        n_passes = torch.where(active, s.n_passes + passes, s.n_passes)
         x, f, g, carry, it, reason = select_lanes(
             active, (x_new, f_new, g_new, carry_new, it_new, reason_new),
-            (x, f, g, carry, it, reason),
+            (x, f, g, carry, s.it, s.reason),
+        )
+        return s._replace(
+            it=it, x=x, f=f, g=g, s_hist=s_hist, y_hist=y_hist, rho=rho,
+            num_pairs=num_pairs, pos=pos, reason=reason, loss_hist=loss_hist,
+            gnorm_hist=gnorm_hist, n_evals=n_evals, n_passes=n_passes, carry=carry,
         )
 
-    pg_final = pseudo_gradient(x, g, l1)
-    idx = torch.arange(t + 1, device=dev)
-    upto = idx.unsqueeze(0) <= it.unsqueeze(-1)
-    loss_hist = torch.where(upto, loss_hist, f.unsqueeze(-1))
-    gnorm_hist = torch.where(
-        upto, gnorm_hist, torch.linalg.vector_norm(pg_final, dim=-1).unsqueeze(-1)
+    def finalize(s: _OWLQNState) -> OptimizeResult:
+        l1 = torch.as_tensor(l1_weight, dtype=s.x.dtype, device=s.x.device)
+        pg_final = pseudo_gradient(s.x, s.g, l1)
+        idx = torch.arange(t + 1, device=s.x.device)
+        upto = idx.unsqueeze(0) <= s.it.unsqueeze(-1)
+        loss_hist = torch.where(upto, s.loss_hist, s.f.unsqueeze(-1))
+        gnorm_hist = torch.where(
+            upto, s.gnorm_hist, torch.linalg.vector_norm(pg_final, dim=-1).unsqueeze(-1)
+        )
+        out = OptimizeResult(
+            x=s.x, value=s.f, gradient=pg_final, iterations=s.it, reason=s.reason,
+            loss_history=loss_hist, grad_norm_history=gnorm_hist,
+            n_evals=s.n_evals, n_hvp=torch.zeros_like(s.it), n_feature_passes=s.n_passes,
+        )
+        if solo:
+            out = OptimizeResult(*(v[0] for v in out))
+        return out
+
+    return make_init, step, finalize
+
+
+def minimize_owlqn(
+    value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]] | None,
+    x0: Tensor,
+    l1_weight: float,
+    config: OptimizerConfig = OptimizerConfig(),
+    *,
+    oracle: SmoothMarginOracle | None = None,
+) -> OptimizeResult:
+    """Minimize f(x) + l1_weight·‖x‖₁, with ``value_and_grad`` or
+    ``oracle`` evaluating the smooth part f. ``x0`` is [D] or [B, D]. The
+    result's ``gradient`` is the pseudo-gradient at the solution.
+
+    With a ``SmoothMarginOracle`` a backtracking trial computes the value
+    only (one forward pass) and the accepted point's gradient comes from
+    its margins (one backward pass): trials + 1 passes per iteration, where
+    black-box trials cost two each."""
+    solo = x0.dim() == 1
+    make_init, step, finalize = _owlqn_machinery(
+        value_and_grad, l1_weight, config, oracle=oracle, solo=solo
     )
-    out = OptimizeResult(
-        x=x, value=f, gradient=pg_final, iterations=it, reason=reason,
-        loss_history=loss_hist, grad_norm_history=gnorm_hist,
-        n_evals=n_evals, n_hvp=torch.zeros_like(it), n_feature_passes=n_passes,
-    )
-    if solo:
-        out = OptimizeResult(*(v[0] for v in out))
-    return out
+    s = make_init(x0.unsqueeze(0) if solo else x0)
+    for _ in range(config.max_iterations):
+        if not _any_active(s):
+            break
+        s = step(s)
+    return finalize(s)
+
+
+class SegmentedOWLQN:
+    """OWL-QN run in segments of at most ``segment_iters`` iterations, the
+    host checking between segments whether any lane still runs (one
+    scalar sync per boundary; the iterations inside a segment check as
+    ``minimize_owlqn`` does). Counterpart of JAX's ``SegmentedOWLQN``,
+    which bounds each device program of a long solve; here every iteration
+    is already driven from the host, and the boundaries are the points
+    where a caller may stop or checkpoint a solve. It runs the pieces of
+    ``minimize_owlqn`` in the same order, so the two agree bit for bit on
+    one device.
+
+    ``oracle_factory(data)`` builds the smooth part's oracle from the
+    problem data passed to each call (``__call__(x0, data)``), so one
+    solver serves many batches; without it ``value_and_grad`` is used.
+    ``last_num_segments`` is the last call's segment count."""
+
+    def __init__(
+        self,
+        value_and_grad: Callable[[Tensor], tuple[Tensor, Tensor]] | None,
+        l1_weight: float,
+        config: OptimizerConfig = OptimizerConfig(),
+        *,
+        oracle_factory: Callable[[object], SmoothMarginOracle] | None = None,
+        segment_iters: int = 16,
+    ):
+        if segment_iters < 1:
+            raise ValueError(f"segment_iters={segment_iters} < 1")
+        if oracle_factory is not None and value_and_grad is not None:
+            raise ValueError("pass value_and_grad=None when oracle_factory is given")
+        self.value_and_grad = value_and_grad
+        self.l1_weight = l1_weight
+        self.config = config
+        self.oracle_factory = oracle_factory
+        self.segment_iters = segment_iters
+        self.last_num_segments = 0
+
+    def __call__(self, x0: Tensor, data: object = ()) -> OptimizeResult:
+        oracle = self.oracle_factory(data) if self.oracle_factory is not None else None
+        solo = x0.dim() == 1
+        make_init, step, finalize = _owlqn_machinery(
+            self.value_and_grad, self.l1_weight, self.config, oracle=oracle, solo=solo
+        )
+        s = make_init(x0.unsqueeze(0) if solo else x0)
+        steps = n_seg = 0
+        while steps < self.config.max_iterations and _any_active(s):
+            for i in range(min(self.segment_iters, self.config.max_iterations - steps)):
+                if i and not _any_active(s):
+                    break
+                s = step(s)
+                steps += 1
+            n_seg += 1
+        self.last_num_segments = n_seg
+        return finalize(s)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 
 import torch
 
@@ -153,7 +154,9 @@ class GLMProblem:
         L1 or elastic net (or OWLQN) runs OWL-QN with value-only trials
         and the accepted gradient from carried margins; TRON runs with the
         curvature pass hoisted out of its CG loop; L-BFGS and L-BFGS-B run
-        with the margin-space line search."""
+        with the margin-space line search. ``PHOTON_GLM_LINESEARCH=full``
+        (read at each solve, as JAX reads it) gives OWL-QN and L-BFGS(-B)
+        black-box trials instead, a full value and gradient each."""
         if extra_offsets is not None:
             batch = batch._replace(offsets=batch.offsets + extra_offsets)
         cfg = self.config.optimizer_config
@@ -163,7 +166,11 @@ class GLMProblem:
             RegularizationType.L1,
             RegularizationType.ELASTIC_NET,
         )
+        full_ls = os.environ.get("PHOTON_GLM_LINESEARCH", "margin").strip().lower() == "full"
+        vg = lambda w: objective.value_and_gradient(w, batch)  # noqa: E731
         if has_l1 or opt == OptimizerType.OWLQN:
+            if full_ls:
+                return minimize_owlqn(vg, w0, objective.l1_weight, cfg)
             return minimize_owlqn(
                 None, w0, objective.l1_weight, cfg,
                 oracle=objective.smooth_margin_oracle(batch),
@@ -172,12 +179,14 @@ class GLMProblem:
             if _untouched(cfg):
                 cfg = cfg.tron_defaults()
             return minimize_tron(
-                lambda w: objective.value_and_gradient(w, batch),
+                vg,
                 None,
                 w0,
                 cfg,
                 hvp_factory=lambda w: objective.hessian_operator(w, batch),
             )
+        if full_ls:
+            return minimize_lbfgs(vg, w0, cfg)
         return minimize_lbfgs(None, w0, cfg, oracle=objective.directional_oracle(batch))
 
     def variances(self, batch, w: torch.Tensor) -> torch.Tensor | None:

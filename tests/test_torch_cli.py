@@ -1149,8 +1149,6 @@ _TRAIN = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--coordinate-update-sequence", "global"]
 _SCORE = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--feature-shard-configurations", SHARD_ARG, "--model-input-directory", "m"]
-_LEGACY = ["--training-data-directory", "x", "--output-directory", "{out}",
-           "--task", "LOGISTIC_REGRESSION"]
 _INDEX = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--feature-shard-configurations", SHARD_ARG]
 
@@ -1158,7 +1156,6 @@ UNPORTED = [
     (t_gt, _TRAIN, ["--stream-chunk-rows", "96"], "--stream-chunk-rows"),
     (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
     (t_gt, _TRAIN, ["--precompile"], "--precompile"),
-    (t_ld, _LEGACY, ["--diagnose"], "--diagnose"),
 ]
 
 

@@ -707,10 +707,14 @@ def test_concat_game_data_matches_jax():
 @pytest.mark.parametrize("representation", ["DENSE", "SPARSE"])
 def test_fixed_effect_bf16_features(representation):
     """bf16_features stores the feature values as bfloat16 with float32
-    labels and state, and every product widens them to float32: the solve
-    equals, bit for bit, a float32 solve on the bf16-rounded features, and
-    stays close to the unrounded float32 one and to JAX's bf16 coordinate
-    (which also rounds the dense coefficients to bf16)."""
+    labels and state. The dense block's products round the other operand
+    to bfloat16 and accumulate in float32, as JAX's do, so the solve agrees
+    with JAX's bf16 coordinate within float32 roundoff (rtol 1e-5, atol
+    2e-6; the solves differ only in summation order). Sparse values are
+    widened to float32 in both packages: the solve equals, bit for bit, a
+    float32 solve on the bf16-rounded features, and agrees with JAX's
+    within rtol 1e-3, atol 2e-4 (float32 roundoff over the L-BFGS path).
+    Both stay close to the unrounded float32 solve."""
     from photon_tpu.game.coordinate import FixedEffectCoordinate as JFE
     from photon_tpu_torch.game.coordinate import FixedEffectCoordinate as TFE
 
@@ -734,6 +738,9 @@ def test_fixed_effect_bf16_features(representation):
             jc = JFE.build(small_data(jdata, arr), small_configs("jax", replace=rep)["fixed"],
                            dtype=jnp.float32)
             out["jax"] = np.asarray(jc.train(jnp.zeros(600, jnp.float32), jc.initial_state())[0])
-    np.testing.assert_array_equal(out["bf16"], out["rounded"])
     np.testing.assert_allclose(out["bf16"], out["f32"], rtol=0.05, atol=0.02)
-    np.testing.assert_allclose(out["bf16"], out["jax"], rtol=0.02, atol=0.01)
+    if representation == "DENSE":
+        np.testing.assert_allclose(out["bf16"], out["jax"], rtol=1e-5, atol=2e-6)
+    else:
+        np.testing.assert_array_equal(out["bf16"], out["rounded"])
+        np.testing.assert_allclose(out["bf16"], out["jax"], rtol=1e-3, atol=2e-4)

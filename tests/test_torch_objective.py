@@ -240,3 +240,35 @@ def test_lane_batched_second_order_matches_per_lane():
         jf, jz = jo.smooth_margin_oracle(jb).value_margins(jnp.asarray(c[i]))
         _close(f[i], jf)
         _close(z[i], jz)
+
+
+@pytest.mark.parametrize("product", ["matvec", "rmatvec"])
+def test_bf16_dense_products_match_jax(product):
+    """A bfloat16 dense block: the other operand is rounded to bfloat16 and
+    the products accumulate in float32 into a float32 result, as JAX's
+    ``dot_general(..., preferred_element_type=float32)`` computes them.
+    Widening the block to the coefficients' type instead (the operand
+    left unrounded) misses by ~2e-3 relative on these inputs; the two
+    packages differ only in float32 summation order, within 1e-6 of the
+    result's largest entry."""
+    from photon_tpu.ops import objective as jobj
+    from photon_tpu_torch.ops import objective as tobj
+
+    rng = np.random.default_rng(21)
+    n, d = 512, 64
+    x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32).to(torch.bfloat16)
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    zeros = np.zeros(n, np.float32)
+    tb = TDense(x, *(torch.as_tensor(zeros) for _ in range(3)))
+    jb = JDense(xj, *(jnp.asarray(zeros) for _ in range(3)))
+    if product == "matvec":
+        v = rng.standard_normal(d).astype(np.float32)
+        got = tobj.matvec(tb, torch.as_tensor(v))
+        want = np.asarray(jobj.matvec(jb, jnp.asarray(v)))
+    else:
+        r = rng.standard_normal(n).astype(np.float32)
+        got = tobj.rmatvec(tb, torch.as_tensor(r), d)
+        want = np.asarray(jobj.rmatvec(jb, jnp.asarray(r), d))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0.0, atol=1e-6 * scale)

@@ -357,3 +357,122 @@ def test_lane_batch_equals_solo_solves_and_vmap(name, kind, seed):
             np.asarray(getattr(batched, name_)), np.asarray(getattr(vmapped, name_)), err_msg=name_
         )
     np.testing.assert_allclose(batched.x.numpy(), np.asarray(vmapped.x), rtol=1e-8, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# SegmentedOWLQN and PHOTON_GLM_LINESEARCH=full
+# ---------------------------------------------------------------------------
+
+
+def _assert_bit_equal(a, b):
+    for name, u, v in zip(a._fields, a, b):
+        assert torch.equal(u, v), name
+
+
+def test_segmented_owlqn_matches_single_program():
+    """SegmentedOWLQN runs minimize_owlqn's pieces in segments of 2
+    iterations: the same result bit for bit (one device, no reordering),
+    actually segmented, converged by the same criteria; a second call from
+    another start runs afresh."""
+    from photon_tpu_torch.optimize.common import ConvergenceReason
+    from photon_tpu_torch.optimize.owlqn import SegmentedOWLQN
+
+    rng = np.random.default_rng(11)
+    a = torch.as_tensor(rng.standard_normal((200, D)))
+    b = torch.as_tensor(rng.standard_normal(200))
+
+    def vg(x):
+        r = a @ x - b
+        return 0.5 * (r * r).sum(), a.T @ r
+
+    cfg = TConfig(max_iterations=60, tolerance=1e-9)
+    ref = towlqn(vg, torch.zeros(D, dtype=torch.float64), 0.3, cfg)
+    solver = SegmentedOWLQN(vg, 0.3, cfg, segment_iters=2)
+    seg = solver(torch.zeros(D, dtype=torch.float64))
+    assert solver.last_num_segments >= 2
+    assert solver.last_num_segments == -(-int(ref.iterations) // 2)
+    assert int(seg.reason) != int(ConvergenceReason.NOT_CONVERGED)
+    _assert_bit_equal(seg, ref)
+    x1 = torch.full((D,), 0.05, dtype=torch.float64)
+    _assert_bit_equal(solver(x1), towlqn(vg, x1, 0.3, cfg))
+    with pytest.raises(ValueError, match="segment_iters"):
+        SegmentedOWLQN(vg, 0.3, cfg, segment_iters=0)
+
+
+@pytest.mark.parametrize("layout", ["dense", "lanes", "windows"])
+def test_segmented_owlqn_oracle_factory_data_as_argument(layout):
+    """The batch flows in through ``__call__(x0, data)`` and the margin
+    oracle is built from it: bit for bit the monolithic margin-oracle solve
+    on the same GLM problem (one lane, a lane batch, the window layout)."""
+    from photon_tpu_torch.optimize.owlqn import SegmentedOWLQN
+
+    if layout == "windows":
+        _, batch, d = _sparse_batches("poisson", 3)
+        _, obj = _objectives("poisson", l2=0.05, l1=2.0)
+        l1, x0 = 2.0, torch.zeros(d, dtype=torch.float64)
+    else:
+        lanes = 3 if layout == "lanes" else None
+        _, batch = _batches(_arrays("logistic", 12, lanes))
+        _, obj = _objectives("logistic", l2=0.5, l1=0.1)
+        l1, x0 = 0.1, _zeros(D, lanes)[1]
+    cfg = TConfig(max_iterations=40, tolerance=1e-8)
+    ref = towlqn(None, x0, l1, cfg, oracle=obj.smooth_margin_oracle(batch))
+    solver = SegmentedOWLQN(None, l1, cfg, oracle_factory=obj.smooth_margin_oracle,
+                            segment_iters=4)
+    _assert_bit_equal(solver(x0, batch), ref)
+    assert solver.last_num_segments >= 2
+
+
+def _problem_pair(optimizer, reg):
+    from photon_tpu.optimize.problem import GLMProblem as JProblem
+    from photon_tpu.optimize.problem import GLMProblemConfig as JPConfig
+    from photon_tpu.optimize.problem import RegularizationContext as JReg
+    from photon_tpu.optimize.problem import RegularizationType as JRegType
+    from photon_tpu.types import OptimizerType as JOpt
+    from photon_tpu.types import TaskType as JTask
+    from photon_tpu_torch.optimize.problem import GLMProblem as TProblem
+    from photon_tpu_torch.optimize.problem import GLMProblemConfig as TPConfig
+    from photon_tpu_torch.optimize.problem import RegularizationContext as TReg
+    from photon_tpu_torch.optimize.problem import RegularizationType as TRegType
+    from photon_tpu_torch.types import OptimizerType as TOpt
+    from photon_tpu_torch.types import TaskType as TTask
+
+    lo, hi = _box(tight=False) if optimizer == "LBFGSB" else (None, None)
+    return tuple(
+        problem.build(pcfg(
+            task=task.LOGISTIC_REGRESSION, optimizer=opt[optimizer],
+            optimizer_config=ocfg(lower_bounds=lo, upper_bounds=hi),
+            regularization=rctx(rtype[reg], elastic_net_alpha=0.5), regularization_weight=2.0,
+        ))
+        for problem, pcfg, ocfg, task, opt, rctx, rtype in (
+            (JProblem, JPConfig, JConfig, JTask, JOpt, JReg, JRegType),
+            (TProblem, TPConfig, TConfig, TTask, TOpt, TReg, TRegType),
+        )
+    )
+
+
+@pytest.mark.parametrize("optimizer,reg", [("OWLQN", "ELASTIC_NET"), ("LBFGS", "L2"),
+                                           ("LBFGSB", "L2")])
+def test_full_linesearch_takes_the_black_box_path(optimizer, reg, monkeypatch):
+    """PHOTON_GLM_LINESEARCH=full routes OWL-QN and L-BFGS(-B) to black-box
+    trials, in the port as in JAX: every trial is a full value and
+    gradient (n_feature_passes = 2·n_evals), the solve equals JAX's under
+    the same variable at float64 (equal counters, x within rtol 1e-8), and
+    on this problem, whose line searches backtrack (features scaled by
+    10), it counts more passes than the margin-space default. (Where every
+    first trial is accepted, the two paths count about the same.)"""
+    x, y, offsets, weights = _arrays("logistic", 1)
+    x = 10.0 * x
+    x[:, 0] = 1.0
+    jb, tb = _batches((x, y, offsets, weights))
+    jp, tp = _problem_pair(optimizer, reg)
+    jx0, tx0 = _zeros(D)
+    margin = tp.solve(tb, tx0)
+    monkeypatch.setenv("PHOTON_GLM_LINESEARCH", "full")
+    full = tp.solve(tb, tx0)
+    _same(full, jp.solve(jb, jx0))
+    assert int(full.n_feature_passes) == 2 * int(full.n_evals)
+    assert int(margin.n_feature_passes) < 2 * int(margin.n_evals)
+    assert int(full.n_feature_passes) > int(margin.n_feature_passes)
+    assert int(full.reason) == int(margin.reason) == 2
+    np.testing.assert_allclose(float(full.value), float(margin.value), rtol=1e-6)
