@@ -114,8 +114,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cache stream; stream vs monolithic within 1e-3, warm cache vs Avro
    stream within 1e-6 with no Avro read, staging bounded; rows/s, stage
    p50/p99, the overlap of the work stages, and the device-busy share of
-   a second, profiled warm stream;
-10. print one ``{"kernels": [...]}`` line and, last, the ok line.
+   a second, profiled warm stream; and the warm stream with telemetry
+   on (``obs.enable()``) between two disabled ones, rows/s of each;
+10. serving, which launches no hand-written kernel: ``serve_engine``
+   (bench ``game_serving_swap`` at TPU-scale widths, in process: 128
+   requests of 1,024 rows at 24 qps, B hot-swapped in with its
+   fingerprint at request 64; no failed or shed request, post-swap
+   answers within 1e-6 of a cold scorer on B, no one-time cost in the
+   traffic window, within 1e-3 of the host float64 path; e2e and stage
+   percentiles, rows/s, the swap, allocator segments, and a closed-loop
+   leg's rows/s and device-busy share), ``serve_slo`` (the paced leg with
+   ``PHOTON_SLO_SPEC`` armed: it must meet the SLO), ``cli_serving``
+   (``photon_tpu_torch.cli.game_serving`` over ``cli_game``'s models: 64
+   requests of 512 validation rows, a rolled-back and an applied swap;
+   every request answered, pre-swap scores within 1e-4 of the scoring
+   driver's, the JAX driver's summary keys, the obs artifacts) and
+   ``cli_serving_kill`` (the driver as a subprocess SIGKILLed after 16
+   answers and relaunched with ``--resume``: one result per request, each
+   equal to the uninterrupted run's bit for bit, a blackbox recovered);
+11. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -1899,6 +1916,26 @@ def scoring_stream(seed, tmp):
         warm, warm_prov, warm_row = stream_leg("cache_warm",
                                                lambda: warm_reader.iter_chunks(SS_BATCH))
         warm_row["wall_with_open_s"] = warm_row["wall_s"] + open_s
+        # the warm stream with telemetry on (spans, counters, histograms,
+        # the flight tap), bracketed by a second disabled leg
+        from photon_tpu_torch import obs
+
+        obs.reset()
+        obs.enable()
+        try:
+            warm_obs, _, obs_row = stream_leg("cache_warm_obs",
+                                              lambda: warm_reader.iter_chunks(SS_BATCH))
+            obs_spans = len(obs.get_tracer().spans())
+        finally:
+            obs.disable()
+            obs.reset()
+        warm_again, _, again_row = stream_leg("cache_warm_again",
+                                              lambda: warm_reader.iter_chunks(SS_BATCH))
+        if not (np.array_equal(warm_obs, warm) and np.array_equal(warm_again, warm)):
+            fail("scoring_stream: the warm stream scored differently with telemetry on")
+        telemetry = {"off_rows_per_s": [warm_row["rows_per_s"], again_row["rows_per_s"]],
+                     "on_rows_per_s": obs_row["rows_per_s"], "on_spans": obs_spans,
+                     "on_stage_sum_s": obs_row["stage_sum_s"]}
         # the same warm stream again under the profiler, for the busy share
         # only: its rows/s and stage walls come from the run above
         (profiled, _, profiled_row), busy = device_busy_share(
@@ -1936,7 +1973,7 @@ def scoring_stream(seed, tmp):
                        "rows_per_s": SS_N / mono_s},
         "cache_cold": cold_row, "cache_warm": warm_row, "cache_open_s": open_s,
         "cache_bytes": sum(c["bytes"] for c in cache["columns"].values()),
-        "warm_device": busy,
+        "warm_device": busy, "warm_telemetry": telemetry,
         "stream_vs_monolithic_max_rel": rel, "warm_vs_avro_max_abs": cache_err,
         "cold_equals_avro": True,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2449,6 +2486,7 @@ def cli_game(seed, tmp):
         "tmp": tmp, "train": f"{tmp}/train", "valid": f"{tmp}/valid", "res": res,
         "summary": summary, "launches": launches, "read_s": tw["read training data"],
         "train_scores": train_scores, "scoring_stream_s": sw["stream scores"],
+        "valid_scores": scored["valid"]["records"],
     }
 
 
@@ -3067,6 +3105,536 @@ def cli_legacy_diagnose(seed):
     }))
 
 
+SERVE_REQUESTS, SERVE_BATCH, SERVE_REQ_ROWS = 128, 4096, 1024  # bench.py:2736-2742, TPU scale
+SERVE_D, SERVE_NNZ, SERVE_USERS, SERVE_ITEMS, SERVE_K = 64, 24, 4096, 16, 4
+SERVE_QPS, SERVE_POLL_S = 24.0, 0.005
+SERVE_SWAP_PARITY_MAX = 1e-6  # bench.py QUALITY_BANDS game_serving_swap
+SERVE_SLO = "p99<=500ms@60s"
+#: the keys of the JAX serving driver's serve-summary.json
+SERVE_SUMMARY_KEYS = {
+    "answered", "batch_retries", "batches", "compiles", "deadline_violations",
+    "dispatch_failures", "e2e", "last_swap", "queue_depth", "registry", "requests", "rows",
+    "shed", "slo", "stages", "swap_build_compiles",
+}
+CLI_SERVE_REQUESTS, CLI_SERVE_ROWS, CLI_SERVE_BATCH = 64, 512, 4096
+CLI_SERVE_PARITY_MAX = 1e-4
+CLI_SERVE_KILL_AFTER = 16
+
+
+def serve_workload(seed):
+    """``scripts/load_harness.build_workload`` (bench ``game_serving_swap``
+    at TPU scale: 128 chunks of 4,096 rows, FE d=64 with 24 nonzeros,
+    4,096 users, 16 items, MF k=4), built by the port with the same numpy
+    calls from ``seed``. Returns (model, the 128 requests of 1,024 rows)."""
+    import numpy as np
+
+    from photon_tpu_torch.game.data import CSRMatrix, GameData, slice_game_data
+    from photon_tpu_torch.game.model import (
+        BucketCoefficients,
+        Coefficients,
+        FixedEffectModel,
+        GameModel,
+        MatrixFactorizationModel,
+        RandomEffectModel,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    n, d, nnz = SERVE_REQUESTS * SERVE_BATCH, SERVE_D, SERVE_NNZ
+    users, items = SERVE_USERS, SERVE_ITEMS
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, users, size=n)
+    item_ids = rng.integers(0, items, size=n)
+    cols = np.sort(np.argsort(rng.random((n, d)), axis=1)[:, :nnz], axis=1)
+    vals = rng.normal(size=(n, nnz)) / np.sqrt(nnz)
+    w_fe = rng.normal(size=d) * 0.5
+    w_re = rng.normal(size=(users, d)) * 0.5
+    uf = rng.normal(size=(users, SERVE_K)) * 0.3
+    vf = rng.normal(size=(items, SERVE_K)) * 0.3
+    shard = CSRMatrix(indptr=np.arange(n + 1, dtype=np.int64) * nnz,
+                      indices=cols.reshape(-1).astype(np.int32),
+                      values=vals.reshape(-1).astype(np.float64), num_cols=d)
+    data = GameData.build(labels=np.zeros(n), feature_shards={"global": shard},
+                          id_tags={"userId": np.char.add("u", ids.astype(str)),
+                                   "itemId": np.char.add("it", item_ids.astype(str))})
+    task = TaskType.LOGISTIC_REGRESSION
+    vocab = np.array(sorted(f"u{i}" for i in range(users)))
+    model = GameModel(coordinates={
+        "fixed": FixedEffectModel(coefficients=Coefficients(means=w_fe),
+                                  feature_shard="global", task=task),
+        "per-user": RandomEffectModel(
+            random_effect_type="userId", feature_shard="global", task=task, vocab=vocab,
+            buckets=(BucketCoefficients(
+                entity_ids=np.arange(users, dtype=np.int64),
+                col_index=np.tile(np.arange(d, dtype=np.int64), (users, 1)),
+                coefficients=w_re[[int(k[1:]) for k in vocab]]),),
+            num_features=d),
+        "mf": MatrixFactorizationModel(
+            row_entity_type="userId", col_entity_type="itemId",
+            row_vocab=np.array([f"u{i}" for i in range(users)]),
+            col_vocab=np.array([f"it{i}" for i in range(items)]),
+            row_factors=uf, col_factors=vf),
+    }, task=task)
+    requests = [slice_game_data(data, lo, lo + SERVE_REQ_ROWS)
+                for lo in range(0, n, SERVE_BATCH)]
+    return model, requests
+
+
+def _max_rel(got, want):
+    import numpy as np
+
+    return float(np.max(np.abs(got - want) / (1.0 + np.abs(want))))
+
+
+def serve_paced(registry, requests, seed, *, swap=None):
+    """Bench ``game_serving_swap``'s traffic loop: a fresh admission queue
+    and engine over ``registry``, the requests submitted open loop at
+    SERVE_QPS (arrival stamped at submit); at request ``swap["at"]`` the
+    swap candidate is staged inline and the loop waits for the flip.
+    Returns (futures, the post-flip indices, the swap row, the engine's
+    stats and summary, the traffic wall)."""
+    from photon_tpu_torch.serve import AdmissionQueue, ServingEngine
+
+    queue = AdmissionQueue(cap=max(64, len(requests)), default_deadline_s=120.0,
+                           max_rows=SERVE_BATCH)
+    engine = ServingEngine(registry, queue, batch_rows=SERVE_BATCH, poll_s=SERVE_POLL_S)
+    engine.start()
+    interval = 1.0 / SERVE_QPS
+    futures, post_flip, row = [], [], None
+    t0 = time.perf_counter()
+    for i, req in enumerate(requests):
+        if swap is not None and i == swap["at"]:
+            t_sw0 = time.perf_counter()
+            staged = registry.begin_swap("default", swap["model"],
+                                         expect_fingerprint=swap["fingerprint"])
+            while registry.has_pending_swap("default"):
+                if time.perf_counter() - t_sw0 > 60:
+                    fail("serve_engine: the engine never applied the flip")
+                time.sleep(0.0005)
+            row = {"swap_wall_s": time.perf_counter() - t_sw0,
+                   "build_wall_s": staged["build_wall_s"], "table_bytes": staged["table_bytes"],
+                   "in_flight_at_flip": sum(1 for f in futures if not f.done())
+                   + registry.in_flight("default")}
+        futures.append(queue.submit(req, arrival_t=time.perf_counter()))
+        if row is not None:
+            post_flip.append(i)
+        lag = t0 + (i + 1) * interval - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)
+    stats = engine.stop()
+    wall = time.perf_counter() - t0
+    return futures, post_flip, row, stats, engine.summary(), wall
+
+
+def serve_closed_loop(registry, requests):
+    """Every request submitted at once: the engine's capacity."""
+    from photon_tpu_torch.serve import AdmissionQueue, ServingEngine
+
+    queue = AdmissionQueue(cap=len(requests), default_deadline_s=120.0, max_rows=SERVE_BATCH)
+    engine = ServingEngine(registry, queue, batch_rows=SERVE_BATCH, poll_s=SERVE_POLL_S)
+    engine.start()
+    t0 = time.perf_counter()
+    futures = [queue.submit(r) for r in requests]
+    out = [f.result(timeout=120) for f in futures]
+    wall = time.perf_counter() - t0
+    stats = engine.stop()
+    return out, wall, stats
+
+
+def serve_engine(seed):
+    """Bench ``game_serving_swap`` at its TPU-scale widths, in process, on
+    the card: model A (seed + 16) registered and warmed, 128 requests of
+    1,024 rows paced at 24 qps, B (seed + 17) swapped in with its
+    fingerprint at request 64. Checks: no failed or shed request; every
+    post-flip answer within 1e-6 of a cold ``score_data`` on B; every
+    pre-flip answer equal to A's or B's; no one-time cost in the traffic
+    window (``backend_compiles`` 0); every answer within 1e-3 of the host
+    float64 path (max |Δ|/(1+|s|)). Prints e2e and stage percentiles,
+    rows/s, the swap, the allocator segments added in the window, and a
+    closed-loop leg's rows/s with its device-busy share. Returns the
+    registry (B active) and the requests for ``serve_slo``."""
+    import numpy as np
+
+    from photon_tpu_torch.game.scoring import GameScorer
+    from photon_tpu_torch.serve import ModelRegistry, model_fingerprint
+
+    t0 = time.perf_counter()
+    model_a, requests = serve_workload(seed + 16)
+    model_b, _ = serve_workload(seed + 17)
+    gen_s = time.perf_counter() - t0
+    # cold oracles and the host path BEFORE the traffic window
+    t0 = time.perf_counter()
+    cold_a = GameScorer(model_a, device="cuda", batch_rows=SERVE_BATCH)
+    cold_b = GameScorer(model_b, device="cuda", batch_rows=SERVE_BATCH)
+    exp_a = [cold_a.score_data(r) for r in requests]
+    exp_b = [cold_b.score_data(r) for r in requests]
+    host_a = [model_a.score(r) + r.offsets for r in requests]
+    host_b = [model_b.score(r) + r.offsets for r in requests]
+    oracle_s = time.perf_counter() - t0
+    del cold_a, cold_b
+    fp_b = model_fingerprint(model_b)
+
+    registry = ModelRegistry(device="cuda")
+    t0 = time.perf_counter()
+    info = registry.register("default", model_a, batch_rows=SERVE_BATCH,
+                             ell_widths={"global": SERVE_NNZ})
+    register_s = time.perf_counter() - t0
+    futures, post_flip, swap, stats, summary, wall = serve_paced(
+        registry, requests, seed, swap={"at": SERVE_REQUESTS // 2, "model": model_b,
+                                        "fingerprint": fp_b})
+    failed, parity, host_rel, answered = 0, 0.0, 0.0, 0
+    post = set(post_flip)
+    for i, fut in enumerate(futures):
+        try:
+            got = fut.result(timeout=5)
+        except Exception as e:
+            log(f"serve_engine: request {i} failed: {type(e).__name__}: {e}")
+            failed += 1
+            continue
+        answered += 1
+        on_b = np.array_equal(got, exp_b[i])
+        if not (on_b or np.array_equal(got, exp_a[i])):
+            if i not in post:
+                failed += 1
+        if i in post:
+            parity = max(parity, float(np.max(np.abs(got - exp_b[i]))))
+        host_rel = max(host_rel, _max_rel(got, host_b[i] if on_b or i in post else host_a[i]))
+    compiles = summary["compiles"]
+    if failed or stats.shed or answered != SERVE_REQUESTS:
+        fail(f"serve_engine: {failed} failed, {stats.shed} shed, {answered} answered")
+    if not post_flip or not parity <= SERVE_SWAP_PARITY_MAX:
+        fail(f"serve_engine: post-swap parity {parity} over {len(post_flip)} requests")
+    if compiles["backend_compiles"] != 0 or summary["swap_build_compiles"] != 0:
+        fail(f"serve_engine: one-time costs in the traffic window: {compiles}")
+    if not host_rel <= SCORE_PARITY_REL_MAX:
+        fail(f"serve_engine: engine vs host float64 max |Δ|/(1+|s|) = {host_rel}")
+
+    # capacity: every request at once, then again under the profiler
+    cl_out, cl_wall, cl_stats = serve_closed_loop(registry, requests)
+    for got, want in zip(cl_out, exp_b):
+        if not np.array_equal(got, want):
+            fail("serve_engine: a closed-loop answer differs from the cold scorer on B")
+    (_, prof_wall, _), busy = device_busy_share(lambda: serve_closed_loop(registry, requests))
+    rows = SERVE_REQUESTS * SERVE_REQ_ROWS
+    log(json.dumps({
+        "phase": "serve_engine",
+        "widths": {"requests": SERVE_REQUESTS, "rows_per_request": SERVE_REQ_ROWS,
+                   "batch_rows": SERVE_BATCH, "d": SERVE_D, "nnz": SERVE_NNZ,
+                   "users": SERVE_USERS, "items": SERVE_ITEMS, "k": SERVE_K},
+        "offered_qps": SERVE_QPS, "data_gen_s": gen_s, "oracle_s": oracle_s,
+        "register_s": register_s, "table_bytes": info["table_bytes"],
+        "answered": answered, "failed": failed, "shed": stats.shed,
+        "post_flip_requests": len(post_flip), "post_swap_parity_max_abs": parity,
+        "engine_vs_host_f64_max_rel": host_rel, "swap": swap,
+        "flip": summary["last_swap"], "traffic_compiles": compiles,
+        "allocator_segments_in_window": compiles["allocator_segments"],
+        "batches": stats.batches, "traffic_wall_s": wall, "rows_per_s": rows / wall,
+        "e2e": stats.e2e_percentiles(), "stages": stats.stage_percentiles(),
+        "closed_loop": {"wall_s": cl_wall, "rows_per_s": rows / cl_wall,
+                        "batches": cl_stats.batches, "e2e": cl_stats.e2e_percentiles(),
+                        "stages": cl_stats.stage_percentiles(),
+                        "profiled_rows_per_s": rows / prof_wall, "device": busy},
+    }))
+    return registry, requests, exp_b
+
+
+def serve_slo(seed, registry, requests, exp_b):
+    """The paced leg again (B serving, no swap) with telemetry on and
+    ``PHOTON_SLO_SPEC`` armed: prints ``slo.report()`` (burn rates,
+    violations by stage) and fails unless the leg meets the SLO and every
+    answer equals the cold scorer's."""
+    import os
+
+    import numpy as np
+
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import slo
+
+    slo.clear()
+    obs.reset()
+    obs.enable()
+    os.environ["PHOTON_SLO_SPEC"] = SERVE_SLO
+    try:
+        futures, _, _, stats, summary, wall = serve_paced(registry, requests, seed)
+        doc = slo.report()
+        verdict = slo.check_slo(doc)
+    finally:
+        del os.environ["PHOTON_SLO_SPEC"]
+        slo.clear()
+        obs.disable()
+        obs.reset()
+    for fut, want in zip(futures, exp_b):
+        if not np.array_equal(fut.result(timeout=5), want):
+            fail("serve_slo: an answer differs from the cold scorer on B")
+    if doc["batches"] != SERVE_REQUESTS or verdict:
+        fail(f"serve_slo: {doc['batches']} requests observed; the leg breaks {SERVE_SLO}: "
+             f"{verdict}")
+    log(json.dumps({
+        "phase": "serve_slo", "spec": doc["spec"], "objective": doc.get("objective"),
+        "batches": doc["batches"], "violations": doc["violations"],
+        "violations_by_stage": doc["violations_by_stage"], "burn_rates": doc["burn_rates"],
+        "e2e_buckets": doc["e2e"], "waterfall": doc["waterfall"],
+        "traffic_wall_s": wall, "rows_per_s": SERVE_REQUESTS * SERVE_REQ_ROWS / wall,
+        "e2e": stats.e2e_percentiles(), "serve_counters": doc["counters"],
+        "traffic_compiles": summary["compiles"],
+    }))
+
+
+def cli_serve_requests(ctx):
+    """CLI_SERVE_REQUESTS chunks of CLI_SERVE_ROWS rows cut from
+    ``cli_game``'s validation rows (cycling through them), read with the
+    feature maps the served model rebuilds from its own files."""
+    from photon_tpu_torch.cli.parsing import parse_feature_shard_config
+    from photon_tpu_torch.game.data import slice_game_data
+    from photon_tpu_torch.io.data_reader import AvroDataReader
+    from photon_tpu_torch.io.model_io import read_model_feature_keys
+
+    shards = dict(parse_feature_shard_config(CLI_SHARDS[i]) for i in (1, 3, 5))
+    maps = read_model_feature_keys(f"{ctx['tmp']}/training/best", shards)
+    valid = AvroDataReader(index_maps=maps).read([ctx["valid"]], shards,
+                                                  id_tags=("userId", "itemId"))
+    per = valid.num_samples // CLI_SERVE_ROWS
+    return [slice_game_data(valid, (i % per) * CLI_SERVE_ROWS, (i % per + 1) * CLI_SERVE_ROWS)
+            for i in range(CLI_SERVE_REQUESTS)]
+
+
+def serving_argv(out, spool_dir, *extra):
+    return ["--root-output-directory", out, "--spool-directory", spool_dir, *CLI_SHARDS,
+            "--score-batch-rows", str(CLI_SERVE_BATCH), "--precompile-nnz", f"global={FE_NNZ}",
+            "--queue-cap", "512", "--poll-s", "0.01", *extra]
+
+
+def wait_for(cond, what, timeout=600.0, alive=None):
+    t0 = time.perf_counter()
+    while not cond():
+        if alive is not None and not alive():
+            fail(f"{what}: the server stopped before it")
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{what}: timed out after {timeout:g}s")
+        time.sleep(0.01)
+
+
+def cli_serving(ctx):
+    """``photon_tpu_torch.cli.game_serving.run`` over ``cli_game``'s saved
+    models (config 5's FE width of 2^17 columns, 2^16 users, 2^13 items):
+    tenant ``default`` = ``best/`` serves a spool of 64 requests of 512
+    validation rows; after the first 32, a swap to ``models/0`` with a
+    wrong fingerprint (rolled back) and one with the right fingerprint
+    (applied); then the other 32. Checks: every request answered with
+    finite scores, the pre-swap scores within 1e-4 of ``cli_game``'s
+    scoring driver for the same uids (float32 on both sides), no one-time
+    cost in the traffic window, ``serve-summary.json`` with the JAX
+    driver's keys, and ``obs/`` with the trace, metrics, manifest and
+    series. Returns the requests and the pre-swap results for
+    ``cli_serving_kill``."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from photon_tpu_torch.cli import game_serving
+    from photon_tpu_torch.cli.parsing import parse_feature_shard_config
+    from photon_tpu_torch.io.model_io import load_game_model, read_model_feature_keys
+    from photon_tpu_torch.serve import model_fingerprint, spool
+
+    root, spool_dir = f"{ctx['tmp']}/serving", f"{ctx['tmp']}/serving-spool"
+    best, other = f"{ctx['tmp']}/training/best", f"{ctx['tmp']}/training/models/0"
+    t0 = time.perf_counter()
+    requests = cli_serve_requests(ctx)
+    read_s = time.perf_counter() - t0
+    shards = dict(parse_feature_shard_config(CLI_SHARDS[i]) for i in (1, 3, 5))
+    t0 = time.perf_counter()
+    fp_other = model_fingerprint(load_game_model(other, read_model_feature_keys(other, shards)))
+    fingerprint_s = time.perf_counter() - t0
+    half = CLI_SERVE_REQUESTS // 2
+
+    def write(seqs):
+        for s in seqs:
+            spool.write_request(spool_dir, s, requests[s - 1], deadline_s=600.0)
+
+    def answered(seqs):
+        return all(os.path.exists(spool.result_path(spool_dir, s)) for s in seqs)
+
+    result, errors = {}, []
+
+    def serve():
+        try:
+            result.update(game_serving.run(serving_argv(root, spool_dir, "--model",
+                                                        f"default={best}"), device="cuda"))
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    write(range(1, half + 1))
+    t0 = time.perf_counter()
+    server = threading.Thread(target=serve, name="cli-serving", daemon=True)
+    server.start()
+    def alive():
+        if not server.is_alive():
+            fail(f"cli_serving: the driver stopped: {errors!r}")
+        return True
+
+    wait_for(lambda: answered(range(1, half + 1)), "cli_serving: the first half", alive=alive)
+    first_half_s = time.perf_counter() - t0
+    outcomes = []
+    for fp in ("0" * 64, fp_other):
+        done = f"{spool_dir}/swap-default.done.json"
+        if os.path.exists(done):
+            os.remove(done)
+        t_sw = time.perf_counter()
+        spool.write_swap_command(spool_dir, "default", other, expect_fingerprint=fp)
+        wait_for(lambda: os.path.exists(done), "cli_serving: a swap outcome", alive=alive)
+        with open(done) as f:
+            outcomes.append(dict(json.load(f), wall_s=time.perf_counter() - t_sw))
+    t0 = time.perf_counter()
+    write(range(half + 1, CLI_SERVE_REQUESTS + 1))
+    wait_for(lambda: answered(range(1, CLI_SERVE_REQUESTS + 1)), "cli_serving: the second half",
+             alive=alive)
+    second_half_s = time.perf_counter() - t0
+    spool.request_stop(spool_dir)
+    server.join(600)
+    if errors or server.is_alive():
+        fail(f"cli_serving: the driver failed: {errors}")
+    if [o["status"] for o in outcomes] != ["rolled_back", "applied"]:
+        fail(f"cli_serving: swap outcomes {[o['status'] for o in outcomes]}")
+    results = [spool.read_result(spool.result_path(spool_dir, s))
+               for s in range(1, CLI_SERVE_REQUESTS + 1)]
+    if any("scores" not in r or not np.all(np.isfinite(r["scores"])) for r in results):
+        fail("cli_serving: a request was answered with an error or non-finite scores")
+    ref = ctx["valid_scores"]
+    err = 0.0
+    for r, req in zip(results[:half], requests[:half]):
+        want = np.array([ref[u] for u in req.uids])
+        err = max(err, float(np.max(np.abs(r["scores"] - want))))
+    if not err <= CLI_SERVE_PARITY_MAX:
+        fail(f"cli_serving: pre-swap scores vs the scoring driver max_abs_err={err}")
+    with open(f"{root}/serve-summary.json") as f:
+        summary = json.load(f)
+    if set(summary) != SERVE_SUMMARY_KEYS:
+        fail(f"cli_serving: serve-summary.json keys {sorted(summary)}")
+    if summary["answered"] != CLI_SERVE_REQUESTS or summary["shed"] or (
+            summary["compiles"]["backend_compiles"] != 0):
+        fail(f"cli_serving: summary {summary['answered']} answered, {summary['shed']} shed, "
+             f"compiles {summary['compiles']}")
+    missing = {"trace.json", "metrics.json", "manifest.jsonl", "series.jsonl"} - set(
+        os.listdir(f"{root}/obs"))
+    if missing:
+        fail(f"cli_serving: obs/ lacks {sorted(missing)}")
+    log(json.dumps({
+        "phase": "cli_serving", "requests": CLI_SERVE_REQUESTS, "rows_per_request": CLI_SERVE_ROWS,
+        "batch_rows": CLI_SERVE_BATCH, "read_requests_s": read_s,
+        "fingerprint_load_s": fingerprint_s, "first_half_s": first_half_s,
+        "second_half_s": second_half_s, "swaps": outcomes,
+        "pre_swap_vs_scoring_driver_max_abs": err, "summary": {
+            k: summary[k] for k in ("answered", "batches", "shed", "compiles", "e2e", "stages",
+                                    "last_swap", "registry", "swap_build_compiles")},
+    }))
+    return requests, results[:half]
+
+
+def cli_serving_kill(ctx, requests, reference):
+    """The crash leg of ``scripts/serve_chaos.py``: the port's driver as a
+    subprocess on the card serving ``best/``, requests written one by one;
+    SIGKILL once CLI_SERVE_KILL_AFTER are answered; the rest written to
+    the spool while it is dead; relaunched with ``--resume`` into the same
+    root.
+    Checks: every request has exactly one result file, each score equals
+    ``cli_serving``'s uninterrupted answer bit for bit, and the relaunch
+    recovered a blackbox from the dead process's flight ring."""
+    import glob
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from photon_tpu_torch.serve import spool
+
+    root, spool_dir = f"{ctx['tmp']}/serving-kill", f"{ctx['tmp']}/serving-kill-spool"
+    n = len(reference)
+    os.makedirs(spool_dir)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    env["PHOTON_OBS_FLUSH_S"] = "1"
+
+    def launch(*extra):
+        log_f = open(f"{ctx['tmp']}/serving-kill.log", "a")
+        argv = serving_argv(root, spool_dir, *extra)
+        return subprocess.Popen([sys.executable, "-m", "photon_tpu_torch.cli.game_serving",
+                                 *argv], env=env, stdout=log_f, stderr=subprocess.STDOUT)
+
+    def count():
+        return len(glob.glob(f"{spool_dir}/res-*.npz"))
+
+    def tail():
+        with open(f"{ctx['tmp']}/serving-kill.log") as f:
+            return f.read()[-3000:]
+
+    t0 = time.perf_counter()
+    proc = launch("--model", f"default={ctx['tmp']}/training/best")
+    written = 0
+    try:
+        # one request every 20 ms once the server answers; SIGKILL after
+        # CLI_SERVE_KILL_AFTER answers
+        spool.write_request(spool_dir, 1, requests[0], deadline_s=600.0)
+        written = 1
+        wait_for(lambda: count() >= 1, "cli_serving_kill: the first answer",
+                 alive=lambda: proc.poll() is None)
+        while count() < CLI_SERVE_KILL_AFTER and written < n:
+            written += 1
+            spool.write_request(spool_dir, written, requests[written - 1], deadline_s=600.0)
+            time.sleep(0.02)
+        wait_for(lambda: count() >= CLI_SERVE_KILL_AFTER,
+                 "cli_serving_kill: the answers before the kill",
+                 alive=lambda: proc.poll() is None)
+        before_kill = count()
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    if proc.returncode != -signal.SIGKILL:
+        fail(f"cli_serving_kill: the server exited {proc.returncode}, not by SIGKILL:\n{tail()}")
+    first_s = time.perf_counter() - t0
+    for s in range(written + 1, n + 1):
+        spool.write_request(spool_dir, s, requests[s - 1], deadline_s=600.0)
+    t0 = time.perf_counter()
+    proc = launch("--resume")
+    try:
+        wait_for(lambda: count() >= n and not spool.pending_requests(spool_dir),
+                 "cli_serving_kill: the relaunch's answers", alive=lambda: proc.poll() is None)
+        spool.request_stop(spool_dir)
+        proc.wait(300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+    if proc.returncode != 0:
+        fail(f"cli_serving_kill: the relaunch exited {proc.returncode}:\n{tail()}")
+    resume_s = time.perf_counter() - t0
+    names = sorted(os.path.basename(p) for p in glob.glob(f"{spool_dir}/res-*.npz"))
+    if names != [f"res-{s:06d}.npz" for s in range(1, n + 1)]:
+        fail(f"cli_serving_kill: result files {names}")
+    for s in range(1, n + 1):
+        got = spool.read_result(spool.result_path(spool_dir, s))
+        if "scores" not in got or not np.array_equal(got["scores"], reference[s - 1]["scores"]):
+            fail(f"cli_serving_kill: request {s} differs from the uninterrupted run")
+    dumps = []
+    for path in glob.glob(f"{root}/obs/blackbox-*.json"):
+        with open(path) as f:
+            doc = json.load(f)
+        if doc.get("recovered"):
+            dumps.append({"file": os.path.basename(path), "records": len(doc["records"]),
+                          "last_seq": doc["last_seq"],
+                          "last_record": (doc["records"] or [{}])[-1].get("k")})
+    if not dumps:
+        fail("cli_serving_kill: the relaunch recovered no blackbox from the dead ring")
+    log(json.dumps({
+        "phase": "cli_serving_kill", "requests": n, "answered_before_kill": before_kill,
+        "written_before_kill": written, "first_run_s": first_s, "resume_run_s": resume_s,
+        "blackboxes": dumps, "bit_equal_to_uninterrupted": True,
+    }))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3148,12 +3716,17 @@ def main() -> None:
         del train, valid, settings
         recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
         cache_launches = cli_game_cache(ctx)
-        del ctx
+        serve_requests, serve_reference = cli_serving(ctx)
+        cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
+        del ctx, serve_requests, serve_reference
     cli_game_parity(args.seed)
     cli_legacy(args.seed)
     cli_legacy_diagnose(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
         scoring_stream(args.seed, tmp)
+    registry, requests, exp_b = serve_engine(args.seed)
+    serve_slo(args.seed, registry, requests, exp_b)
+    del registry, requests, exp_b
 
     def timings(row):
         return {key: row[key] for key in (

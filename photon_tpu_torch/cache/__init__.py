@@ -28,8 +28,10 @@ falls back to the avro path with a logged warning, never to wrong rows;
 ``require`` raises instead. Fault points ``cache.open`` / ``cache.read``
 / ``cache.write`` / ``cache.replace`` inject each leg.
 
-Not carried: the JAX package's ``cache.*`` counters and lifecycle events
-(log lines here, ROADMAP A5) and per-process ingest sharding
+Counters, with the JAX package's names: ``cache.hit``, ``cache.miss``,
+``cache.stale``, ``cache.fallback`` (with lifecycle events), and the
+writer's ``cache.write_rows``, ``cache.build``, ``cache.build_bytes`` and
+``cache.build_failed``. Not carried: per-process ingest sharding
 (``PHOTON_INGEST_SHARD`` with more than one shard raises, ROADMAP A7).
 """
 from __future__ import annotations
@@ -57,6 +59,7 @@ from photon_tpu_torch.cache.writer import (
     report_build_failure,
     write_game_data,
 )
+from photon_tpu_torch import obs
 from photon_tpu_torch.game.data import GameData
 
 __all__ = [
@@ -165,6 +168,8 @@ def list_source_files(paths: Sequence[str]) -> list[str]:
 
 
 def _fallback(reason: str, detail: str) -> None:
+    obs.counter("cache.fallback")
+    obs.instant("cache.fallback", cat="lifecycle", reason=reason, error=detail)
     logger.warning("feature cache unusable (%s: %s); degrading to the avro path", reason, detail)
 
 
@@ -385,10 +390,16 @@ def resolve_reader(
             cached, state = candidate, "hit"
         except CacheStaleError as e:
             state = "stale"
+            obs.counter("cache.stale")
             _fallback("stale", str(e))
         except _DEGRADABLE as e:
             state = "corrupt"
             _fallback("open", f"{type(e).__name__}: {e}")
+    if cached is not None:
+        obs.counter("cache.hit")
+        obs.instant("cache.hit", cat="lifecycle", dir=cdir)
+    elif state == "miss" and mode != "require":
+        obs.counter("cache.miss")
     if cached is None and mode == "require":
         raise FeatureCacheRequiredError(
             f"feature cache mode require but no fresh feature cache at {cdir} "

@@ -12,8 +12,8 @@ never a readable-but-wrong one. Droppings of killed writers
 Fault points: ``cache.write`` fires per appended chunk (a fault aborts
 the build; the tmp directory never publishes) and ``cache.replace`` in
 the publish window between moving the old cache aside and renaming the
-new one in. The JAX package's ``cache.*`` counters and lifecycle events
-are log lines here (ROADMAP A5).
+new one in. A build counts ``cache.write_rows``, ``cache.build`` and
+``cache.build_bytes``; a failed one ``cache.build_failed``.
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ from photon_tpu_torch.cache.format import (
     source_file_fingerprint,
     tag_columns,
 )
+from photon_tpu_torch import obs
 from photon_tpu_torch.game.data import GameData, _ceil_pow2, slice_game_data
 from photon_tpu_torch.util import faults
 
@@ -54,6 +55,9 @@ def report_build_failure(stage: str, exc: BaseException) -> None:
     """The one way a failed opportunistic build is reported, at every
     stage (append, finalize, writer construction, read-path build); the
     run itself goes on along the avro path."""
+    obs.counter("cache.build_failed")
+    obs.instant("cache.build_failed", cat="lifecycle", stage=stage,
+                error=f"{type(exc).__name__}: {exc}")
     logger.warning(
         "feature-cache build failed during %s (%s: %s); the run continues "
         "on the avro path",
@@ -219,6 +223,7 @@ class FeatureCacheWriter:
         self._appended += 1
         self._rows += n
         self._boundaries.append(self._rows)
+        obs.counter("cache.write_rows", n)
 
     def finalize(self, index_maps: Mapping | None = None) -> str:
         """Write the vocab and index-map columns and the manifest, fsync,
@@ -307,9 +312,14 @@ class FeatureCacheWriter:
             os.fsync(f.fileno())
         self._publish()
         self._done = True
+        total = sum(c["bytes"] for c in columns.values())
+        obs.counter("cache.build")
+        obs.counter("cache.build_bytes", total)
+        obs.instant("cache.build", cat="lifecycle", dir=self.final_dir, rows=self._rows,
+                    bytes=total)
         logger.info(
             "feature cache built: %s (%d rows, %d bytes, %d columns)",
-            self.final_dir, self._rows, sum(c["bytes"] for c in columns.values()), len(columns),
+            self.final_dir, self._rows, total, len(columns),
         )
         return self.final_dir
 

@@ -5,12 +5,15 @@ modules are not ported yet.
 
 Counterpart of photon_tpu/cli/game_base.py. Reads go through the
 feature cache's front door (``photon_tpu_torch.cache.resolve_reader``,
-``--feature-cache``); the port writes no telemetry artifacts.
+``--feature-cache``). Each driver run is a telemetry session
+(:func:`run_profile`) that leaves its artifacts under ``<output>/obs/``
+(:func:`export_run_profile`).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 
 from photon_tpu_torch.cli.parsing import parse_evaluators, parse_feature_shard_config
 from photon_tpu_torch.data.index_map import IndexMap
@@ -173,3 +176,81 @@ def phase(walls: dict, name: str):
 
 def evaluators_from_args(args):
     return parse_evaluators(args.evaluators) if args.evaluators else []
+
+
+@contextlib.contextmanager
+def run_profile(out_root=None):
+    """Telemetry session of one driver run: enable the pipeline
+    (photon_tpu_torch.obs) from a clean slate on entry, and always disable
+    it and drop what it recorded on exit, so that a process embedding a
+    driver does not keep profiling unrelated work afterwards. Artifacts
+    are exported inside the session (:func:`export_run_profile`).
+
+    ``out_root`` also arms the live plane under ``<out_root>/obs/``: a
+    stale flight ring that a killed previous run left there is recovered
+    into ``blackbox-<seq>.json`` first, then the flight recorder with its
+    crash handlers and the series flusher (``PHOTON_OBS_FLUSH_S``) run for
+    the session. A run that FAILS writes a blackbox dump and best-effort
+    ``partial.*`` artifacts before the exception propagates.
+
+    ``PHOTON_OBS=0`` opts the driver out of managing the pipeline at all:
+    nothing is enabled on entry and nothing is disabled or dropped on
+    exit."""
+    from photon_tpu_torch import obs
+
+    if os.environ.get("PHOTON_OBS", "").strip() == "0":
+        yield
+        return
+    obs.enable()
+    obs.reset()
+    plane = None
+    try:
+        if out_root is not None:
+            plane = obs.live_plane(os.path.join(str(out_root), "obs"))
+        try:
+            yield
+        except BaseException as e:
+            _export_failure_artifacts(out_root, e)
+            raise
+    finally:
+        if plane is not None:
+            plane.close()
+        obs.disable()
+        obs.reset()
+
+
+def _export_failure_artifacts(out_root, exc: BaseException) -> None:
+    """The failed run's flush: a blackbox dump and partial artifacts under
+    ``<out_root>/obs/``; every step is guarded (telemetry never masks the
+    real failure)."""
+    from photon_tpu_torch import obs
+
+    if out_root is None or not obs.enabled():
+        return
+    reason = f"{type(exc).__name__}: {exc}"
+    try:
+        obs.flight.dump_blackbox(reason=reason)
+    except Exception:  # pragma: no cover - dump_blackbox already guards
+        pass
+    try:
+        obs.export_partial_artifacts(os.path.join(str(out_root), "obs"),
+                                     meta={"failed": True, "error": reason})
+    except Exception:  # pragma: no cover - the exporter already guards
+        pass
+
+
+def export_run_profile(out_root, log=None, meta=None) -> dict | None:
+    """Write this run's telemetry artifacts under ``<out_root>/obs/``: the
+    Chrome trace (https://ui.perfetto.dev), the metrics snapshot, the JSONL
+    run manifest, the memory report, the per-phase summary and, when an
+    SLO was armed or latencies observed, the SLO report. None when
+    telemetry is disabled. Call inside :func:`run_profile`."""
+    from photon_tpu_torch import obs
+
+    if not obs.enabled():
+        return None
+    paths = obs.export_artifacts(os.path.join(str(out_root), "obs"), meta=meta)
+    if log is not None:
+        log.info("run profile:\n%s", obs.summary_table())
+        log.info("telemetry artifacts: %s", paths)
+    return paths

@@ -18,8 +18,8 @@ and, only when asked for with ``--degrade-on-stream-failure`` or
 ``PHOTON_SCORE_DEGRADE=1``, for a streaming failure that the monolithic
 path does not share (logged, and recorded as ``mode: "monolithic"`` in
 the summary). Evaluators run on the rows with a finite label, on
-``device``. The summary's ``slo`` is null: the latency SLO plane is not
-ported (ROADMAP A5).
+``device``. With ``PHOTON_SLO_SPEC`` set the summary's ``slo`` holds the
+spec and its violations; the run's telemetry lands under ``obs/``.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ from photon_tpu_torch.io.model_io import (
     load_game_model,
     read_model_feature_keys,
 )
+from photon_tpu_torch.obs import slo
 from photon_tpu_torch.types import resolve_device
 from photon_tpu_torch.util import EventEmitter, PhotonLogger, faults, prepare_output_dir
 from photon_tpu_torch.util.retry import is_transient, is_transient_io
@@ -190,6 +191,7 @@ def _score_streaming(args, log, model, index_maps, shard_configs, id_tags, out_r
         result = scorer.stream(resolved.iter_chunks(chunk_rows=batch_rows), on_batch=on_batch)
         n = writer.close()
     stats = result.stats
+    tracker = slo.active()
     decoder = resolved.decoder
     log.info("streamed %d samples in %d batches of %d rows -> %d partition(s), %s decoder, "
              "%s writer", stats.samples, stats.batches, batch_rows, partitions,
@@ -211,7 +213,11 @@ def _score_streaming(args, log, model, index_maps, shard_configs, id_tags, out_r
         "batchLatency": stats.latency_percentiles(),
         "stageLatency": stats.stage_percentiles(),
         "e2eLatency": stats.e2e_percentiles(),
-        "slo": None,
+        "slo": None if tracker is None else {
+            "spec": tracker.spec.render(),
+            "violations": stats.deadline_violations,
+            "violationsByStage": dict(stats.violations_by_stage),
+        },
         "outputFiles": writer.paths(),
         "featureCache": resolved.describe(),
         "decoder": decoder["decoder"],
@@ -239,7 +245,9 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     )
     emitter = events if events is not None else EventEmitter()
     walls: dict[str, float] = {}
-    with PhotonLogger(os.path.join(out_root, "driver.log"), level=args.log_level) as log:
+    with game_base.run_profile(out_root), PhotonLogger(
+        os.path.join(out_root, "driver.log"), level=args.log_level
+    ) as log:
         emitter.emit("setup", application=args.application_name)
         # the feature maps come from the stores or the model's own
         # vocabulary, never the scoring data, so indices line up
@@ -317,6 +325,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             json.dump(
                 {"numScored": n, "evaluations": evaluations, "scoring": score_detail}, f, indent=2
             )
+        game_base.export_run_profile(out_root, log, meta={"driver": "game_scoring"})
         emitter.emit("scoring_finish", num_scored=n)
     return {"scores": scores, "evaluations": evaluations, "output": out_root,
             "scoring": score_detail, "walls": walls}

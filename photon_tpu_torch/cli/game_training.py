@@ -361,7 +361,9 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     emitter = events if events is not None else EventEmitter()
     decoders = {}
     walls: dict[str, float] = {}
-    with PhotonLogger(os.path.join(out_root, "driver.log"), level=args.log_level) as log:
+    with game_base.run_profile(out_root), PhotonLogger(
+        os.path.join(out_root, "driver.log"), level=args.log_level
+    ) as log:
         # driver-level boundary; the estimator adds the per-fit events
         emitter.emit("setup", application=args.application_name)
 
@@ -539,6 +541,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         }
         with open(os.path.join(out_root, SUMMARY_FILE), "w") as f:
             json.dump(summary, f, indent=2)
+        game_base.export_run_profile(out_root, log, meta={"driver": "game_training"})
         emitter.emit("driver_finish", num_models=len(results))
     return {
         "results": results,

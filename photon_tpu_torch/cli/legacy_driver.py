@@ -27,6 +27,7 @@ import sys
 import numpy as np
 import torch
 
+from photon_tpu_torch.cli import game_base
 from photon_tpu_torch.data.dataset import (
     DataSet,
     choose_sparse,
@@ -326,8 +327,9 @@ class LegacyDriver:
 
     def run(self) -> None:
         emitter = self.events if self.events is not None else EventEmitter()
-        with PhotonLogger(
-            os.path.join(self.args.output_directory, "driver.log"), level=self.args.log_level
+        out = self.args.output_directory
+        with game_base.run_profile(out), PhotonLogger(
+            os.path.join(out, "driver.log"), level=self.args.log_level
         ) as log:
             emitter.emit("photon_setup")
             self.preprocess()
@@ -342,6 +344,7 @@ class LegacyDriver:
                 "stages completed: %s",
                 [s.name for s in self.stage_history] + [self.stage.name],
             )
+            game_base.export_run_profile(out, log, meta={"driver": "legacy_driver"})
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -29,6 +29,7 @@ import shutil
 import struct
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Iterable, Mapping, Sequence
 
@@ -36,6 +37,7 @@ import numpy as np
 
 from photon_tpu_torch.data.index_map import IndexMap, PartitionedIndexMap
 from photon_tpu_torch.ops.cuda_build import BUILD_DIR
+from photon_tpu_torch.util import compile_watch
 
 MAGIC = b"PHIX0001"
 HEADER = struct.Struct("<8sQQQ")
@@ -125,11 +127,13 @@ def _build_native_lib() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
            *(str(NATIVE_DIR / s) for s in NATIVE_SOURCES), *CXX_LIBS]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tail = (proc.stderr or proc.stdout).strip().splitlines()[-3:]
         raise OSError(f"g++ failed (rc={proc.returncode}): " + " | ".join(tail))
     os.replace(tmp, out)
+    compile_watch.record_native_build("photon_native", time.perf_counter() - t0)
     return out
 
 

@@ -1,16 +1,20 @@
 """Block coordinate descent over GAME coordinates.
 
 Counterpart of ``run_coordinate_descent`` (photon_tpu/game/descent.py:302)
-on one device, without telemetry spans. Each trainable coordinate takes
-one ``sweep_step`` per sweep; locked coordinates are scored once and
-never trained. Every step also gives its health triple
+on one device. Each trainable coordinate takes one ``sweep_step`` per
+sweep; locked coordinates are scored once and never trained. Every step also gives its health triple
 (obs/health.sweep_health); the sweep closes with ONE host copy of all
 the triples, stacked, which is also the sweep's device barrier, so the
 per-sweep wall is honest and the health check adds no sync. The
 divergence policy then acts at the sweep boundary. Per-coordinate walls
 are host walls around the step (the L-BFGS loop already syncs once per
 iteration). With ``validation_fn`` the states are scored after every
-sweep and the best sweep's states are kept as clones.
+sweep and the best sweep's states are kept as clones. Telemetry, with the
+JAX package's names: ``descent.sweeps`` and the sweep and barrier wall
+histograms, ``health.checks`` with per-coordinate ``health.loss.<cid>`` /
+``health.gnorm.<cid>`` gauges, ``health.divergence``, and flight-ring
+records per coordinate step and per sweep (the recovered blackbox of a
+killed fit names its last sweep and coordinate).
 
 At the end of every sweep the total is summed afresh from the
 coordinates' scores, in coordinate order, as a descent that starts from
@@ -32,6 +36,7 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.game.coordinate import Coordinate
 from photon_tpu_torch.obs.health import DivergenceError, resolve_policy, sweep_health
 from photon_tpu_torch.util import faults
@@ -100,6 +105,16 @@ def _read_health(health_dev: Mapping[str, dict], total: torch.Tensor) -> dict:
     }
 
 
+def _record_health_metrics(health: Mapping[str, dict]) -> None:
+    """Mirror the sweep's host health rows into ``health.*`` telemetry
+    (no-ops while obs is disabled)."""
+    obs.counter("health.checks")
+    for cid, h in health.items():
+        obs.gauge(f"health.loss.{cid}", h["loss"])
+        obs.gauge(f"health.gnorm.{cid}", h["gnorm"])
+        obs.histogram("health.gnorm", h["gnorm"])
+
+
 def run_coordinate_descent(
     coordinates: Mapping[str, Coordinate],
     update_sequence: Sequence[str],
@@ -164,6 +179,7 @@ def run_coordinate_descent(
             if cid in halted:
                 continue
             clause = faults.fault_point("descent.coordinate")
+            obs.flight.record("coordinate", iteration=it, coordinate=cid)
             if clause is not None and clause.kind == "nan":
                 states[cid] = _poison_state_nan(states[cid])
             t0 = time.perf_counter()
@@ -192,9 +208,23 @@ def run_coordinate_descent(
             "health": health,
         }
         tracker.append(sweep_row)
+        obs.counter("descent.sweeps")
+        obs.histogram("descent.sweep_seconds", sweep_row["sweep_seconds"])
+        obs.histogram("descent.barrier_seconds", sweep_row["barrier_seconds"])
+        _record_health_metrics(health)
+        # flight-ring tap at the barrier: host values the sweep's one copy
+        # already fetched (no new sync)
+        obs.flight.record("sweep", iteration=it,
+                          sweep_seconds=round(sweep_row["sweep_seconds"], 6),
+                          barrier_seconds=round(sweep_row["barrier_seconds"], 6), health=health)
         if sweep_hook is not None:
             sweep_hook(it, sweep_row)
         for cid in [c for c, h in health.items() if not h["finite"]]:
+            obs.counter("health.divergence")
+            obs.flight.record("divergence", coordinate=cid, iteration=it, policy=on_divergence,
+                              health_row=health[cid])
+            obs.instant("health.divergence", cat="lifecycle", coordinate=cid, iteration=it,
+                        policy=on_divergence, **health[cid])
             if on_divergence == "raise":
                 raise DivergenceError(cid, it, health[cid])
             if on_divergence == "halt_coordinate":

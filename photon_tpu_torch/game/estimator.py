@@ -10,7 +10,8 @@ returned, and fixed-effect, random-effect and matrix-factorization
 coordinates, the lifecycle events of JAX's ``events=`` bus, the
 divergence policies of the health check, mid-descent checkpoints with
 resume, supervised restarts and model snapshots for warm starts. No
-streaming, mesh, precompile or telemetry.
+streaming, mesh or precompile; its telemetry is the descent's and the
+recovery loop's counters (JAX's ``fit.*`` spans are not carried).
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
 asked for.
 """

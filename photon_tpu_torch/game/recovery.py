@@ -20,20 +20,28 @@ Failure taxonomy (``classify_failure``):
     sweep callback), and descent is deterministic from states, so a
     transient corruption recovers on replay while a deterministic one
     recurs until ``max_restarts`` runs out.
+``load_shed``
+    A serving-side shed: :class:`~photon_tpu_torch.serve.admission.
+    ServeSheddingError` (``AdmissionRejected`` / ``DeadlineExceeded``).
+    The engine did what its admission policy promised under overload; a
+    restart would offer the same load to the same card. Never retried.
+``rollback``
+    A hot-swap validation failure: :class:`~photon_tpu_torch.serve.
+    registry.SwapValidationError`. The swap rolled back and the previous
+    model never stopped serving. Never retried.
 ``fatal``
     Everything else — shape and config errors, out-of-memory, a
     checkpoint corrupt beyond fallback. Never retried.
-
-The JAX package also knows the serving kinds ``load_shed`` and
-``rollback``; they belong to its serving engine, which the port does not
-have yet.
 
 ``run_with_recovery`` restarts the supervised callable up to
 ``max_restarts`` times with capped jittered-exponential backoff. The
 callable picks up its own durable progress on re-entry:
 ``GameEstimator.fit(checkpoint_dir=...)`` resumes from the newest valid
-snapshot. The JAX package counts each decision in its metrics registry;
-here each is a log line.
+snapshot. Each decision is counted, with the JAX package's names:
+``recovery.failures.<kind>`` and a ``recovery.failure`` event per
+classified failure, ``recovery.restarts`` and ``recovery.restart`` per
+restart granted, ``recovery.giveup`` when the budget runs out and
+``recovery.recovered`` when a restarted fit succeeds.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ import os
 import time
 from typing import Callable
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.obs.health import DivergenceError
 from photon_tpu_torch.util.retry import (
     RetryPolicy,
@@ -65,8 +74,18 @@ DEFAULT_RESTART_POLICY = RetryPolicy(
 
 
 def classify_failure(exc: BaseException) -> str:
-    """``"transient"`` | ``"divergent"`` | ``"fatal"`` — see the module
-    docstring."""
+    """``"transient"`` | ``"divergent"`` | ``"load_shed"`` | ``"rollback"``
+    | ``"fatal"`` — see the module docstring. Only ``transient`` and
+    ``divergent`` earn restart fuel."""
+    # deferred: the serve package pulls in the scorer, which a bare
+    # training-side import of this module does not need
+    from photon_tpu_torch.serve.admission import ServeSheddingError
+    from photon_tpu_torch.serve.registry import SwapValidationError
+
+    if isinstance(exc, ServeSheddingError):
+        return "load_shed"
+    if isinstance(exc, SwapValidationError):
+        return "rollback"
     if isinstance(exc, DivergenceError):
         return "divergent"
     if is_transient(exc) or is_transient_io(exc):
@@ -111,10 +130,16 @@ def run_with_recovery(
             result = fn()
         except Exception as e:
             kind = classify_failure(e)
-            if kind == "fatal":
-                logger.error("fit failed with a fatal error; not restarting: %s", e)
+            obs.counter(f"recovery.failures.{kind}")
+            obs.instant("recovery.failure", cat="lifecycle", label="fit", kind=kind,
+                        error=f"{type(e).__name__}: {e}", restarts_used=restarts)
+            if kind not in ("transient", "divergent"):
+                logger.error("fit failed with a %s error; not restarting: %s", kind, e)
                 raise
             if restarts >= max_restarts:
+                obs.counter("recovery.giveup")
+                obs.instant("recovery.giveup", cat="lifecycle", label="fit", kind=kind,
+                            restarts_used=restarts)
                 logger.error(
                     "fit failed (%s) after exhausting %d restart(s): %s",
                     kind, max_restarts, e,
@@ -122,6 +147,10 @@ def run_with_recovery(
                 raise
             wait = DEFAULT_RESTART_POLICY.wait_s(restarts, jitter_rng())
             restarts += 1
+            obs.counter("recovery.restarts")
+            obs.instant("recovery.restart", cat="lifecycle", label="fit", kind=kind,
+                        restart=restarts, wait_s=round(wait, 3),
+                        error=f"{type(e).__name__}: {e}")
             logger.warning(
                 "fit failed with a %s error; restart %d/%d in %.1fs: %s",
                 kind, restarts, max_restarts, wait, e,
@@ -131,5 +160,8 @@ def run_with_recovery(
             sleep(wait)
             continue
         if restarts:
+            obs.counter("recovery.recovered")
+            obs.instant("recovery.recovered", cat="lifecycle", label="fit",
+                        restarts_used=restarts)
             logger.info("fit recovered after %d restart(s)", restarts)
         return result

@@ -38,12 +38,21 @@ re-dispatches it (``BATCH_RETRY_POLICY``). Stage walls (``queue``,
 ``readback``, ``write``) and end-to-end walls go into
 :class:`StreamStats`.
 
-Not carried (each raises NotImplementedError naming itself): the latency
-SLO (``PHOTON_SLO_SPEC``), causal tracing (``PHOTON_TRACE``) and the
-transfer sanitizer (``PHOTON_SANITIZE``), ROADMAP A5 with the obs spans,
-counters and flight recorder, whose numbers stay in ``StreamStats``; and
-``precompile`` / ``aot_executables`` (ROADMAP A8: the port has no compile
-step). ``PHOTON_SCORE_DONATION`` is an XLA knob and is dropped.
+Telemetry, as in the JAX package: ``score.*`` spans (``score.stream``,
+``score.decode``, ``score.ingest``, ``score.h2d``, ``score.readback``,
+``score.write``), counters and histograms (per-stage and end-to-end
+latency), a flight-ring record per batch, memory censuses at stream start
+and end, and each batch's end-to-end wall fed to the latency SLO armed by
+``PHOTON_SLO_SPEC`` (obs/slo.py). ``PHOTON_SANITIZE=transfers`` runs the
+consumer loop with host syncs raising (util/sanitize.py); the staging
+slot's reuse wait and the read-back are the sanctioned syncs.
+
+:meth:`GameScorer.precompile` warms one batch shape: it runs a zero batch
+through every staging slot and the score program, so the first request of
+that shape allocates nothing new, and ``compile_watch`` counts any
+dispatch at a shape no warm-up covered. Causal tracing (``PHOTON_TRACE``)
+raises NotImplementedError (ROADMAP A5b). ``PHOTON_SCORE_DONATION`` is an
+XLA knob and is dropped.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.game.data import (
     GameData,
     _ceil_pow2,
@@ -71,9 +81,12 @@ from photon_tpu_torch.game.model import (
     MatrixFactorizationModel,
     RandomEffectModel,
 )
+from photon_tpu_torch.obs import slo
+from photon_tpu_torch.obs.memory import allocator_stats, record_executable
 from photon_tpu_torch.types import numpy_dtype, resolve_device
-from photon_tpu_torch.util import faults
+from photon_tpu_torch.util import compile_watch, faults
 from photon_tpu_torch.util.retry import RetryPolicy, is_transient, retry_call
+from photon_tpu_torch.util.sanitize import sanctioned_transfers, transfer_sanitizer
 
 logger = logging.getLogger(__name__)
 
@@ -94,13 +107,6 @@ BATCH_RETRY_POLICY = RetryPolicy(attempts=3, base_s=0.5, cap_s=15.0)
 #: page-locked staging slots on the card: the batch being assembled, the
 #: one being copied and the one being scored each hold one
 STAGING_SLOTS = 3
-
-#: environment overrides of the JAX scorer's obs layers, not ported
-_UNPORTED_ENV = (
-    ("PHOTON_SLO_SPEC", "ROADMAP A5: obs.slo, the latency SLO plane"),
-    ("PHOTON_TRACE", "ROADMAP A5: obs.causal, causal tracing"),
-    ("PHOTON_SANITIZE", "ROADMAP A5: the transfer sanitizer"),
-)
 
 
 def score_batch_rows(config_value: int | None = None) -> int:
@@ -196,7 +202,17 @@ class StreamStats:
     e2e_walls_s: list = dataclasses.field(default_factory=list)
     #: per-stage walls, one list per stage
     stage_walls_s: dict = dataclasses.field(default_factory=dict)
+    #: batches (or served requests) that blew the armed SLO's budget, and
+    #: the census by dominant stage (0 and empty with no SLO armed)
+    deadline_violations: int = 0
+    violations_by_stage: dict = dataclasses.field(default_factory=dict)
+    #: compile_watch delta over the whole run and over its first batch
+    compiles: dict = dataclasses.field(default_factory=dict)
+    compiles_first_batch: dict = dataclasses.field(default_factory=dict)
     wall_s: float = 0.0
+    #: requests shed instead of answered (the serving engine's queue-full,
+    #: deadline and oversize rejections); they have no end-to-end wall
+    shed: int = 0
 
     def latency_percentiles(self) -> dict:
         """p50/p95/p99 warm batch latency (batch 0 left out)."""
@@ -205,13 +221,14 @@ class StreamStats:
 
     def e2e_percentiles(self) -> dict:
         """p50/p90/p99/p99.9, mean, max and count of the end-to-end batch
-        latency, every batch."""
+        latency, every batch answered, with the count of shed requests
+        beside them."""
         walls = self.e2e_walls_s
         if not walls:
-            return {}
+            return {"count": 0, "shed": self.shed} if self.shed else {}
         arr = np.asarray(walls)
         return {**_percentiles(arr, (50, 90, 99, 99.9)), "mean": round(float(arr.mean()), 6),
-                "max": round(float(arr.max()), 6), "count": len(walls)}
+                "max": round(float(arr.max()), 6), "count": len(walls), "shed": self.shed}
 
     def stage_percentiles(self) -> dict:
         """p50/p90/p99 per stage: the latency waterfall of the summary."""
@@ -293,6 +310,11 @@ class GameScorer:
         self._ell_shards: dict[str, int] = {}
         self._dense_shards: dict[str, int] = {}
         self._params: dict = {"fe": {}, "re": {}, "mf": {}}
+        #: shape key → warm-up report of the shapes :meth:`precompile` warmed
+        self._aot: dict = {}
+        #: shape keys dispatched at least once (a key's first dispatch is
+        #: its one-time cost, as a JAX jit compiles each shape once)
+        self._seen: set = set()
         for cid, cm in model.coordinates.items():
             if isinstance(cm, FixedEffectModel):
                 w = np.asarray(cm.coefficients.means)
@@ -429,17 +451,70 @@ class GameScorer:
             )
         return batch
 
+    def _shape_key(self, host_batch: dict) -> tuple:
+        """Batch-shape signature: the row count is fixed, so only the ELL
+        widths vary."""
+        return tuple(sorted((s, b[0].shape[1]) for s, b in host_batch["ell"].items()))
+
+    def _zero_batch(self, widths: dict) -> dict:
+        """A host batch of ``batch_rows`` empty rows at the given ELL
+        widths: every entity index points at its table's zero row."""
+        b, np_dtype = self.batch_rows, numpy_dtype(self.dtype)
+        return {
+            "offsets": np.zeros(b, dtype=np_dtype),
+            "ell": {shard: (np.zeros((b, k), dtype=np.int64), np.zeros((b, k), dtype=np_dtype))
+                    for shard, k in widths.items()},
+            "dense": {shard: np.zeros((b, d + 1), dtype=np_dtype)
+                      for shard, d in self._dense_shards.items()},
+            "eidx": {s.cid: np.full(b, s.num_entities, dtype=np.int64) for s in self._random},
+            "mf": {s.cid: (np.full(b, s.num_rows, dtype=np.int64),
+                           np.full(b, s.num_cols, dtype=np.int64)) for s in self._mf},
+        }
+
     def precompile(self, ell_widths=None) -> dict:
-        raise NotImplementedError(
-            "GameScorer.precompile is not ported to photon_tpu_torch yet (ROADMAP A8: "
-            "warm-up of the sweep and score programs; the port has no compile step)"
-        )
+        """Warm one batch shape: ``ell_widths`` maps each ELL shard to the
+        nnz width to warm, snapped up to its power-of-two level (dense
+        shards and the row count are fixed). A zero batch of that shape
+        goes through every staging slot and the score program, which
+        allocates its page-locked buffers and device memory, so a request
+        of this shape later allocates nothing new. Returns a report with
+        ``wall_s``, the compile_watch delta and the key; the allocator's
+        growth is recorded as the key's footprint in the memory ledger."""
+        widths = {shard: _ceil_pow2(int((ell_widths or {}).get(shard, 1)))
+                  for shard in self._ell_shards}
+        key = tuple(sorted(widths.items()))
+        host = self._zero_batch(widths)
+        t0 = time.perf_counter()
+        mem0 = allocator_stats()
+        with compile_watch.watch() as cw, obs.span("precompile.program", cat="compile",
+                                                   program="score"):
+            slots = STAGING_SLOTS if self.device.type == "cuda" else 1
+            for _ in range(slots):
+                self._read_back(self._enqueue(self._stage(host), self.batch_rows))
+        mem1 = allocator_stats()
+        self._seen.add(key)
+        footprint = record_executable(f"score:{key}", {
+            "allocated_bytes": mem1["peak_allocated_bytes"] - mem0["allocated_bytes"],
+            "reserved_bytes": mem1["reserved_bytes"] - mem0["reserved_bytes"],
+            "segments_added": mem1["segments_allocated"] - mem0["segments_allocated"],
+        })
+        report = {"program": "score", "key": key, "wall_s": round(time.perf_counter() - t0, 4),
+                  "compiles": dict(cw), "footprint": footprint}
+        self._aot[key] = report
+        return report
 
     def aot_executables(self) -> dict:
-        raise NotImplementedError(
-            "GameScorer.aot_executables is not ported to photon_tpu_torch yet (ROADMAP A8: "
-            "warm-up of the sweep and score programs; the port has no compile step)"
-        )
+        """Shape key → warm-up report of every shape :meth:`precompile`
+        warmed; a hot-swap candidate warms the same keys."""
+        return self._aot
+
+    def _dispatch(self, batch_dev: dict, key: tuple, rows: int):
+        """:meth:`_enqueue`, counting a first dispatch at a shape key that
+        no warm-up covered (``compile_watch``'s ``cold_dispatches``)."""
+        if key not in self._seen:
+            self._seen.add(key)
+            compile_watch.record_cold_dispatch()
+        return self._enqueue(batch_dev, rows)
 
     # -- host → device ------------------------------------------------------
 
@@ -464,7 +539,8 @@ class GameScorer:
         self._slot = (slot + 1) % STAGING_SLOTS
         copied = self._copied[slot]
         if copied is not None:
-            copied.synchronize()  # the last copy out of this slot is done
+            with sanctioned_transfers("staging slot reuse: the slot's last copy must land"):
+                copied.synchronize()  # the last copy out of this slot is done
 
         def fill(path, a):
             buf = self._pinned_buffer(slot, path, a)
@@ -500,7 +576,8 @@ class GameScorer:
     def _read_back(enqueued) -> np.ndarray:
         out, event = enqueued
         if event is not None:
-            event.synchronize()  # the scores are in the host buffer now
+            with sanctioned_transfers("score read-back: the one D2H of a batch"):
+                event.synchronize()  # the scores are in the host buffer now
         return out.numpy().astype(np.float64)
 
     # -- streaming pipeline -------------------------------------------------
@@ -528,14 +605,21 @@ class GameScorer:
         try:
             while not stop.is_set():
                 t_pull = time.perf_counter()
-                # inside the hand-off: a decode fault reaches the consumer
-                faults.fault_point("scoring.chunk")
-                chunk = next(chunk_iter, _DONE)
+                with obs.span("score.decode"):
+                    # inside the hand-off: a decode fault reaches the consumer
+                    faults.fault_point("scoring.chunk")
+                    chunk = next(chunk_iter, _DONE)
                 t_decoded = time.perf_counter()
                 if chunk is _DONE:
                     put(_DONE)
                     return
-                item = _ChunkItem(chunk=chunk, birth_t=t_pull, decode_s=t_decoded - t_pull,
+                # birth: a load source's scheduled arrival (``slo_arrival_t``,
+                # perf_counter timebase) wins, so queueing counts; the decode
+                # stage is clipped to the wall after birth
+                arrival = getattr(chunk, "slo_arrival_t", None)
+                birth = t_pull if arrival is None else float(arrival)
+                item = _ChunkItem(chunk=chunk, birth_t=birth,
+                                  decode_s=max(0.0, t_decoded - max(t_pull, birth)),
                                   decoded_t=t_decoded)
                 with staged.lock:
                     staged.value += 1
@@ -560,12 +644,14 @@ class GameScorer:
                 try:  # it may have put and exited between the two checks
                     return q.get_nowait()
                 except queue.Empty:
+                    obs.counter("score.producer_deaths")
                     raise ProducerDiedError(
                         "score-decode producer thread died without reporting a result "
                         "or an error; the stream cannot make progress"
                     ) from None
             waited += poll
             if self.watchdog_s and waited >= self.watchdog_s:
+                obs.counter("score.stream_stalls")
                 raise StreamStallError(
                     f"score-decode producer produced nothing for {waited:.0f}s (watchdog "
                     f"PHOTON_STREAM_WATCHDOG_S={self.watchdog_s:g}); treating the stream "
@@ -582,18 +668,17 @@ class GameScorer:
         rows). ``on_batch(chunk, scores)`` is called in input order as each
         batch's scores arrive (float64, padding dropped); the result holds
         them concatenated."""
-        for var, item in _UNPORTED_ENV:
-            value = os.environ.get(var, "").strip()
-            if value not in ("", "0"):
-                raise NotImplementedError(
-                    f"{var}={value!r} is not ported to photon_tpu_torch yet ({item})"
-                )
+        obs.refuse_unported_env(("PHOTON_TRACE",))
+        # the SLO armed by PHOTON_SLO_SPEC (a no-op when unset, or when one
+        # was installed programmatically)
+        slo.ensure_from_env()
         stats = StreamStats()
         collected: list[np.ndarray] = []
         q: queue.Queue = queue.Queue(maxsize=MAX_STAGED_CHUNKS - 1)
         stop = threading.Event()
         staged = _StageCounter()
         t_start = time.perf_counter()
+        cw_start = compile_watch.snapshot()
         producer = threading.Thread(
             target=self._produce, args=(iter(chunks), q, stats, staged, stop),
             name="score-decode", daemon=True,
@@ -606,81 +691,120 @@ class GameScorer:
             # the double-buffer hold: this batch waited for the next one
             # to be enqueued before its read-back
             stages["pipeline"] = t_r0 - t_enqueued
-            scores = self._read_back(enqueued)
+            with obs.span("score.readback", rows=chunk.num_samples):
+                obs.memory.count_d2h(enqueued[0].nbytes)
+                scores = self._read_back(enqueued)
             stages["readback"] = time.perf_counter() - t_r0
-            stats.batch_walls_s.append(time.perf_counter() - t_dispatch)
+            wall = time.perf_counter() - t_dispatch
+            if not stats.batch_walls_s:
+                stats.compiles_first_batch = compile_watch.delta(cw_start)
+            stats.batch_walls_s.append(wall)
             stats.batches += 1
             stats.samples += chunk.num_samples
+            obs.counter("score.batches")
+            obs.counter("score.samples", chunk.num_samples)
+            obs.histogram("score.batch_seconds", wall)
             collected.append(scores)
             if on_batch is not None:
                 t_w0 = time.perf_counter()
-                on_batch(chunk, scores)
+                with obs.span("score.write", rows=chunk.num_samples):
+                    on_batch(chunk, scores)
                 stages["write"] = time.perf_counter() - t_w0
-            stats.e2e_walls_s.append(time.perf_counter() - item.birth_t)
+            e2e = time.perf_counter() - item.birth_t
+            stats.e2e_walls_s.append(e2e)
             for stage, sec in stages.items():
                 stats.stage_walls_s.setdefault(stage, []).append(sec)
-
-        producer.start()
-        pending = None
-        failure: BaseException | None = None
-        try:
-            while True:
-                item = self._next_item(q, producer)
-                if isinstance(item, _Failure):
-                    failure = item.exc
-                    break
-                if item is _DONE:
-                    break
-                with staged.lock:
-                    staged.value -= 1
-                chunk = item.chunk
-                t_pickup = time.perf_counter()
-                stages = {"decode": item.decode_s, "queue": t_pickup - item.decoded_t}
-                host_batch = self._host_batch(chunk)
-                stats.padded_rows += self.batch_rows - chunk.num_samples
-                stages["assemble"] = time.perf_counter() - t_pickup
-                tries = 0
-                h2d = [0.0]
-
-                def run_batch(host_batch=host_batch, rows=chunk.num_samples, h2d=h2d):
-                    nonlocal tries
-                    tries += 1
-                    faults.fault_point("scoring.batch")
-                    t_h0 = time.perf_counter()
-                    batch_dev = self._stage(host_batch)
-                    h2d[0] += time.perf_counter() - t_h0
-                    return self._enqueue(batch_dev, rows)
-
-                t_dispatch = time.perf_counter()
-                enqueued = retry_call(
-                    run_batch, policy=BATCH_RETRY_POLICY, classify=is_transient,
-                    label="score_batch",
+                obs.histogram(f"score.stage_seconds.{stage}", sec)
+            obs.histogram("score.e2e_seconds", e2e)
+            dominant = slo.observe_batch(e2e, stages)
+            if dominant is not None:
+                stats.deadline_violations += 1
+                stats.violations_by_stage[dominant] = (
+                    stats.violations_by_stage.get(dominant, 0) + 1
                 )
-                stages["h2d"] = h2d[0]
-                stages["dispatch"] = time.perf_counter() - t_dispatch - h2d[0]
-                stats.batch_retries += tries - 1
-                # double buffer: batch i is read back only once batch i+1
-                # is enqueued
-                if pending is not None:
+            obs.flight.record("score_batch", batch=stats.batches, rows=chunk.num_samples,
+                              wall_s=round(wall, 6), e2e_s=round(e2e, 6),
+                              violation_stage=dominant)
+
+        with obs.span("score.stream") as root, transfer_sanitizer("score.stream", self.device):
+            obs.memory.census("stream_start")
+            producer.start()
+            pending = None
+            failure: BaseException | None = None
+            try:
+                while True:
+                    item = self._next_item(q, producer)
+                    if isinstance(item, _Failure):
+                        failure = item.exc
+                        break
+                    if item is _DONE:
+                        break
+                    with staged.lock:
+                        staged.value -= 1
+                    chunk = item.chunk
+                    t_pickup = time.perf_counter()
+                    stages = {"decode": item.decode_s, "queue": t_pickup - item.decoded_t}
+                    if stats.batches == 0 and pending is None:
+                        prov = getattr(chunk, "provenance", None)
+                        if prov:
+                            root.set(ingest=prov.get("source"))
+                    with obs.span("score.ingest", rows=chunk.num_samples):
+                        host_batch = self._host_batch(chunk)
+                        key = self._shape_key(host_batch)
+                        stats.padded_rows += self.batch_rows - chunk.num_samples
+                        obs.counter("score.padded_rows", self.batch_rows - chunk.num_samples)
+                    stages["assemble"] = time.perf_counter() - t_pickup
+                    tries = 0
+                    h2d = [0.0]
+
+                    def run_batch(host_batch=host_batch, key=key, rows=chunk.num_samples,
+                                  h2d=h2d):
+                        nonlocal tries
+                        tries += 1
+                        faults.fault_point("scoring.batch")
+                        t_h0 = time.perf_counter()
+                        with obs.span("score.h2d"):
+                            batch_dev = self._stage(host_batch)
+                            obs.memory.count_h2d(obs.memory.tree_device_bytes(batch_dev))
+                        h2d[0] += time.perf_counter() - t_h0
+                        return self._dispatch(batch_dev, key, rows)
+
+                    t_dispatch = time.perf_counter()
+                    enqueued = retry_call(
+                        run_batch, policy=BATCH_RETRY_POLICY, classify=is_transient,
+                        label="score_batch",
+                    )
+                    stages["h2d"] = h2d[0]
+                    stages["dispatch"] = time.perf_counter() - t_dispatch - h2d[0]
+                    if tries > 1:
+                        stats.batch_retries += tries - 1
+                        obs.counter("score.batch_retries", tries - 1)
+                    # double buffer: batch i is read back only once batch
+                    # i+1 is enqueued
+                    if pending is not None:
+                        finish(pending)
+                    pending = (enqueued, item, t_dispatch, stages, time.perf_counter())
+                if pending is not None and failure is None:
                     finish(pending)
-                pending = (enqueued, item, t_dispatch, stages, time.perf_counter())
-            if pending is not None and failure is None:
-                finish(pending)
-        finally:
-            # a consumer-side failure must not leave the producer blocked
-            # on a full queue holding decoded chunks: signal, drain, reap
-            stop.set()
-            while True:
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    break
-            producer.join(timeout=5.0)
-            if producer.is_alive():
-                logger.warning("score-decode producer still draining after 5 s; detaching")
-        if failure is not None:
-            raise failure
-        stats.wall_s = time.perf_counter() - t_start
+            finally:
+                # a consumer-side failure must not leave the producer
+                # blocked on a full queue holding decoded chunks: signal,
+                # drain, reap
+                stop.set()
+                while True:
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
+                producer.join(timeout=5.0)
+                if producer.is_alive():
+                    logger.warning("score-decode producer still draining after 5 s; detaching")
+            if failure is not None:
+                raise failure
+            stats.compiles = compile_watch.delta(cw_start)
+            stats.wall_s = time.perf_counter() - t_start
+            root.set(batches=stats.batches, samples=stats.samples)
+            obs.memory.census("stream_end")
         scores = np.concatenate(collected) if collected else np.zeros(0)
         return StreamResult(scores=scores, stats=stats)
 

@@ -1,4 +1,224 @@
-"""Training health (``obs.health``): the divergence monitor of the
-descent loop. Counterpart of the health module of photon_tpu/obs; the
-rest of that package (spans, metrics, the flight recorder) is not
-ported yet."""
+"""Runtime telemetry: spans, metrics, exporters, the live plane, health.
+
+Counterpart of photon_tpu/obs. The module-level functions work on ONE
+process-global pipeline (a :class:`Tracer` and a :class:`MetricsRegistry`)
+behind one enable switch, so instrumentation sites stay one-liners::
+
+    from photon_tpu_torch import obs
+
+    obs.enable()
+    with obs.span("fit", grid=3):
+        ...
+    obs.write_chrome_trace("run.trace.json")
+
+- :mod:`.tracer`: nestable, thread-safe spans; each recorded span enters
+  ``torch.profiler.record_function``, so host spans line up with device
+  work in a ``torch.profiler`` trace;
+- :mod:`.metrics`: counters, gauges and log-bucket histograms;
+- :mod:`.export`: Chrome trace-event JSON, the metrics snapshot, the JSONL
+  run manifest, partial artifacts after a failure, summary tables;
+- :mod:`.memory`: the caching allocator's censuses and the transfer bill;
+- :mod:`.slo`: latency objectives, burn rates, stage attribution;
+- :mod:`.health`: the divergence monitor of the descent loop.
+
+The live half, composed per run by :class:`LiveTelemetryPlane`:
+:mod:`.flight` (the crash-surviving mmap ring, blackbox dumps, stale-ring
+recovery after a SIGKILL) and :mod:`.series` (periodic ``series.jsonl``
+rows). The JAX package's HTTP endpoints (``PHOTON_OBS_HTTP_PORT``), fleet
+plane (``PHOTON_OBS_FLEET``) and causal tracing (``PHOTON_TRACE``) are not
+ported (ROADMAP A5b); setting one raises NotImplementedError.
+
+Telemetry is DISABLED by default (``PHOTON_OBS=1`` enables it at import,
+or call :func:`enable`). A disabled span still measures its wall but
+records nothing and takes no lock; no mode of telemetry launches device
+work or synchronizes with the card.
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+from photon_tpu_torch.obs import flight, health, memory, series, slo
+from photon_tpu_torch.obs.export import (
+    chrome_trace,
+    export_artifacts,
+    export_partial_artifacts,
+    histogram_summary,
+    phase_summary,
+    summary_table,
+    write_chrome_trace,
+    write_memory_report,
+    write_metrics,
+    write_run_manifest,
+)
+from photon_tpu_torch.obs.metrics import MetricsRegistry
+from photon_tpu_torch.obs.tracer import Span, Tracer
+
+__all__ = [
+    "LiveTelemetryPlane",
+    "MetricsRegistry",
+    "Span",
+    "Tracer",
+    "chrome_trace",
+    "counter",
+    "disable",
+    "enable",
+    "enabled",
+    "export_artifacts",
+    "export_partial_artifacts",
+    "flight",
+    "gauge",
+    "get_registry",
+    "get_tracer",
+    "health",
+    "histogram",
+    "histogram_summary",
+    "instant",
+    "live_plane",
+    "memory",
+    "phase_summary",
+    "refuse_unported_env",
+    "reset",
+    "series",
+    "slo",
+    "span",
+    "summary_table",
+    "write_chrome_trace",
+    "write_memory_report",
+    "write_metrics",
+    "write_run_manifest",
+]
+
+logger = logging.getLogger(__name__)
+
+_tracer = Tracer(enabled=os.environ.get("PHOTON_OBS", "") == "1")
+_registry = MetricsRegistry()
+
+#: environment switches of JAX telemetry layers the port does not carry
+_UNPORTED_ENV = (
+    ("PHOTON_TRACE", "ROADMAP A5b: obs.causal, causal tracing", ("", "0")),
+    ("PHOTON_OBS_HTTP_PORT", "ROADMAP A5b: obs.http, the live endpoints", ("",)),
+    ("PHOTON_OBS_FLEET", "ROADMAP A5b: obs.fleet, the cross-process plane", ("", "0")),
+)
+
+
+def refuse_unported_env(names=None) -> None:
+    """Raise NotImplementedError for a set switch of an unported layer
+    (``PHOTON_TRACE``, ``PHOTON_OBS_HTTP_PORT``, ``PHOTON_OBS_FLEET=1``);
+    ``names`` limits the check to those variables."""
+    for var, item, off in _UNPORTED_ENV:
+        if names is not None and var not in names:
+            continue
+        value = os.environ.get(var, "").strip()
+        if value not in off:
+            raise NotImplementedError(
+                f"{var}={value!r} is not ported to photon_tpu_torch yet ({item})"
+            )
+
+
+def get_tracer() -> Tracer:
+    """The process-global default tracer."""
+    return _tracer
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-global default metrics registry."""
+    return _registry
+
+
+def enabled() -> bool:
+    return _tracer.enabled
+
+
+def enable() -> None:
+    """Turn the global telemetry pipeline on."""
+    _tracer.enabled = True
+
+
+def disable() -> None:
+    _tracer.enabled = False
+
+
+def reset() -> None:
+    """Drop every recorded span, zero the registry, and clear the memory
+    ledger's and the SLO tracker's per-run state (the artifact boundary;
+    warm-up footprints and an armed SLO spec survive)."""
+    _tracer.clear()
+    _registry.clear()
+    memory.get_ledger().reset_run_state()
+    slo.reset_run_state()
+
+
+def span(name: str, cat: str = "phase", **args) -> Span:
+    """A span on the default tracer: always measures, records only when
+    telemetry is enabled."""
+    return _tracer.span(name, cat=cat, **args)
+
+
+def instant(name: str, cat: str = "event", **args) -> None:
+    """Record an instant (zero-duration) event when enabled."""
+    _tracer.instant(name, cat=cat, **args)
+
+
+def counter(name: str, value: float = 1.0) -> None:
+    """Bump a counter on the default registry (no-op while disabled)."""
+    if _tracer.enabled:
+        _registry.counter(name, value)
+
+
+def gauge(name: str, value: float) -> None:
+    """Set a gauge on the default registry (no-op while disabled)."""
+    if _tracer.enabled:
+        _registry.gauge(name, value)
+
+
+def histogram(name: str, value: float) -> None:
+    """Observe a histogram sample on the default registry (no-op while
+    disabled)."""
+    if _tracer.enabled:
+        _registry.histogram(name, value)
+
+
+class LiveTelemetryPlane:
+    """The always-on half of telemetry for ONE run directory: stale-ring
+    recovery (what a killed previous run was doing, as ``blackbox-
+    <seq>.json``), the mmap flight recorder with its crash handlers, and
+    the series flusher, started together and torn down together (LIFO,
+    each step guarded: telemetry never fails or outlives the run).
+    ``PHOTON_OBS_RING_MB=0`` and ``PHOTON_OBS_FLUSH_S=0`` turn pieces off.
+    """
+
+    def __init__(self, directory):
+        self.directory = str(directory)
+        self.recovered_blackbox: str | None = None
+        self.recorder = None
+        self.flusher = None
+
+    def start(self) -> "LiveTelemetryPlane":
+        """Arm the plane. If a step fails (a bad knob), every piece armed
+        so far is torn down before the error propagates."""
+        try:
+            refuse_unported_env(("PHOTON_OBS_HTTP_PORT", "PHOTON_OBS_FLEET"))
+            os.makedirs(self.directory, exist_ok=True)
+            self.recovered_blackbox = flight.recover_stale(self.directory)
+            self.recorder = flight.enable(self.directory)
+            if self.recorder is not None:
+                flight.install_crash_handler()
+            self.flusher = series.start_flusher(os.path.join(self.directory, "series.jsonl"))
+        except BaseException:
+            self.close()
+            raise
+        return self
+
+    def close(self) -> None:
+        for step in (series.stop_flusher, flight.uninstall_crash_handler, flight.disable):
+            try:
+                step()
+            except Exception as e:  # pragma: no cover - defensive
+                logger.warning("telemetry-plane teardown step %s failed: %s: %s",
+                               step.__name__, type(e).__name__, e)
+
+
+def live_plane(directory) -> LiveTelemetryPlane:
+    """Start a :class:`LiveTelemetryPlane` under ``directory``."""
+    return LiveTelemetryPlane(directory).start()

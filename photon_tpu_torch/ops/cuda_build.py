@@ -17,6 +17,8 @@ import threading
 import time
 from pathlib import Path
 
+from photon_tpu_torch.util import compile_watch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "photon_tpu_torch"
 NVCC_FLAGS = (
@@ -66,6 +68,7 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
+    compile_watch.record_native_build(name, build_seconds[name])
     return out
 
 

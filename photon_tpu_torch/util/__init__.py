@@ -1,9 +1,10 @@
 """Cross-cutting utilities (reference photon-lib/photon-client ``util/``
 and ``event/`` packages): block timing, persistent job logging, lifecycle
-events, date-partitioned input resolution, the fault plan (``faults``)
-and transient-failure retry (``retry``). Copies of the host-only modules
-of photon_tpu/util; its profiler, compile and sanitizer helpers are not
-carried over."""
+events, date-partitioned input resolution, the fault plan (``faults``),
+transient-failure retry (``retry``), the one-time-cost counters
+(``compile_watch``) and the sync sanitizer (``sanitize``). Counterparts of
+photon_tpu/util; its profiler, dispatch counter and ``force`` helpers are
+not carried over."""
 from photon_tpu_torch.util.dates import DateRange, DaysRange, resolve_date_range_paths
 from photon_tpu_torch.util.events import Event, EventEmitter, EventListener
 from photon_tpu_torch.util.io_utils import prepare_output_dir

@@ -30,7 +30,12 @@ outside its error hand-off), ``scoring.chunk`` (each chunk pull, inside
 it) and ``scoring.batch`` (each batch attempt, inside its retry); and the
 feature cache's ``cache.open``, ``cache.read`` (each replayed chunk),
 ``cache.write`` (each appended chunk) and ``cache.replace`` (the publish
-window between moving the old cache aside and renaming the new one in).
+window between moving the old cache aside and renaming the new one in);
+and the serving engine's ``serve.admit`` (inside
+``AdmissionQueue.submit``), ``serve.dispatch`` (each micro-batch attempt,
+inside its retry), ``serve.swap`` (inside the registry's locked flip: a
+``stall`` holds the flip and the dispatch loop) and ``serve.evict`` (as a
+drained old model's last lease retires its tables).
 
 Fault plan
 ----------

@@ -14,8 +14,11 @@ only and cannot touch numerics.
 
 ``retry_call`` runs one call under a policy; the Avro reader (per part
 file, ``io.decode``), the score shard flush (``io.shard_flush``) and the
-streaming scorer's per-batch requeue (``scoring.batch``) use it. The JAX
-package's ``retry.*`` counters are log lines here (ROADMAP A5).
+streaming scorer's per-batch requeue (``scoring.batch``) and the serving
+engine's (``serve.dispatch``) use it. Every transient failure bumps the
+``retry.attempts`` counter (and ``retry.attempts.<label>``); running out
+of attempts bumps ``retry.exhausted`` (and ``retry.exhausted.<label>``),
+the JAX package's names.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import logging
 import random
 import time
 from typing import Callable
+
+from photon_tpu_torch import obs
 
 __all__ = [
     "IO_RETRY_POLICY",
@@ -144,6 +149,9 @@ def retry_call(
             if not classify(e):
                 raise
             last = e
+            obs.counter("retry.attempts")
+            if label:
+                obs.counter(f"retry.attempts.{label}")
             if attempt + 1 < policy.attempts:
                 wait = policy.wait_s(attempt, _jitter_rng)
                 logger.warning(
@@ -153,4 +161,7 @@ def retry_call(
                 )
                 sleep(wait)
     logger.warning("transient failure%s: %d attempts exhausted", where, policy.attempts)
+    obs.counter("retry.exhausted")
+    if label:
+        obs.counter(f"retry.exhausted.{label}")
     raise last

@@ -381,8 +381,11 @@ def test_training_summary_and_artifacts_equal(trained):
     for sub in ("best", "models/0", "models/1"):
         _assert_models_close(out / "jax" / sub, out / "port" / sub)
     assert (out / "port" / "driver.log").is_file()
-    assert sorted(os.listdir(out / "port")) == ["best", "driver.log", "models",
-                                                 "training-summary.json"]
+    # both drivers leave their telemetry under obs/
+    assert sorted(os.listdir(out / "port")) == sorted(os.listdir(out / "jax")) == [
+        "best", "driver.log", "models", "obs", "training-summary.json"]
+    assert {"trace.json", "metrics.json", "manifest.jsonl", "series.jsonl"} <= set(
+        os.listdir(out / "port" / "obs"))
 
 
 def test_lifecycle_events_equal(trained):

@@ -28,6 +28,7 @@ from photon_tpu.game.recovery import classify_failure as j_classify
 from photon_tpu.obs.health import DivergenceError as JDivergenceError
 from photon_tpu.util import faults as jfaults
 from photon_tpu.util import retry as jretry
+from photon_tpu_torch import obs
 from photon_tpu_torch.game import data as tdata
 from photon_tpu_torch.game.recovery import (
     classify_failure,
@@ -181,13 +182,24 @@ def test_run_with_recovery_restarts_transients_and_counts(caplog):
             raise InjectedFault("UNAVAILABLE: flake")
         return "ok"
 
-    with caplog.at_level(logging.INFO):
-        out = run_with_recovery(flaky, max_restarts=2, sleep=waits.append,
-                                on_restart=lambda i, e: restarts.append((i, type(e).__name__)))
+    obs.reset()
+    obs.enable()
+    try:
+        with caplog.at_level(logging.INFO):
+            out = run_with_recovery(
+                flaky, max_restarts=2, sleep=waits.append,
+                on_restart=lambda i, e: restarts.append((i, type(e).__name__)))
+        counters = obs.get_registry().snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
     assert out == "ok" and len(calls) == 3
     assert restarts == [(1, "InjectedFault"), (2, "InjectedFault")]
     assert len(waits) == 2 and 1.8 <= waits[0] <= 2.2 and 3.6 <= waits[1] <= 4.4
     assert "restart 1/2" in caplog.text and "recovered after 2 restart(s)" in caplog.text
+    # the decisions are counted with the JAX package's names
+    assert counters == {"recovery.failures.transient": 2, "recovery.restarts": 2,
+                        "recovery.recovered": 1}
 
 
 def test_run_with_recovery_fatal_and_exhausted(caplog):
@@ -206,10 +218,19 @@ def test_run_with_recovery_fatal_and_exhausted(caplog):
         calls.append(1)
         raise DivergenceError("c", 0, {"loss": float("nan")})
 
-    with pytest.raises(DivergenceError):
-        run_with_recovery(diverging, max_restarts=2, sleep=lambda s: None)
+    obs.reset()
+    obs.enable()
+    try:
+        with pytest.raises(DivergenceError):
+            run_with_recovery(diverging, max_restarts=2, sleep=lambda s: None)
+        counters = obs.get_registry().snapshot()["counters"]
+    finally:
+        obs.disable()
+        obs.reset()
     assert len(calls) == 3  # two restarts spent, then the budget is out
     assert "after exhausting 2 restart(s)" in caplog.text
+    assert counters == {"recovery.failures.divergent": 3, "recovery.restarts": 2,
+                        "recovery.giveup": 1}
     with pytest.raises(ValueError):
         run_with_recovery(lambda: None, max_restarts=-1)
 

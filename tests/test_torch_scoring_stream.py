@@ -272,17 +272,68 @@ def test_watchdog_and_unported_knobs(models, monkeypatch):
     with pytest.raises(ValueError):
         _scorer(tmodel, 64)
     monkeypatch.delenv("PHOTON_STREAM_WATCHDOG_S")
+    td = _port_data(_make_data(n=150))
     scorer = _scorer(tmodel, 64)
-    for method in (scorer.precompile, scorer.aot_executables):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            method()
-    for var, value in (("PHOTON_SLO_SPEC", "p99<=1s@60s"), ("PHOTON_TRACE", "1"),
-                       ("PHOTON_SANITIZE", "transfers")):
-        monkeypatch.setenv(var, value)
-        with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A5"):
-            scorer.stream(iter(()))
-        monkeypatch.setenv(var, "0")
+    clean = scorer.score_data(td)
+    # precompile warms one shape key (widths snapped to a power of two,
+    # floor 8, as JAX's); a swap candidate reads the keys back
+    report = scorer.precompile({"g": 5})
+    assert report["key"] == (("g", 8),) and report["wall_s"] >= 0
+    assert set(scorer.aot_executables()) == {(("g", 8),)}
+    assert report["compiles"]["backend_compiles"] == 0
+    # the SLO armed by the environment reports on what the stream saw
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import slo
+
+    slo.clear()
+    obs.reset()
+    obs.enable()
+    try:
+        monkeypatch.setenv("PHOTON_SLO_SPEC", "p99<=1s@60s")
+        res = scorer.stream(_chunks(td, 64))
+        doc = slo.report()
+        assert doc["armed"] and doc["spec"]["spec"] == "p99<=1s@60s"
+        assert doc["batches"] == res.stats.batches == 3 and doc["observed"]
+        assert doc["objective"]["ok"] and res.stats.deadline_violations == 0
+        assert set(doc["waterfall"]) == set(res.stats.stage_walls_s)
+        np.testing.assert_array_equal(res.scores, clean)
+    finally:
+        slo.clear()
+        obs.disable()
+        obs.reset()
+    # the sanitizer guards CUDA regions only: the CPU path passes unchanged
+    monkeypatch.setenv("PHOTON_SANITIZE", "transfers")
+    np.testing.assert_array_equal(scorer.score_data(td), clean)
+    # causal tracing stays unported and says where it is planned
+    monkeypatch.setenv("PHOTON_TRACE", "1")
+    with pytest.raises(NotImplementedError, match="PHOTON_TRACE.*ROADMAP A5b"):
         scorer.stream(iter(()))
+    monkeypatch.setenv("PHOTON_TRACE", "0")
+    scorer.stream(iter(()))
+
+
+@pytest.mark.cuda
+def test_sanitizer_trips_on_an_unsanctioned_sync_on_the_card(models, monkeypatch):
+    """On the card, PHOTON_SANITIZE=transfers turns a host sync inside the
+    guarded region into an error, the scorer's own (sanctioned) syncs
+    pass, and the process-global mode is restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the chip: pytest -m cuda")
+    from photon_tpu_torch.util.sanitize import sanctioned_transfers, transfer_sanitizer
+
+    _, tmodel = models["index-mapped"]
+    td = _port_data(_make_data(n=150))
+    scorer = GameScorer(tmodel, device="cuda", dtype=torch.float32, batch_rows=64)
+    clean = scorer.score_data(td)
+    monkeypatch.setenv("PHOTON_SANITIZE", "transfers")
+    np.testing.assert_array_equal(scorer.score_data(td), clean)
+    x = torch.ones(4, device="cuda")
+    with transfer_sanitizer("test", "cuda"):
+        with pytest.raises(RuntimeError):
+            x.sum().item()
+        with sanctioned_transfers("the test's sanctioned read"):
+            assert x.sum().item() == 4.0
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 # --- the I/O fault points ---------------------------------------------------------
