@@ -132,7 +132,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``cli_serving_kill`` (the driver as a subprocess SIGKILLed after 16
    answers and relaunched with ``--resume``: one result per request, each
    equal to the uninterrupted run's bit for bit, a blackbox recovered);
-11. print one ``{"kernels": [...]}`` line and, last, the ok line.
+11. out-of-core streaming training, which launches no hand-written
+   kernel: ``daily_retrain`` (bench ``glmix_daily_retrain`` at its full
+   scale: 500,000 rows over 20,000 Zipf users at d=32, LINEAR_REGRESSION
+   with L2 λ=1 and 6 L-BFGS iterations, 3 sweeps, float32, 8,192-row
+   chunks: a cold streaming fit with a model snapshot, a warm delta day
+   of 62,500 rows over 1,250 users from it, a second cold streaming fit
+   and the materialized fit of day 0. Every bucket solved in one chunk
+   equals the materialized model bit for bit; every other bucket equals,
+   bit for bit, a replay at the stream's geometry from the resident
+   bucket (``solve_lanes`` on its zero-padded entity-lane slices, each
+   sweep warm-started from the last), and in it each entity reaches the
+   materialized fit's objective within 1e-5 relative (its coefficients'
+   largest difference printed: the card's batched products differ with
+   the batch count); the two cold fits are equal;
+   every untouched entity carries over bit for bit and a touched one
+   retrained; no one-time cost after sweep 0 in either fit; the residency
+   guard armed, sampled once per chunk, its peak under its limit.
+   Printed: stage walls, H2D bytes, the counted overlap and, from a
+   profiled rerun of the descent's initial score and first sweep, the
+   share of host-to-device copy time under a running kernel and the
+   card's busy share over the same run unprofiled; steady sweep walls, examples/s, the
+   warm speedup, peak allocated bytes streamed vs materialized, beside
+   bench's bands), ``daily_retrain_parity`` (the cold and warm fits at
+   2^15 rows / 1,280 users, float64, card vs CPU within 1e-9),
+   ``game_glmix_stream`` (config 4 at full scale: its fixed effect
+   trained, then locked while the per-user effect is refitted streaming
+   against the same refit materialized, with the classes and the replay
+   above; the streamed FE score column compared with the resident one)
+   and, inside
+   the cli block on ``cli_game``'s parts, ``cli_game_stream`` (the
+   training driver with ``--stream-chunk-rows 8192``, the two random
+   effects only, with ``--model-checkpoint-directory`` and then
+   ``--warm-start-input-directory`` on the first part: each saved model
+   equals a direct ``fit(..., stream=8192)`` bit for bit, and each run
+   profile holds the ``train.stream.*`` stage histograms);
+12. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2330,11 +2365,12 @@ def model_mismatch(want, got, rtol=0.0):
                 out[m.vocab[e]] = (w, v)
         return out
 
-    fw, fg = want["fixed"].coefficients, got["fixed"].coefficients
-    if not same(fw.means, fg.means):
-        return "the fixed effect's means"
-    if not same(fw.variances, fg.variances):
-        return "the fixed effect's variances"
+    if "fixed" in want.coordinates:
+        fw, fg = want["fixed"].coefficients, got["fixed"].coefficients
+        if not same(fw.means, fg.means):
+            return "the fixed effect's means"
+        if not same(fw.variances, fg.variances):
+            return "the fixed effect's variances"
     for cid in ("user", "item"):
         w, g = entities(want[cid]), entities(got[cid])
         if w.keys() != g.keys():
@@ -3635,6 +3671,700 @@ def cli_serving_kill(ctx, requests, reference):
     }))
 
 
+# -- out-of-core streaming training (game/streaming.py) -----------------------
+
+#: bench config glmix_daily_retrain at its full _pick (bench.py:2900-2905)
+DR_N, DR_USERS, DR_D, DR_CHUNK, DR_SWEEPS, DR_ITERS = 500_000, 20_000, 32, 8192, 3, 6
+DR_PARITY_N, DR_PARITY_USERS = 1 << 15, 1280
+#: a bucket solved in several chunks, against the materialized one: the
+#: largest relative difference of an entity's objective
+STREAM_MULTI_REL_MAX = 1e-5
+#: bench.py QUALITY_BANDS glmix_daily_retrain, printed beside the numbers
+DR_WARM_SPEEDUP_MIN, DR_OVERLAP_MIN = 3.0, 0.5
+
+
+def daily_retrain_days(seed, n, users):
+    """bench's glmix_daily_retrain days (bench.py:2917-2942): day 0 of
+    ``n`` rows over ``users`` Zipf users, and a delta day of n/8 rows over
+    users/16 of them; the ids and the day split come from a seed-stable
+    generator (17) as in bench, the feature and label values from
+    ``seed``."""
+    import numpy as np
+
+    from photon_tpu_torch.game.data import CSRMatrix, GameData
+
+    rng = np.random.default_rng(17)
+    vrng = np.random.default_rng(seed)
+
+    def day(rows, pool):
+        ids = np.asarray(pool)[zipf_ids(rng, rows, len(pool))]
+        return GameData.build(
+            labels=vrng.normal(size=rows),
+            feature_shards={"s_user": CSRMatrix.from_dense(vrng.normal(size=(rows, DR_D)))},
+            id_tags={"userId": np.char.add("u", ids.astype(str))},
+        )
+
+    day0 = day(n, np.arange(users))
+    touched = rng.choice(users, size=max(2, users // 16), replace=False)
+    return day0, day(n // 8, touched)
+
+
+def daily_retrain_estimator(*, device, dtype=None):
+    import torch
+
+    from photon_tpu_torch.game import GameEstimator, RandomEffectCoordinateConfig
+    from photon_tpu_torch.optimize.common import OptimizerConfig
+    from photon_tpu_torch.optimize.problem import (
+        GLMProblemConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    opt = GLMProblemConfig(
+        task=TaskType.LINEAR_REGRESSION,
+        regularization=RegularizationContext(RegularizationType.L2),
+        optimizer_config=OptimizerConfig(max_iterations=DR_ITERS),
+    )
+    return GameEstimator(
+        task=TaskType.LINEAR_REGRESSION,
+        coordinate_configs={"per-user": RandomEffectCoordinateConfig(
+            random_effect_type="userId", feature_shard="s_user", optimization=opt,
+            regularization_weights=(1.0,))},
+        update_sequence=["per-user"], descent_iterations=DR_SWEEPS, device=device,
+        dtype=dtype or torch.float32,
+    )
+
+
+def entity_coefficients(re_model):
+    """key → shard-space coefficients of every modeled entity."""
+    import numpy as np
+
+    vocab = np.asarray(re_model.vocab)
+    return {str(vocab[i]): np.asarray(w)
+            for i, w in enumerate(re_model.dense_coefficient_lookup()) if w is not None}
+
+
+def entity_objectives(coord, model, residual=None):
+    """Per bucket of the streaming random effect ``coord``: each entity's
+    objective (its GLM problem's value, float64 on the card) at its
+    coefficients in ``model``, on the bucket's rows with the data offsets
+    plus ``residual`` (the other coordinates' scores, [N]; none for a
+    fit with one coordinate)."""
+    import torch
+
+    from photon_tpu_torch.game.coordinate import fold_residual
+    from photon_tpu_torch.optimize.problem import GLMProblem
+    from photon_tpu_torch.types import LabeledBatch
+
+    objective = GLMProblem.build(coord.problem_config).objective
+    n = coord.num_samples
+    res_pad = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
+    if residual is not None:
+        res_pad[:n] = torch.as_tensor(residual).to("cuda", torch.float64)
+    out = []
+    for hb, b in zip(coord.host_buckets, model.buckets, strict=True):
+        def dev(t):
+            return t.to("cuda", torch.float64)
+
+        batch = LabeledBatch(dev(hb.features), dev(hb.labels),
+                             fold_residual(dev(hb.offsets), hb.sample_pos.to("cuda"), res_pad),
+                             dev(hb.weights))
+        w = torch.as_tensor(b.coefficients).to("cuda", torch.float64)
+        out.append(objective.value(w, batch).cpu().numpy())
+    return out
+
+
+def lane_batch_probe(coord):
+    """Why a multi-chunk bucket is not bit for bit: per such bucket of the
+    streaming random effect ``coord``, its first chunk's lanes solved
+    alone (as a chunk, from zero with the data offsets) against the same
+    lanes solved in the whole bucket: the largest coefficient difference
+    and the lanes that stopped at another iteration."""
+    import torch
+
+    from photon_tpu_torch.game.coordinate import solve_lanes
+
+    rows = []
+    for hb in coord.host_buckets:
+        if hb.ec == hb.num_entities:
+            continue
+        blocks = [t.to("cuda") for t in (hb.features, hb.labels, hb.offsets, hb.weights)]
+        w0 = torch.zeros((hb.num_entities, hb.dim), dtype=coord.dtype, device="cuda")
+        whole = solve_lanes(coord.problem_config, *blocks, w0)
+        part = solve_lanes(coord.problem_config, *(t[: hb.ec] for t in blocks), w0[: hb.ec])
+        rows.append({
+            "entities": hb.num_entities, "rows": hb.rows, "lanes_per_chunk": hb.ec,
+            "max_abs_diff": float((part.x - whole.x[: hb.ec]).abs().max()),
+            "iteration_mismatches": int((part.iterations != whole.iterations[: hb.ec]).sum()),
+        })
+    return rows
+
+
+def stream_classes(phase, want, got, single, f_want, f_got, exact=True):
+    """A streamed random-effect model against the materialized one, bucket
+    by bucket: a bucket solved in one chunk bit for bit (``exact``); any
+    other (or every bucket, without ``exact``) reaches each entity's
+    objective (``f_want``/``f_got`` from ``entity_objectives``) within
+    STREAM_MULTI_REL_MAX. Such a bucket's lanes are solved at another
+    batch count than the materialized bucket's, which the card's batched
+    products do not compute alike, and a float32 L-BFGS whose convergence
+    test sits at its rounding floor can stop a lane one iteration apart:
+    its coefficients are printed (the largest entity difference over
+    that entity's largest coefficient) beside the objective's, and held
+    bit for bit to ``stream_replay`` instead."""
+    import numpy as np
+
+    out = {"single_chunk_buckets": 0, "multi_chunk_buckets": 0,
+           "single_max_abs_diff": 0.0, "coef_max_rel_diff": 0.0,
+           "objective_max_rel_diff": 0.0}
+    if len(want.buckets) != len(got.buckets) or len(single) != len(got.buckets):
+        fail(f"{phase}: {len(got.buckets)} streamed buckets vs {len(want.buckets)}")
+    for one, a, b, fa, fb in zip(single, want.buckets, got.buckets, f_want, f_got):
+        if list(a.entity_ids) != list(b.entity_ids):
+            fail(f"{phase}: a streamed bucket models other entities")
+        wa, wb = np.asarray(a.coefficients), np.asarray(b.coefficients)
+        diff = np.abs(wa - wb)
+        if one:
+            out["single_chunk_buckets"] += 1
+            out["single_max_abs_diff"] = max(out["single_max_abs_diff"], float(diff.max()))
+            if exact:
+                if not np.array_equal(wa, wb):
+                    fail(f"{phase}: a bucket solved in one chunk differs from the materialized "
+                         f"one (max abs diff {float(diff.max())})")
+                continue
+        else:
+            out["multi_chunk_buckets"] += 1
+        rel = float((diff.max(axis=1) / np.maximum(np.abs(wa).max(axis=1), 1e-30)).max())
+        out["coef_max_rel_diff"] = max(out["coef_max_rel_diff"], rel)
+        frel = float((np.abs(fa - fb) / np.maximum(np.abs(fa), 1e-30)).max())
+        out["objective_max_rel_diff"] = max(out["objective_max_rel_diff"], frel)
+        if not frel <= STREAM_MULTI_REL_MAX:
+            fail(f"{phase}: a streamed entity's objective differs from the materialized one's "
+                 f"by {frel} relative (> {STREAM_MULTI_REL_MAX})")
+    return out
+
+
+def stream_replay(phase, coord, got, state0, sweeps, other=None):
+    """Every bucket of the streamed random effect that took several solve
+    chunks, held bit for bit against a replay at the stream's geometry:
+    its resident bucket (the materialized build of ``coord``'s dataset,
+    on the card) solved through ``solve_lanes`` on slices of ``ec =
+    min(max(1, chunk_rows // rows), E)`` entity lanes, the last slice
+    zero-padded to ``ec`` lanes, each sweep warm-started from the last;
+    the sweep's residual, fold and score chunks (``chunk_rows`` rows,
+    zero-padded) computed on the card. ``coord`` is the fit's streaming
+    random effect, ``got`` its model, ``state0`` its initial state and
+    ``other`` the [N] summed score of the other coordinates (None for a
+    fit with one coordinate). Returns the buckets held."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.game.coordinate import (
+        RandomEffectCoordinate,
+        fold_residual,
+        score_rows,
+        solve_lanes,
+    )
+
+    cr = coord.stream.chunk_rows
+    res = RandomEffectCoordinate.build(coord.dataset, coord.config, dtype=coord.dtype,
+                                       device=torch.device("cuda"))
+    lanes = {i: min(max(1, cr // db.features.shape[1]), db.features.shape[0])
+             for i, db in enumerate(res.device_buckets)}
+    held = [i for i, db in enumerate(res.device_buckets) if lanes[i] < db.features.shape[0]]
+    state = {i: state0[i].to("cuda") for i in held}
+    if other is not None:
+        other = torch.as_tensor(other).to("cuda", coord.dtype)
+
+    def pad(t, rows):
+        out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+        out[: t.shape[0]] = t
+        return out
+
+    def score():
+        out = torch.zeros(res.num_samples, dtype=coord.dtype, device="cuda")
+        for i in held:
+            db, w = res.device_buckets[i], state[i]
+            for m0 in range(0, db.score_feats.shape[0], cr):
+                m1 = min(m0 + cr, db.score_feats.shape[0])
+                s = score_rows(pad(db.score_feats[m0:m1], cr), pad(w[db.score_slot[m0:m1]], cr))
+                out[db.score_pos[m0:m1]] = s[: m1 - m0]
+        return out
+
+    re_score = score()
+    total = re_score if other is None else other + re_score
+    for _ in range(sweeps):
+        residual = total - re_score
+        res_pad = torch.cat([residual, residual.new_zeros(1)])
+        for i in held:
+            db, w, ec = res.device_buckets[i], state[i], lanes[i]
+            x = torch.empty_like(w)
+            for e0 in range(0, w.shape[0], ec):
+                sl = slice(e0, min(e0 + ec, w.shape[0]))
+                part = (db.features[sl], db.labels[sl],
+                        fold_residual(db.offsets[sl], db.sample_pos[sl], res_pad),
+                        db.weights[sl], w[sl])
+                x[sl] = solve_lanes(res.problem_config, *(pad(t, ec) for t in part)).x[: sl.stop - e0]
+            state[i] = x
+        re_score = score()
+        total = re_score if other is None else other + re_score
+    for i in held:
+        want = state[i].cpu().numpy()
+        if not np.array_equal(want, np.asarray(got.buckets[i].coefficients)):
+            fail(f"{phase}: a bucket solved in {-(-want.shape[0] // lanes[i])} chunks differs "
+                 "from its replay at the same geometry (max abs diff "
+                 f"{float(np.abs(want - got.buckets[i].coefficients).max())})")
+    return len(held)
+
+
+def steady(result):
+    """Steady sweeps (1 on) of a fit: their summed wall and one-time costs."""
+    rows = [r for r in result.tracker if "sweep_seconds" in r]
+    later = [r for r in rows if r["iteration"] >= 1]
+    return sum(r["sweep_seconds"] for r in later), [r["compiles"] for r in rows]
+
+
+def stream_checks(phase, est, result):
+    """The streaming report of a fit: the guard armed and sampled once per
+    chunk with its peak under the limit, and no one-time cost after sweep
+    0. Returns the report."""
+    st = est.last_fit_stats["stream"]
+    res = st.get("residency")
+    if res is None:
+        fail(f"{phase}: the residency guard was not armed")
+    if res["samples"] != st["chunks"]:
+        fail(f"{phase}: the guard sampled {res['samples']} times for {st['chunks']} chunks")
+    if not res["peak_over_baseline_bytes"] <= res["limit_bytes"]:
+        fail(f"{phase}: residency {res['peak_over_baseline_bytes']} B over the baseline, "
+             f"limit {res['limit_bytes']} B")
+    _, compiles = steady(result)
+    if any(compiles[1:]):
+        fail(f"{phase}: one-time costs {compiles} in the sweeps after sweep 0")
+    return st
+
+
+def device_intervals(run):
+    """``run()`` under torch.profiler with CUDA activity only: its result,
+    its wall, and the card's kernel and host-to-device copy intervals
+    (microseconds) from the exported trace."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels, h2d, other = [], [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        span = (e["ts"], e["ts"] + e.get("dur", 0))
+        if e.get("cat") == "kernel":
+            kernels.append(span)
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            h2d.append(span)
+        elif e.get("cat") in ("gpu_memcpy", "gpu_memset"):
+            other.append(span)
+    return out, wall, kernels, h2d, other
+
+
+def merged(spans):
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(spans, cover):
+    """Σ over ``spans`` of their length inside the union ``cover``
+    (merged, sorted)."""
+    import bisect
+
+    starts = [a for a, _ in cover]
+    total = 0.0
+    for a, b in spans:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(cover) and cover[i][0] < b:
+            total += max(0.0, min(b, cover[i][1]) - max(a, cover[i][0]))
+            i += 1
+    return total
+
+
+def daily_retrain(seed):
+    """bench glmix_daily_retrain at full scale on the card (module
+    docstring, phase 11): the cold streaming fit with a model snapshot,
+    the warm delta day from it, a second cold streaming fit, the
+    materialized fit of day 0, the replay of the cold fit's multi-chunk
+    buckets and its initial score and first sweep again, unprofiled and
+    profiled."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.game.descent import run_coordinate_descent
+    from photon_tpu_torch.game.streaming import StreamConfig
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    t0 = time.perf_counter()
+    day0, day1 = daily_retrain_days(seed, DR_N, DR_USERS)
+    gen_s = time.perf_counter() - t0
+    windowed_rmatvec.launches = 0
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-daily-")
+
+    def streamed(data, **kw):
+        est = daily_retrain_estimator(device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = est.fit(data, stream=DR_CHUNK, **kw)[0]
+        wall = time.perf_counter() - t
+        return est, res, wall, torch.cuda.max_memory_allocated()
+
+    est0, cold, cold_wall, cold_peak = streamed(day0, model_checkpoint_dir=ckpt)
+    st0 = stream_checks("daily_retrain", est0, cold)
+    est1, warm, warm_wall, warm_peak = streamed(day1, warm_start=ckpt,
+                                                model_checkpoint_dir=ckpt)
+    st1 = stream_checks("daily_retrain_warm", est1, warm)
+    _, again, again_wall, _ = streamed(day0)
+    m0, m_again = cold.model["per-user"], again.model["per-user"]
+    for a, b in zip(m0.buckets, m_again.buckets, strict=True):
+        if not np.array_equal(a.coefficients, b.coefficients):
+            fail("daily_retrain: two streaming fits of day 0 differ")
+
+    c0, c1 = entity_coefficients(m0), entity_coefficients(warm.model["per-user"])
+    touched = set(np.unique(np.asarray(day1.id_tags["userId"])))
+    untouched = set(c0) - touched
+    if not untouched or not set(c0) <= set(c1):
+        fail("daily_retrain: the warm model lost day-0 entities (or none was untouched)")
+    moved = [k for k in untouched if not np.array_equal(c0[k], c1[k])]
+    if moved:
+        fail(f"daily_retrain: {len(moved)} untouched entities changed in the warm fit")
+    retrained = sum(1 for k in touched if k in c0 and not np.array_equal(c0[k], c1[k]))
+    if retrained < 1:
+        fail("daily_retrain: no touched entity was retrained")
+
+    mat_est = daily_retrain_estimator(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    mat = mat_est.fit(day0)[0]
+    mat_wall = time.perf_counter() - t
+    mat_peak = torch.cuda.max_memory_allocated()
+    coords = est0._build_coordinates(day0, stream_cfg=StreamConfig(chunk_rows=DR_CHUNK))
+    classes = stream_classes(
+        "daily_retrain", mat.model["per-user"], m0, st0["single_chunk_buckets"]["per-user"],
+        entity_objectives(coords["per-user"], mat.model["per-user"]),
+        entity_objectives(coords["per-user"], m0))
+    probe = lane_batch_probe(coords["per-user"])
+    classes["multi_chunk_buckets_equal_replay"] = stream_replay(
+        "daily_retrain", coords["per-user"], m0, coords["per-user"].initial_state(), DR_SWEEPS)
+
+    # the cold fit's initial score stream and first sweep again, once
+    # timed and once traced: the card's busy share over the unprofiled
+    # wall and the share of its host-to-device copies under a running kernel
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run_coordinate_descent(coords, ["per-user"], 1)
+    torch.cuda.synchronize()
+    unprofiled_s = time.perf_counter() - t
+    _, traced_s, kernels, h2d, other = device_intervals(
+        lambda: run_coordinate_descent(coords, ["per-user"], 1))
+    del coords
+    busy = merged(kernels + h2d + other)
+    busy_s = sum(b - a for a, b in busy) / 1e6
+    h2d_s = sum(b - a for a, b in h2d) / 1e6
+    h2d_under_kernel_s = overlap_us(h2d, merged(kernels)) / 1e6
+
+    cold_steady, _ = steady(cold)
+    warm_steady, _ = steady(warm)
+    solve_chunks = [r["info"]["chunks"] for r in cold.tracker if r.get("coordinate")]
+    if windowed_rmatvec.launches:
+        fail("daily_retrain: the streaming path launched the windowed Xᵀr kernel")
+    log(json.dumps({
+        "phase": "daily_retrain", "n": DR_N, "users": DR_USERS, "d_re": DR_D,
+        "chunk_rows": DR_CHUNK, "sweeps": DR_SWEEPS, "lbfgs_iterations": DR_ITERS,
+        "delta_rows": day1.num_samples, "touched_users": len(touched), "data_gen_s": gen_s,
+        "cold_fit_wall_s": cold_wall, "cold_again_wall_s": again_wall,
+        "warm_fit_wall_s": warm_wall, "materialized_fit_wall_s": mat_wall,
+        "cold_sweep_s": [r["sweep_seconds"] for r in cold.tracker if "sweep_seconds" in r],
+        "warm_sweep_s": [r["sweep_seconds"] for r in warm.tracker if "sweep_seconds" in r],
+        "materialized_sweep_s": [r["sweep_seconds"] for r in mat.tracker
+                                 if "sweep_seconds" in r],
+        "steady_sweep_s": cold_steady, "warm_steady_sweep_s": warm_steady,
+        "examples_per_s": DR_N * (DR_SWEEPS - 1) / cold_steady,
+        "warm_speedup": cold_steady / warm_steady,
+        "warm_speedup_band_min": DR_WARM_SPEEDUP_MIN,
+        "compiles_per_sweep": {"cold": steady(cold)[1], "warm": steady(warm)[1]},
+        "solve_chunks_per_sweep": solve_chunks[0],
+        "score_chunks_per_stream": (st0["chunks"] - sum(solve_chunks)) / (DR_SWEEPS + 1),
+        "stream": {k: v for k, v in st0.items() if k != "single_chunk_buckets"},
+        "stream_warm": {k: v for k, v in st1.items() if k != "single_chunk_buckets"},
+        "h2d_overlap_fraction_counted": st0["h2d_overlap_fraction"],
+        "h2d_overlap_band_min": DR_OVERLAP_MIN,
+        "traced": {"source": "torch.profiler", "traced_descent_s": traced_s,
+                   "device_busy_s": busy_s, "kernels": len(kernels), "h2d_copies": len(h2d),
+                   "h2d_copy_s": h2d_s, "h2d_copy_s_under_a_kernel": h2d_under_kernel_s,
+                   "h2d_measured_overlap": h2d_under_kernel_s / h2d_s if h2d_s else None,
+                   "unprofiled_descent_s": unprofiled_s,
+                   "device_busy_share": busy_s / unprofiled_s},
+        "max_memory_allocated_streamed_bytes": cold_peak,
+        "max_memory_allocated_warm_bytes": warm_peak,
+        "max_memory_allocated_materialized_bytes": mat_peak,
+        "retrained_entities": retrained, "untouched_entities": len(untouched),
+        "carryover_bit_exact": True, "streaming_runs_bit_equal": True,
+        "vs_materialized": classes, "first_chunk_alone_vs_in_bucket": probe,
+    }))
+
+
+def daily_retrain_parity(seed):
+    """The daily-retrain fits (cold streaming day, warm delta day) on the
+    card and on the CPU at float64, depth cut to 2^15 rows / 1,280 users:
+    every coefficient within 1e-9."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    day0, day1 = daily_retrain_days(seed, DR_PARITY_N, DR_PARITY_USERS)
+    models = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        ckpt = tempfile.mkdtemp(prefix=f"chip-smoke-daily-{device}-")
+        cold = daily_retrain_estimator(device=device, dtype=torch.float64).fit(
+            day0, stream=DR_CHUNK, model_checkpoint_dir=ckpt)[0]
+        warm = daily_retrain_estimator(device=device, dtype=torch.float64).fit(
+            day1, stream=DR_CHUNK, warm_start=ckpt)[0]
+        models[device] = (entity_coefficients(cold.model["per-user"]),
+                          entity_coefficients(warm.model["per-user"]))
+    worst = 0.0
+    for day in (0, 1):
+        gpu, cpu = models["cuda"][day], models["cpu"][day]
+        if gpu.keys() != cpu.keys():
+            fail(f"daily_retrain_parity: day {day} models other entities on the card")
+        for k, w in cpu.items():
+            worst = max(worst, float(np.abs(gpu[k] - w).max()))
+    if not worst <= 1e-9:
+        fail(f"daily_retrain_parity: card vs CPU max abs diff {worst} > 1e-9")
+    log(json.dumps({"phase": "daily_retrain_parity", "n": DR_PARITY_N,
+                    "users": DR_PARITY_USERS, "dtype": "float64", "chunk_rows": DR_CHUNK,
+                    "wall_s": time.perf_counter() - t0, "max_abs_diff": worst}))
+
+
+def game_glmix_stream(seed):
+    """Bench config 4 at full scale with its fixed effect locked: train
+    FE + per-user RE materialized, then refit the per-user RE streaming
+    (8,192-row chunks) with that model's FE locked, against the same
+    locked refit materialized. The locked FE ships unchanged; the RE meets
+    ``stream_classes``. The streamed FE score column is compared with the
+    materialized one first: when they differ in a bit, the single-chunk
+    buckets are held to the tolerance instead, and the difference is
+    printed."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.game import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.game.streaming import StreamConfig
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.types import TaskType
+
+    coords = [("user", GLMIX_USERS, GLMIX_RE_D, GLMIX_UB)]
+    data = make_ctr_data(seed + 4, GLMIX_N, GLMIX_FE_D, 1 << 30, coords)
+    configs = {
+        "fixed": FixedEffectCoordinateConfig(
+            feature_shard="global", optimization=l2_config(20, 10),
+            regularization_weights=(1.0,)),
+        "user": RandomEffectCoordinateConfig(
+            random_effect_type="user", feature_shard="per_user",
+            optimization=l2_config(10, 8), regularization_weights=(1.0,),
+            active_data_upper_bound=GLMIX_UB),
+    }
+
+    def estimator(locked):
+        return GameEstimator(
+            task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs,
+            update_sequence=["fixed", "user"], descent_iterations=3 if not locked else 2,
+            locked_coordinates=frozenset({"fixed"}) if locked else frozenset(),
+            seed=seed, device="cuda")
+
+    windowed_rmatvec.launches = 0
+    t0 = time.perf_counter()
+    base = estimator(False).fit(data)[0].model
+    base_s = time.perf_counter() - t0
+    mat_est, str_est = estimator(True), estimator(True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat = mat_est.fit(data, initial_model=base)[0]
+    mat_s = time.perf_counter() - t0
+    mat_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = str_est.fit(data, stream=DR_CHUNK, initial_model=base)[0]
+    str_s = time.perf_counter() - t0
+    str_peak = torch.cuda.max_memory_allocated()
+    st = stream_checks("game_glmix_stream", str_est, got)
+
+    want_fe = base["fixed"].coefficients.means
+    for name, m in (("materialized", mat.model), ("streamed", got.model)):
+        if not np.array_equal(m["fixed"].coefficients.means, want_fe):
+            fail(f"game_glmix_stream: the locked fixed effect moved in the {name} refit")
+    # the locked FE's score column, streamed against resident
+    mc = mat_est._build_coordinates(data)
+    sc = str_est._build_coordinates(data, stream_cfg=StreamConfig(chunk_rows=DR_CHUNK))
+    warm = str_est._place_states(str_est._states_from_model(base, sc), sc)
+    fe_resident = mc["fixed"].score(mc["fixed"].place_state(warm["fixed"])).cpu()
+    fe_streamed = sc["fixed"].score(warm["fixed"])
+    fe_diff = float((fe_resident - fe_streamed).abs().max())
+    fe_exact = bool(torch.equal(fe_resident, fe_streamed))
+    classes = stream_classes(
+        "game_glmix_stream", mat.model["user"], got.model["user"],
+        st["single_chunk_buckets"]["user"],
+        entity_objectives(sc["user"], mat.model["user"], fe_resident),
+        entity_objectives(sc["user"], got.model["user"], fe_resident), exact=fe_exact)
+    classes["multi_chunk_buckets_equal_replay"] = stream_replay(
+        "game_glmix_stream", sc["user"], got.model["user"], warm["user"],
+        str_est.descent_iterations, other=fe_streamed)
+    del mc, sc, warm
+    if not np.all(np.isfinite(got.scores)):
+        fail("game_glmix_stream: streamed scores are not finite")
+    if windowed_rmatvec.launches:
+        fail("game_glmix_stream: the path launched the windowed Xᵀr kernel (its FE is dense)")
+    log(json.dumps({
+        "phase": "game_glmix_stream", "n": GLMIX_N, "fe_dim": GLMIX_FE_D,
+        "users": GLMIX_USERS, "re_dim": GLMIX_RE_D, "chunk_rows": DR_CHUNK,
+        "base_fit_s": base_s, "materialized_refit_s": mat_s, "streamed_refit_s": str_s,
+        "materialized_sweep_s": [r["sweep_seconds"] for r in mat.tracker if "sweep_seconds" in r],
+        "streamed_sweep_s": [r["sweep_seconds"] for r in got.tracker if "sweep_seconds" in r],
+        "fe_score_streamed_equals_resident": fe_exact, "fe_score_max_abs_diff": fe_diff,
+        "vs_materialized": classes, "locked_fe_unchanged": True,
+        "stream": {k: v for k, v in st.items() if k != "single_chunk_buckets"},
+        "max_memory_allocated_streamed_bytes": str_peak,
+        "max_memory_allocated_materialized_bytes": mat_peak,
+    }))
+
+
+def cli_game_stream(seed, tmp, train_dir=None):
+    """The training driver with ``--stream-chunk-rows 8192`` on
+    ``cli_game``'s Avro parts (written here when ``train_dir`` is None),
+    its two random effects only: once with ``--model-checkpoint-directory``,
+    once with ``--warm-start-input-directory`` on the first part alone.
+    Each run's saved best model equals ``GameEstimator(...).fit(data,
+    stream=8192)`` on the data the driver read, bit for bit, and each run
+    profile carries the ``train.stream.*`` stage histograms."""
+    import os
+
+    import torch
+
+    from photon_tpu_torch.cli import game_training
+    from photon_tpu_torch.game import GameEstimator
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+    if train_dir is None:
+        coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
+        data = make_ctr_data(seed + 5, CLI_N, FE_DIM, FE_NNZ, coords)
+        train_dir = f"{tmp}/train"
+        write_ctr_avro(data, train_dir, CLI_PARTS)
+        del data
+    first = f"{tmp}/stream-first-part"
+    os.makedirs(first)
+    os.symlink(os.path.abspath(f"{train_dir}/part-00000.avro"), f"{first}/part-00000.avro")
+    snap = f"{tmp}/stream-snapshots"
+
+    fits = []
+
+    class Recording(GameEstimator):
+        def fit(self, data, **kw):
+            fits.append((self, data, kw))
+            return super().fit(data, **kw)
+
+    def argv(inp, out, *extra):
+        return [
+            "--input-data-directories", inp, "--root-output-directory", f"{tmp}/{out}",
+            "--training-task", "LOGISTIC_REGRESSION", *CLI_SHARDS,
+            "--coordinate-configurations",
+            f"name=user,random.effect.type=userId,feature.shard=per_user,max.iter=5,"
+            f"regularization=L2,reg.weights=1,active.data.upper.bound={USER_UB}",
+            "--coordinate-configurations",
+            f"name=item,random.effect.type=itemId,feature.shard=per_item,max.iter=5,"
+            f"regularization=L2,reg.weights=1,active.data.upper.bound={ITEM_UB}",
+            "--coordinate-update-sequence", "user,item", "--coordinate-descent-iterations", "2",
+            "--model-sparsity-threshold", "0", "--stream-chunk-rows", str(DR_CHUNK), *extra,
+        ]
+
+    windowed_rmatvec.launches = 0
+    game_training.GameEstimator = Recording
+    runs = {}
+    try:
+        for name, inp, extra in (("cold", train_dir, ("--model-checkpoint-directory", snap)),
+                                 ("warm", first, ("--warm-start-input-directory", snap))):
+            t0 = time.perf_counter()
+            res = game_training.run(argv(inp, f"stream-{name}", *extra), device="cuda")
+            runs[name] = (res, time.perf_counter() - t0)
+    finally:
+        game_training.GameEstimator = GameEstimator
+    rows = {}
+    for (name, (res, wall)), (est, data, kw) in zip(runs.items(), fits, strict=True):
+        if kw.get("stream") != DR_CHUNK or "stream" not in res["fit_stats"]:
+            fail(f"cli_game_stream: the {name} run did not stream")
+        direct = GameEstimator(
+            task=est.task, coordinate_configs=est.coordinate_configs,
+            update_sequence=est.update_sequence, descent_iterations=est.descent_iterations,
+            device="cuda",
+        )
+        t0 = time.perf_counter()
+        want = direct.fit(data, stream=DR_CHUNK,
+                          **({"warm_start": snap} if name == "warm" else {}))[-1].model
+        direct_s = time.perf_counter() - t0
+        saved = load_game_model(f"{res['output']}/best", res["index_maps"])
+        differs = model_mismatch(want, saved)
+        if differs:
+            fail(f"cli_game_stream: {differs} of the {name} run's saved model differs from "
+                 "the direct streaming fit's")
+        metrics = open(f"{res['output']}/obs/metrics.json").read()
+        missing = [s for s in ("queue", "h2d", "dispatch", "readback", "pipeline")
+                   if f"train.stream.stage_seconds.{s}" not in metrics]
+        if missing:
+            fail(f"cli_game_stream: the {name} run profile lacks the stream stages {missing}")
+        st = res["fit_stats"]["stream"]
+        rows[name] = {"driver_s": wall, "rows": data.num_samples,
+                      "fit_wall_s": res["fit_stats"]["wall_s"], "direct_fit_s": direct_s,
+                      "walls": res["walls"], "chunks": st["chunks"], "h2d_bytes": st["h2d_bytes"],
+                      "stage_seconds": st["stage_seconds"],
+                      "h2d_overlap_fraction": st["h2d_overlap_fraction"],
+                      "residency": st.get("residency")}
+        del data
+    fits.clear()
+    if windowed_rmatvec.launches:
+        fail("cli_game_stream: the streaming driver launched the windowed Xᵀr kernel")
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "cli_game_stream", "chunk_rows": DR_CHUNK, **rows,
+                    "saved_equals_direct": True}))
+
+
+def streaming_phases(seed) -> None:
+    daily_retrain(seed)
+    daily_retrain_parity(seed)
+    game_glmix_stream(seed)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3642,6 +4372,12 @@ def main() -> None:
         "--profile", action="store_true",
         help="trace the sweeps of a second fit with torch.profiler (device time by "
         "kernel) and count a third fit's host syncs by call site",
+    )
+    ap.add_argument(
+        "--streaming-only", action="store_true",
+        help="only run the streaming-training phases (daily_retrain, daily_retrain_parity, "
+        "game_glmix_stream, cli_game_stream on parts of its own) and stop, with no "
+        "result line",
     )
     ap.add_argument(
         "--kernel-only", action="store_true",
@@ -3676,6 +4412,11 @@ def main() -> None:
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "nvcc_seconds": cuda_build.build_seconds}))
 
+    if args.streaming_only:
+        streaming_phases(args.seed)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-stream-") as tmp:
+            cli_game_stream(args.seed, tmp)
+        return
     t0 = time.perf_counter()
     coords = [("user", N_USERS, RE_DIM, USER_UB), ("item", N_ITEMS, RE_DIM, ITEM_UB)]
     data = make_ctr_data(args.seed, N_ROWS, FE_DIM, FE_NNZ, coords)
@@ -3716,6 +4457,7 @@ def main() -> None:
         del train, valid, settings
         recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
         cache_launches = cli_game_cache(ctx)
+        cli_game_stream(args.seed, tmp, ctx["train"])
         serve_requests, serve_reference = cli_serving(ctx)
         cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
         del ctx, serve_requests, serve_reference
@@ -3727,6 +4469,7 @@ def main() -> None:
     registry, requests, exp_b = serve_engine(args.seed)
     serve_slo(args.seed, registry, requests, exp_b)
     del registry, requests, exp_b
+    streaming_phases(args.seed)
 
     def timings(row):
         return {key: row[key] for key in (

@@ -10,9 +10,11 @@ Hyperparameter tuning, checkpoints with resume (``--checkpoint-sweeps``,
 which needs ``--output-mode ALL``), supervised restarts, warm starts from
 model snapshots, the feature cache (``--feature-cache``: the training
 and validation reads go through ``cache.resolve_reader``) and the
-``PHOTON_FAULTS`` fault plan work as in JAX's driver. Flags whose modules
-are not ported yet (streaming training, the mesh, precompile) raise
-NotImplementedError when set away from their defaults.
+``PHOTON_FAULTS`` fault plan work as in JAX's driver, and so does
+out-of-core streaming training (``--stream-chunk-rows``, game/
+streaming.py; a fit it does not support is refused before any output is
+written). Flags whose modules are not ported yet (the mesh, precompile)
+raise NotImplementedError when set away from their defaults.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -44,6 +46,7 @@ from photon_tpu_torch.evaluation.multi import GroupedEvaluatorSpec
 from photon_tpu_torch.game.config import required_id_tags
 from photon_tpu_torch.game.checkpoint import MANIFEST as CKPT_MANIFEST
 from photon_tpu_torch.game.estimator import GameEstimator, GameTrainingResult
+from photon_tpu_torch.game.streaming import validate_streaming
 from photon_tpu_torch.game.tuning import run_hyperparameter_tuning
 from photon_tpu_torch.hyperparameter.serialization import priors_to_json
 from photon_tpu_torch.io.avro import write_avro_file
@@ -78,7 +81,6 @@ class HyperparameterTuningMode(enum.Enum):
 
 #: argparse dest → (accepted values besides the default, ROADMAP item)
 UNPORTED_FLAGS = {
-    "stream_chunk_rows": ((), "ROADMAP A6: streaming training, game/streaming"),
     "mesh": ((), "ROADMAP A7: mesh over NCCL"),
     "precompile": ((), "ROADMAP A8: warm-up of the sweep and score programs"),
 }
@@ -161,7 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
         "newest checkpoint (PHOTON_MAX_RESTARTS wins)",
     )
     p.add_argument(
-        "--stream-chunk-rows", type=int, default=None, metavar="ROWS", help="not ported yet"
+        "--stream-chunk-rows", type=int, default=None, metavar="ROWS",
+        help="train OUT-OF-CORE: keep datasets host-resident and stream fixed-shape "
+        "chunks of ~ROWS sample rows through the double-buffered sweep pipeline "
+        "(game/streaming.py) — bounded device residency, bit-identical coefficients, "
+        "zero steady-state one-time costs. Fixed-effect coordinates must be locked "
+        "(--partial-retrain-locked-coordinates) or absent. env PHOTON_STREAM_CHUNK_ROWS "
+        "overrides the value",
     )
     p.add_argument(
         "--warm-start-input-directory", default=None,
@@ -335,6 +343,13 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     # read on the (smaller) validation data alone
     id_tags = sorted(required_id_tags(coordinate_configs.values()))
     validation_id_tags = sorted(set(id_tags) | evaluator_tags)
+    if args.stream_chunk_rows is not None:
+        # what the fit would refuse, refused before any output is written
+        validate_streaming(
+            coordinate_configs, locked,
+            device_validation=bool(args.validation_data_directories)
+            and validation_evaluator is not None,
+        )
 
     save_all = ModelOutputMode[args.output_mode] == ModelOutputMode.ALL
     ckpt_dir = (
@@ -469,6 +484,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
                 checkpoint_dir=ckpt_dir,
                 warm_start=args.warm_start_input_directory,
                 model_checkpoint_dir=args.model_checkpoint_directory,
+                stream=args.stream_chunk_rows,
             )
         fit_stats = estimator.last_fit_stats
         if fit_stats["resumed_from"] is not None:

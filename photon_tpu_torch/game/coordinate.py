@@ -85,6 +85,31 @@ def down_sampled_weights(data: GameData, rate: float, classification: bool, seed
     return weights
 
 
+def fold_residual(offsets: Tensor, sample_pos: Tensor, res_pad: Tensor) -> Tensor:
+    """offsets + the residual gathered by sample position; ``res_pad`` is
+    the [N] residual with a zero sentinel appended at index N, which
+    padding positions (≥ N) read. The same elementwise ops on the card and
+    on the host, so a host fold equals a device fold bit for bit."""
+    n = res_pad.shape[0] - 1
+    return offsets + res_pad[torch.clamp(sample_pos, max=n)]
+
+
+def solve_lanes(problem_config: GLMProblemConfig, features: Tensor, labels: Tensor,
+                offsets: Tensor, weights: Tensor, w0: Tensor):
+    """One lane-batched solve of independent per-entity problems:
+    features [B, rows, d], the row vectors [B, rows], w0 [B, d]. A
+    materialized bucket (B = E) and a streaming chunk of its entity lanes
+    (B = ec) both solve through this function."""
+    batch = LabeledBatch(features=features, labels=labels, offsets=offsets, weights=weights)
+    return GLMProblem.build(problem_config).solve(batch, w0)
+
+
+def score_rows(feats: Tensor, coef_rows: Tensor) -> Tensor:
+    """Per-row dot of score rows [M, d] with their entity's coefficient
+    rows [M, d]; every output row depends on its own input row only."""
+    return (feats * coef_rows).sum(-1)
+
+
 class Coordinate:
     def sweep_step(self, total: Tensor, score: Tensor, state):
         """→ (new_state, new_score, new_total, info)"""
@@ -92,6 +117,13 @@ class Coordinate:
         new_state, info = self.train(residual, state)
         new_score = self.score(new_state)
         return new_state, new_score, residual + new_score, info
+
+    def place_state(self, state):
+        """A state loaded on the host (checkpoint resume, warm start)
+        where this coordinate keeps its state: on the fit's device."""
+        if isinstance(state, Tensor):
+            return state.to(self.device)
+        return type(state)(self.place_state(s) for s in state)
 
 
 @dataclasses.dataclass(eq=False)
@@ -179,7 +211,12 @@ class FixedEffectCoordinate(Coordinate):
 
     def score(self, state: Tensor) -> Tensor:
         """x·(w .* factor) + margin shift, offsets excluded."""
-        s = matvec(self.batch, self.normalization.effective_coefficients(state))
+        return self.score_batch(self.batch, state)
+
+    def score_batch(self, batch, state: Tensor) -> Tensor:
+        """The score of the rows of ``batch`` (the resident batch, or a
+        streamed chunk of it)."""
+        s = matvec(batch, self.normalization.effective_coefficients(state))
         if self.normalization.shifts is not None:
             s = s + self.normalization.margin_shift(state)
         return s
@@ -271,12 +308,10 @@ class RandomEffectCoordinate(Coordinate):
         """One lane-batched solve over every entity of one size bucket; the
         residual is gathered by sample position (padding reads the zero
         sentinel at index num_samples)."""
-        extra = res_pad[torch.clamp(db.sample_pos, max=self.num_samples)]
-        batch = LabeledBatch(
-            features=db.features, labels=db.labels,
-            offsets=db.offsets + extra, weights=db.weights,
+        return solve_lanes(
+            self.problem_config, db.features, db.labels,
+            fold_residual(db.offsets, db.sample_pos, res_pad), db.weights, w0,
         )
-        return GLMProblem.build(self.problem_config).solve(batch, w0)
 
     def train(self, residual_scores: Tensor, state: list[Tensor]):
         res_pad = torch.cat([residual_scores, residual_scores.new_zeros(1)])
@@ -292,8 +327,7 @@ class RandomEffectCoordinate(Coordinate):
         appears once per coordinate, so the writes never collide."""
         out = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
         for db, coefs in zip(self.device_buckets, state):
-            s = (db.score_feats * coefs[db.score_slot]).sum(-1)
-            out[db.score_pos] = s
+            out[db.score_pos] = score_rows(db.score_feats, coefs[db.score_slot])
         return out
 
     def to_model(self, state: list[Tensor]) -> RandomEffectModel:

@@ -16,6 +16,12 @@ histograms, ``health.checks`` with per-coordinate ``health.loss.<cid>`` /
 records per coordinate step and per sweep (the recovered blackbox of a
 killed fit names its last sweep and coordinate).
 
+A streaming coordinate (game/streaming.py) keeps its state, score and
+total as CPU tensors and hands over its health as host numbers, so its
+steps need no device round-trip here; each sweep row's ``compiles``
+counts the one-time costs compile_watch saw in the sweep (a first
+dispatch at a chunk shape), 0 from sweep 1 on.
+
 At the end of every sweep the total is summed afresh from the
 coordinates' scores, in coordinate order, as a descent that starts from
 saved states sums it. So a fit resumed from any sweep's checkpoint
@@ -39,7 +45,7 @@ import torch
 from photon_tpu_torch import obs
 from photon_tpu_torch.game.coordinate import Coordinate
 from photon_tpu_torch.obs.health import DivergenceError, resolve_policy, sweep_health
-from photon_tpu_torch.util import faults
+from photon_tpu_torch.util import compile_watch, faults
 
 logger = logging.getLogger(__name__)
 
@@ -60,7 +66,8 @@ def _barrier(t: torch.Tensor) -> None:
 
 def clone_state(state):
     """A copy of a coordinate state (tensor, list or tuple of tensors)
-    that no later in-place update can reach."""
+    that no later in-place update can reach. A streaming coordinate's
+    state is CPU tensors and is copied on the host."""
     if isinstance(state, torch.Tensor):
         return state.clone()
     return type(state)(clone_state(s) for s in state)
@@ -85,24 +92,27 @@ def _sum_scores(scores: Mapping[str, torch.Tensor]) -> torch.Tensor:
 def _read_health(health_dev: Mapping[str, dict], total: torch.Tensor) -> dict:
     """Host health rows from the coordinates' device triples, in ONE
     device-to-host copy of them stacked: the copy waits for every step
-    of the sweep, so it is the sweep's barrier as well."""
-    if not health_dev:
+    of the sweep, so it is the sweep's barrier as well. A streaming
+    coordinate's triple is already on the host and passes through."""
+    on_device = [cid for cid, h in health_dev.items() if isinstance(h["loss"], torch.Tensor)]
+    if not on_device:
         _barrier(total)
-        return {}
+        return {cid: dict(h) for cid, h in health_dev.items()}
     flat = [
-        v.to(torch.float64)
-        for h in health_dev.values()
-        for v in (h["loss"], h["gnorm"], h["finite"])
+        health_dev[cid][k].to(torch.float64)
+        for cid in on_device
+        for k in ("loss", "gnorm", "finite")
     ]
     vals = torch.stack(flat).cpu().tolist()
-    return {
+    read = {
         cid: {
             "loss": vals[3 * i],
             "gnorm": vals[3 * i + 1],
             "finite": bool(vals[3 * i + 2]),
         }
-        for i, cid in enumerate(health_dev)
+        for i, cid in enumerate(on_device)
     }
+    return {cid: read.get(cid) or dict(h) for cid, h in health_dev.items()}
 
 
 def _record_health_metrics(health: Mapping[str, dict]) -> None:
@@ -174,6 +184,7 @@ def run_coordinate_descent(
         # fault injection (a no-op without a plan): crash or fail mid-fit
         faults.fault_point("descent.sweep")
         t_sweep = time.perf_counter()
+        compiles0 = compile_watch.snapshot()["backend_compiles"]
         health_dev: dict[str, dict] = {}
         for cid in trainable:
             if cid in halted:
@@ -205,6 +216,7 @@ def run_coordinate_descent(
             "iteration": it,
             "sweep_seconds": now - t_sweep,
             "barrier_seconds": now - t_bar,
+            "compiles": compile_watch.snapshot()["backend_compiles"] - compiles0,
             "health": health,
         }
         tracker.append(sweep_row)

@@ -9,9 +9,10 @@ that got no new data), per-sweep validation with the best sweep's model
 returned, and fixed-effect, random-effect and matrix-factorization
 coordinates, the lifecycle events of JAX's ``events=`` bus, the
 divergence policies of the health check, mid-descent checkpoints with
-resume, supervised restarts and model snapshots for warm starts. No
-streaming, mesh or precompile; its telemetry is the descent's and the
-recovery loop's counters (JAX's ``fit.*`` spans are not carried).
+resume, supervised restarts and model snapshots for warm starts, and
+out-of-core streaming (``fit(stream=...)``, game/streaming.py). No mesh
+or precompile; its telemetry is the descent's, the recovery loop's and
+the stream's counters (JAX's ``fit.*`` spans are not carried).
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
 asked for.
 """
@@ -51,7 +52,16 @@ from photon_tpu_torch.game.model import (
     merge_random_effect_carryover,
 )
 from photon_tpu_torch.game.recovery import max_restarts_from_env, run_with_recovery
+from photon_tpu_torch.game.streaming import (
+    RESIDENCY_SLACK_BYTES,
+    StreamConfig,
+    StreamingFixedEffectCoordinate,
+    StreamingRandomEffectCoordinate,
+    StreamTelemetry,
+    validate_streaming,
+)
 from photon_tpu_torch.game.validation import DeviceValidationScorer
+from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.obs.health import resolve_policy
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.types import TaskType, resolve_device
@@ -160,11 +170,13 @@ class GameEstimator:
             pool.observe(d_pad, n_trn)
         return pool.freeze()
 
-    def _build_coordinates(self, data: GameData, initial_model=None, shape_pool=None):
+    def _build_coordinates(self, data: GameData, initial_model=None, shape_pool=None,
+                           stream_cfg: StreamConfig | None = None):
         if shape_pool is None:
             shape_pool = self._build_shape_pool(data, initial_model)
         norm = self.normalization_contexts or {}
         coords = {}
+        telemetry = StreamTelemetry() if stream_cfg is not None else None
         for cid, cfg in self.coordinate_configs.items():
             ds = None
             if isinstance(cfg, RandomEffectCoordinateConfig):
@@ -183,6 +195,15 @@ class GameEstimator:
                 if isinstance(cfg, FixedEffectCoordinateConfig)
                 else NormalizationContext()
             )
+            if stream_cfg is not None:
+                kw = dict(dtype=self.dtype, device=self.device, stream=stream_cfg,
+                          telemetry=telemetry)
+                coords[cid] = (
+                    StreamingFixedEffectCoordinate.build_streaming(data, cfg, fe_norm, **kw)
+                    if isinstance(cfg, FixedEffectCoordinateConfig)
+                    else StreamingRandomEffectCoordinate.build_streaming(ds, cfg, **kw)
+                )
+                continue
             coords[cid] = build_coordinate(
                 data, cfg, normalization=fe_norm, re_dataset=ds,
                 dtype=self.dtype, device=self.device, seed=self.seed,
@@ -203,6 +224,7 @@ class GameEstimator:
         checkpoint_dir: str | None = None,
         warm_start: str | None = None,
         model_checkpoint_dir: str | None = None,
+        stream=None,
     ) -> list[GameTrainingResult]:
         """One GameModel per λ-grid point, warm-starting across the grid.
         ``grid_callback(grid_index, result)`` fires as each point ends.
@@ -215,7 +237,23 @@ class GameEstimator:
         directory whose newest valid snapshot is the initial model (an
         empty one cold-starts with a warning); it excludes
         ``initial_model``. ``model_checkpoint_dir`` saves the last grid
-        point's model there as the next snapshot after the fit."""
+        point's model there as the next snapshot after the fit.
+
+        ``stream`` (a StreamConfig, or an int chunk size) trains out of
+        core: the data stays on
+        the host and every sweep streams fixed-shape chunks through the
+        two-deep pipeline of game/streaming.py, with the same
+        coefficients, bounded device residency (an armed residency
+        guard) and no one-time cost after sweep 0.
+        ``last_fit_stats["stream"]`` then holds the pipeline's report."""
+        stream_cfg = None
+        if stream is not None:
+            stream_cfg = StreamConfig.resolve(stream)
+            validate_streaming(
+                self.coordinate_configs, self.locked_coordinates,
+                device_validation=validation_data is not None
+                and self.validation_evaluator is not None,
+            )
         if warm_start is not None:
             if initial_model is not None:
                 raise ValueError(
@@ -246,7 +284,7 @@ class GameEstimator:
             return self._fit(
                 data, validation_data=validation_data, initial_model=initial_model,
                 grid_callback=grid_callback, shape_pool=shape_pool,
-                checkpoint_dir=checkpoint_dir,
+                checkpoint_dir=checkpoint_dir, stream_cfg=stream_cfg,
             )
 
         restarts = []
@@ -310,13 +348,16 @@ class GameEstimator:
         ))
 
     def _fit(self, data, *, validation_data, initial_model, grid_callback, shape_pool,
-             checkpoint_dir=None):
+             checkpoint_dir=None, stream_cfg=None):
         if self.ignore_threshold_for_new_models and initial_model is None:
             raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
-        coordinates = self._build_coordinates(data, initial_model, shape_pool)
+        coordinates = self._build_coordinates(data, initial_model, shape_pool, stream_cfg)
+        telemetry = (
+            self._arm_stream_guard(coordinates, stream_cfg) if stream_cfg is not None else None
+        )
         states = (
-            self._states_from_model(initial_model, coordinates)
+            self._place_states(self._states_from_model(initial_model, coordinates), coordinates)
             if initial_model is not None
             else None
         )
@@ -335,8 +376,11 @@ class GameEstimator:
         if checkpoint_dir is not None:
             fingerprint = self._fingerprint(data)
             checkpointer = DescentCheckpointer(checkpoint_dir)
-            ckpt = checkpointer.load(expect_fingerprint=fingerprint, device=self.device)
+            ckpt = checkpointer.load(expect_fingerprint=fingerprint)
             if ckpt is not None:
+                ckpt.states = self._place_states(ckpt.states, coordinates)
+                if ckpt.best_states is not None:
+                    ckpt.best_states = self._place_states(ckpt.best_states, coordinates)
                 logger.info(
                     "resuming from checkpoint: grid %d, sweep %d", ckpt.grid_index, ckpt.iteration
                 )
@@ -411,7 +455,55 @@ class GameEstimator:
             # (grid, last completed sweep) of the checkpoint this fit resumed
             "resumed_from": None if ckpt is None else (ckpt.grid_index, ckpt.iteration),
         }
+        if telemetry is not None:
+            self.last_fit_stats["stream"] = {
+                **telemetry.report(),
+                # per bucket: solved in one chunk (the bit-parity class)
+                "single_chunk_buckets": {
+                    cid: c.single_chunk_buckets() for cid, c in coordinates.items()
+                    if isinstance(c, StreamingRandomEffectCoordinate)
+                },
+            }
         return results
+
+    @staticmethod
+    def _place_states(states: dict, coordinates) -> dict:
+        """Every state loaded on the host (warm start, checkpoint) where
+        its coordinate keeps it (``Coordinate.place_state``)."""
+        return {cid: coordinates[cid].place_state(st) for cid, st in states.items()}
+
+    @staticmethod
+    def _arm_stream_guard(coordinates, stream_cfg: StreamConfig) -> StreamTelemetry:
+        """The streaming fit's shared telemetry, with its residency guard
+        armed unless ``assert_residency`` is off: limit = 2 × the largest
+        chunk's bytes + 3·D·itemsize per fixed effect (its state and the
+        normalization's vectors stay on the card for a score stream) +
+        slack, over the allocator's bytes now. On the card a product on
+        the compute stream first brings the BLAS library's workspace into
+        that baseline, as any earlier fit in the process would have."""
+        streaming = list(coordinates.values())
+        telemetry = streaming[0].telemetry
+        if not stream_cfg.assert_residency:
+            return telemetry
+        chunk_bytes = max(c.max_chunk_device_bytes() for c in streaming)
+        table_bytes = sum(
+            c.table_device_bytes() for c in streaming
+            if isinstance(c, StreamingFixedEffectCoordinate)
+        )
+        device = streaming[0].device
+        if device.type == "cuda":
+            x = torch.ones((2, 2), device=device)
+            torch.mm(x, x)
+            torch.cuda.synchronize(device)
+            del x
+        limit = 2 * chunk_bytes + table_bytes + RESIDENCY_SLACK_BYTES
+        telemetry.guard = obs_memory.ResidencyGuard(limit)
+        logger.info(
+            "streaming residency guard armed: limit %d B (2 x %d chunk + %d tables + %d "
+            "slack) over a %d B baseline", limit, chunk_bytes, table_bytes,
+            RESIDENCY_SLACK_BYTES, telemetry.guard.baseline_bytes,
+        )
+        return telemetry
 
     def _sweep_hook(self, grid_index: int):
         if self.events is None:
@@ -440,7 +532,9 @@ class GameEstimator:
         )
 
     def _states_from_model(self, model: GameModel, coordinates) -> dict:
-        """Warm-start / partial-retrain states from a prior GameModel."""
+        """Warm-start / partial-retrain states from a prior GameModel, on
+        the host (a fixed effect's where its normalization lives); the
+        caller places them (``_place_states``)."""
         states = {}
         for cid, coord in coordinates.items():
             if cid not in model.coordinates:
@@ -455,9 +549,9 @@ class GameEstimator:
                 lookup = prior.dense_coefficient_lookup()
                 prior_idx = {k: i for i, k in enumerate(prior.vocab)}
                 bucket_states = []
-                for db, hb in zip(coord.device_buckets, coord.dataset.buckets):
+                for hb in coord.dataset.buckets:
                     # float32 host block, as the reference builds it
-                    w0 = np.zeros((db.features.shape[0], db.features.shape[2]), np.float32)
+                    w0 = np.zeros((hb.features.shape[0], hb.features.shape[2]), np.float32)
                     for i, ent in enumerate(hb.entity_ids):
                         pi = prior_idx.get(coord.dataset.vocab[ent])
                         vec = lookup[pi] if pi is not None else None
@@ -466,9 +560,7 @@ class GameEstimator:
                         cols = hb.col_index[i]
                         valid = cols >= 0
                         w0[i][valid] = vec[cols[valid]]
-                    bucket_states.append(
-                        torch.as_tensor(w0).to(device=self.device, dtype=self.dtype)
-                    )
+                    bucket_states.append(torch.as_tensor(w0).to(dtype=self.dtype))
                 states[cid] = bucket_states
             elif isinstance(coord, MatrixFactorizationCoordinate):
                 u0, v0 = (t.cpu().numpy().copy() for t in coord.initial_state())
@@ -483,8 +575,5 @@ class GameEstimator:
                     pi = c_prior.get(key)
                     if pi is not None:
                         v0[i, :k_common] = prior.col_factors[pi, :k_common]
-                states[cid] = tuple(
-                    torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
-                    for a in (u0, v0)
-                )
+                states[cid] = tuple(torch.as_tensor(a).to(dtype=self.dtype) for a in (u0, v0))
         return states

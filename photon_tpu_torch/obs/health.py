@@ -3,8 +3,9 @@
 Counterpart of photon_tpu/obs/health.py. A NaN that enters a
 coordinate's state mid-fit would otherwise poison every later sweep, the
 checkpoint and the exported model without a word. Each sweep step's
-existing outputs give three 0-d tensors on the coordinate's device
-(:func:`sweep_health`); descent stacks every coordinate's triple and
+existing outputs give three 0-d tensors on the coordinate's device, or
+a streaming coordinate's host triple (:func:`sweep_health`); descent
+stacks every coordinate's device triple and
 reads them in the ONE host copy that already closes the sweep, then
 applies the divergence policy at the sweep boundary:
 
@@ -81,7 +82,13 @@ def sweep_health(state, info) -> dict:
       finite.
 
     ``info`` is one OptimizeResult or a list of them (one per RE
-    bucket); ``state`` is the coordinate's new state."""
+    bucket); ``state`` is the coordinate's new state. A streaming
+    coordinate (game/streaming.py) sums its chunks' health on the host
+    and hands over ``info`` as a dict with host ``loss``, ``gnorm`` and
+    ``finite``: that triple passes through as it is."""
+    if isinstance(info, dict):
+        return {"loss": float(info["loss"]), "gnorm": float(info["gnorm"]),
+                "finite": bool(info["finite"])}
     # a list is the RE case; an OptimizeResult is a NamedTuple (a tuple)
     infos = info if isinstance(info, list) else [info]
     loss = sum(r.value.sum() for r in infos)

@@ -25,9 +25,14 @@ On the CPU (or before CUDA is initialized) a census reports zero device
 bytes: the port's host tensors are not device memory. (A JAX CPU run
 instead reports its host buffers, which ``jax.live_arrays()`` lists.)
 
+- **Residency** (:class:`ResidencyGuard`): a streaming fit's bound on
+  the allocator's bytes over the baseline taken when the guard was armed,
+  sampled at every chunk placement; a breach raises
+  :class:`ResidencyError`.
+
 Censuses and transfer counters are live while the obs pipeline is enabled
-and ``PHOTON_OBS_MEM`` is not ``0``. ``ResidencyGuard`` (streaming
-training's residency bound) is not ported: ROADMAP A5b, with A6.
+and ``PHOTON_OBS_MEM`` is not ``0``; an armed guard samples whatever the
+pipeline's state.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ import torch
 
 __all__ = [
     "MemoryLedger",
+    "ResidencyError",
+    "ResidencyGuard",
     "allocator_stats",
     "census",
     "count_d2h",
@@ -192,6 +199,58 @@ def live_device_bytes() -> int:
     """Bytes the caching allocator has handed out on the current card (0 on
     the CPU)."""
     return allocator_stats()["allocated_bytes"]
+
+
+class ResidencyError(RuntimeError):
+    """A streaming fit's live device bytes exceeded its declared bound."""
+
+
+class ResidencyGuard:
+    """The bounded-residency assertion of a streaming fit: ``limit_bytes``
+    (``2 × chunk bytes + tables + slack``) over the allocator's bytes when
+    the guard was armed. The chunk pipeline calls :meth:`sample` at every
+    placement, where residency peaks; the running peak feeds the stream
+    report and the ``mem.peak_bytes`` watermark. One host read of the
+    allocator's counters per sample (0 bytes on the CPU). Built per fit."""
+
+    def __init__(self, limit_bytes: int):
+        self.limit_bytes = int(limit_bytes)
+        self.baseline_bytes = live_device_bytes()
+        self.peak_bytes = self.baseline_bytes
+        self.samples = 0
+
+    def sample(self) -> int:
+        """Read the live device bytes, update the peak and raise
+        :class:`ResidencyError` when the bytes over the baseline exceed
+        the limit. Returns the live bytes."""
+        from photon_tpu_torch import obs
+
+        live = live_device_bytes()
+        self.samples += 1
+        if live > self.peak_bytes:
+            self.peak_bytes = live
+            with _ledger._lock:
+                _ledger._peak_bytes = max(_ledger._peak_bytes, live)
+                peak = _ledger._peak_bytes
+            obs.gauge("mem.peak_bytes", peak)
+        over = live - self.baseline_bytes
+        if over > self.limit_bytes:
+            raise ResidencyError(
+                f"train.stream: live device residency {live} B ({over} B over the "
+                f"{self.baseline_bytes} B baseline) exceeds the declared streaming "
+                f"budget of {self.limit_bytes} B (2 x chunk bytes + tables); the "
+                "chunk pipeline is retaining more than its double buffer"
+            )
+        return live
+
+    def report(self) -> dict:
+        return {
+            "baseline_bytes": self.baseline_bytes,
+            "limit_bytes": self.limit_bytes,
+            "peak_bytes": self.peak_bytes,
+            "peak_over_baseline_bytes": self.peak_bytes - self.baseline_bytes,
+            "samples": self.samples,
+        }
 
 
 def _leaves(tree):

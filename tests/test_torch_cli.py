@@ -28,6 +28,7 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -1143,6 +1144,111 @@ def test_recovery_flag_errors_equal_jax(avro_dirs, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# out-of-core streaming training
+# ---------------------------------------------------------------------------
+
+STREAM_ARGS = [
+    "--training-task", "LOGISTIC_REGRESSION",
+    "--feature-shard-configurations", SHARD_ARG,
+    "--coordinate-configurations",
+    "name=per-user,random.effect.type=userId,feature.shard=global,"
+    "max.iter=15,regularization=L2,reg.weights=1|10",
+    "--coordinate-update-sequence", "per-user",
+    "--coordinate-descent-iterations", "2",
+    "--output-mode", "ALL",
+    "--stream-chunk-rows", "256",
+]
+
+
+def _recording_estimator(fits):
+    """The driver's GameEstimator, recording each fit's estimator, data
+    and keyword arguments."""
+
+    class Recording(t_gt.GameEstimator):
+        def fit(self, data, **kw):
+            fits.append((self, data, kw))
+            return super().fit(data, **kw)
+
+    return Recording
+
+
+def _direct_stream_fit(est, data, **kw):
+    """The recorded fit again, through GameEstimator directly."""
+    direct = t_gt.GameEstimator(
+        task=est.task, coordinate_configs=est.coordinate_configs,
+        update_sequence=est.update_sequence, descent_iterations=est.descent_iterations,
+        device="cpu",
+    )
+    return direct.fit(data, stream=256, **kw)
+
+
+def _assert_game_models_bit_equal(a, b):
+    assert a.coordinates.keys() == b.coordinates.keys()
+    for cid, ma in a.coordinates.items():
+        mb = b.coordinates[cid]
+        assert list(ma.vocab) == list(mb.vocab)
+        for ba, bb in zip(ma.buckets, mb.buckets, strict=True):
+            assert np.array_equal(ba.coefficients, bb.coefficients)
+
+
+def test_streaming_driver_with_snapshot_then_warm_start(avro_dirs, tmp_path, monkeypatch):
+    """--stream-chunk-rows with --model-checkpoint-directory, then with
+    --warm-start-input-directory on that snapshot: each run's models equal
+    GameEstimator(...).fit(data, stream=256) on the data the driver read,
+    the cold run's equal the materialized driver's (every bucket fits in
+    one chunk at 256 rows, so bit for bit), and the run profile
+    carries the train.stream.* stage histograms."""
+    monkeypatch.delenv("PHOTON_STREAM_CHUNK_ROWS", raising=False)
+    fits = []
+    monkeypatch.setattr(t_gt, "GameEstimator", _recording_estimator(fits))
+    ckpt = tmp_path / "snapshots"
+    base = ["--input-data-directories", str(avro_dirs / "train"), *STREAM_ARGS]
+    cold = t_gt.run(base + ["--root-output-directory", str(tmp_path / "cold"),
+                            "--model-checkpoint-directory", str(ckpt)], device="cpu")
+    warm = t_gt.run(base + ["--root-output-directory", str(tmp_path / "warm"),
+                            "--warm-start-input-directory", str(ckpt)], device="cpu")
+    assert [kw["stream"] for _, _, kw in fits] == [256, 256]
+    assert "stream" in cold["fit_stats"] and "stream" in warm["fit_stats"]
+
+    (est, data, _), (_, data_w, _) = fits
+    want = _direct_stream_fit(est, data)
+    for got, exp in zip(cold["results"], want, strict=True):
+        _assert_game_models_bit_equal(got.model, exp.model)
+    # the driver loads the snapshot the cold run saved, as the direct call does
+    snap = tmp_path / "snapshot-copy"
+    shutil.copytree(ckpt, snap)
+    want_w = _direct_stream_fit(est, data_w, warm_start=str(snap))
+    for got, exp in zip(warm["results"], want_w, strict=True):
+        _assert_game_models_bit_equal(got.model, exp.model)
+    assert _coefficients(tmp_path / "warm" / "models" / "0") != _coefficients(
+        tmp_path / "cold" / "models" / "0")
+
+    materialized = t_gt.run(
+        [a for a in base if a not in ("--stream-chunk-rows", "256")]
+        + ["--root-output-directory", str(tmp_path / "materialized")], device="cpu")
+    for sub in ("best", "models/0", "models/1"):
+        _assert_models_equal(tmp_path / "cold" / sub, tmp_path / "materialized" / sub)
+    assert "stream" not in materialized["fit_stats"]
+
+    metrics = json.loads((tmp_path / "cold" / "obs" / "metrics.json").read_text())
+    names = json.dumps(metrics)
+    for stage in ("queue", "h2d", "dispatch", "readback", "pipeline"):
+        assert f"train.stream.stage_seconds.{stage}" in names
+
+
+def test_streaming_driver_refuses_a_trainable_fixed_effect(avro_dirs, tmp_path):
+    from photon_tpu_torch.game.streaming import StreamingModeError
+
+    argv = ["--input-data-directories", str(avro_dirs / "train"),
+            "--root-output-directory", str(tmp_path / "o"),
+            *[a for a in TRAIN_ARGS if a != "AUC:userId,AUC" and a != "--evaluators"],
+            "--stream-chunk-rows", "96"]
+    with pytest.raises(StreamingModeError, match="LOCKED"):
+        t_gt.run(argv, device="cpu")
+    assert not (tmp_path / "o").exists()
+
+
+# ---------------------------------------------------------------------------
 # flags whose modules are not ported
 # ---------------------------------------------------------------------------
 
@@ -1156,7 +1262,6 @@ _INDEX = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--feature-shard-configurations", SHARD_ARG]
 
 UNPORTED = [
-    (t_gt, _TRAIN, ["--stream-chunk-rows", "96"], "--stream-chunk-rows"),
     (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
     (t_gt, _TRAIN, ["--precompile"], "--precompile"),
 ]
