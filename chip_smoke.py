@@ -167,7 +167,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``--warm-start-input-directory`` on the first part: each saved model
    equals a direct ``fit(..., stream=8192)`` bit for bit, and each run
    profile holds the ``train.stream.*`` stage histograms);
-12. print one ``{"kernels": [...]}`` line and, last, the ok line.
+12. the causal trace plane and the live endpoints, which launch no
+   hand-written kernel: ``serve_trace`` (after ``serve_slo``, on its
+   registry and requests: the paced leg with its hot swap run disarmed,
+   then armed with ``causal.install(sample_n=1)`` and a ``TelemetryServer``
+   on 127.0.0.1:0 scraped in turns during traffic, the armed p99 within
+   bench's trace-overhead band of the disarmed p99; then armed again under
+   a fault plan (a 50 ms ``serve.dispatch`` stall) that breaks the SLO
+   of every leg: an exemplar kept, the fault inside a request's chain;
+   in both armed legs every ``/trace`` valid, counters monotonic, the swap
+   instant, answers bit for bit, no one-time cost), ``stream_trace`` (inside ``scoring_stream`` and
+   ``game_glmix_stream``: the warm cache stream and the streamed refit
+   again with ``PHOTON_TRACE=1``, one trace per chunk, valid, scores and
+   models bit for bit) and ``cli_game_live`` (in the cli block: the
+   training driver as a subprocess with ``PHOTON_OBS_HTTP_PORT`` set,
+   ``/metrics``, ``/healthz`` and ``/slo`` checked while it fits, then its
+   series rows, the sweep spans' ``dispatches`` in ``obs/trace.json`` and
+   its best model bit for bit ``cli_game``'s); ``main_path`` prints each
+   sweep's work counter; with ``--profile``, ``coordinate_split`` splits
+   config 5's, config 4's and ``daily_retrain``'s descents per coordinate
+   (wall, CUDA launches, device time, host syncs, work counter);
+13. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -647,6 +667,132 @@ def sync_census(data, seed) -> None:
     }))
 
 
+#: the CUDA runtime and driver calls that launch device work
+LAUNCH_CALLS = ("LaunchKernel", "cuLaunch", "MemcpyAsync", "MemsetAsync")
+
+
+def coordinate_split(config, coordinates, update_sequence, sweeps):
+    """The B5 prerequisite: where a descent's time goes, per coordinate.
+    The descent runs with ``tracker_granularity="coordinate"`` (a device
+    sync closes each coordinate's step) three times on the same built
+    coordinates: (1) plain, for each coordinate's wall and its work
+    counter (``dispatches``, from the ``descent.coordinate`` span); (2)
+    under torch.profiler, where the CUDA launches inside each
+    ``descent.coordinate`` range (runtime calls in its time window, any
+    thread) and the device time of the kernels and copies they launched
+    (matched by correlation id) are counted; (3) with
+    ``torch.cuda.set_sync_debug_mode("warn")``, the host syncs by the
+    coordinate whose step made them (``descent``: the initial score, the
+    health read and the per-coordinate syncs). Prints one row per
+    coordinate and sweep, plus the initial score."""
+    import os
+    import tempfile
+    import warnings
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.game.descent import run_coordinate_descent
+
+    def descend():
+        return run_coordinate_descent(coordinates, update_sequence, sweeps,
+                                      tracker_granularity="coordinate")
+
+    obs.reset()
+    obs.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = descend()
+        plain_s = time.perf_counter() - t0
+        spans = [sp for sp in obs.get_tracer().spans()
+                 if sp.name in ("descent.initial_score", "descent.coordinate")]
+        obs.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            descend()
+            torch.cuda.synchronize()
+    finally:
+        obs.disable()
+        obs.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"] in ("descent.initial_score", "descent.coordinate"))
+    device = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            corr = (e.get("args") or {}).get("correlation")
+            device[corr] = device.get(corr, 0.0) + e.get("dur", 0.0)
+    calls = sorted((e["ts"], (e.get("args") or {}).get("correlation")) for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and any(k in e["name"] for k in LAUNCH_CALLS))
+
+    # (3) the host syncs, by the coordinate whose step made them
+    where = ["descent"]
+    syncs: Counter = Counter()
+    originals = {}
+    for cid in update_sequence:
+        step = coordinates[cid].sweep_step
+        originals[cid] = step
+
+        def labelled(*a, _cid=cid, _step=step, **k):
+            where[0] = _cid
+            try:
+                return _step(*a, **k)
+            finally:
+                where[0] = "descent"
+
+        coordinates[cid].sweep_step = labelled
+
+    def count(message, *a, **k):
+        if "synchroniz" in str(message):
+            syncs[where[0]] += 1
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = count
+            descend()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for cid, step in originals.items():
+            del coordinates[cid].sweep_step
+    per_sweep_syncs = {cid: syncs[cid] / sweeps for cid in update_sequence}
+
+    labels = [("initial_score", None)] + [
+        (r["coordinate"], r["iteration"]) for r in plain.tracker if "coordinate" in r]
+    walls = [None] + [r["seconds"] for r in plain.tracker if "coordinate" in r]
+    if not (len(ranges) == len(spans) == len(labels)):
+        fail(f"coordinate_split[{config}]: {len(ranges)} profiled ranges, {len(spans)} spans, "
+             f"{len(labels)} steps")
+    rows = []
+    for (lo, hi), span, (cid, it), wall in zip(ranges, spans, labels, walls):
+        corr = [c for ts, c in calls if lo <= ts <= hi]
+        rows.append({
+            "coordinate": cid, "iteration": it,
+            "wall_s": span.dur_ns / 1e9 if wall is None else wall,
+            "dispatches": span.args.get("dispatches"),
+            "cuda_launches": len(corr),
+            "device_ms": sum(device.get(c, 0.0) for c in corr) / 1e3,
+            "traced_range_ms": (hi - lo) / 1e3,
+        })
+    for r in rows[1:]:  # the initial score's wall is an enqueue wall: no share
+        r["host_syncs_per_sweep"] = per_sweep_syncs[r["coordinate"]]
+        r["device_busy_share"] = r["device_ms"] / 1e3 / r["wall_s"]
+    log(json.dumps({
+        "phase": "coordinate_split", "config": config, "sweeps": sweeps,
+        "plain_descent_s": plain_s, "rows": rows,
+        "host_syncs_outside_steps": syncs["descent"],
+    }))
+
+
 def sequential_scores(scorer, data):
     """The scorer's batches one after another with no pipeline: each batch
     assembled on the host, copied with a blocking ``.to(device)`` from
@@ -748,6 +894,9 @@ def main_path(data, seed):
         "build_s": est.last_fit_stats["build_s"],
         "window_build": wbuild,
         "sweep_seconds": [r["sweep_seconds"] for r in sweeps],
+        "sweep_dispatches": [r["dispatches"] for r in sweeps],
+        "granularity": sweeps[-1]["granularity"],
+        "fit_dispatches": est.last_fit_stats["dispatches"],
         "steady_sweep_s": sweeps[-1]["sweep_seconds"],
         "steady_coordinate_s": per_coord,
         "fe_iterations_sweep0": int(info.iterations),
@@ -1407,7 +1556,7 @@ def with_intercept(data):
                     id_tags=data.id_tags)
 
 
-def game_glmix(seed):
+def game_glmix(seed, profile=False):
     """Bench config 4 (glmix_game_estimator) at full scale: a dense fixed
     effect of 128 columns and a per-user random effect over 8192 Zipf users
     (d=16, upper bound 1024), L2 λ=1, FE 20 / RE 10 L-BFGS iterations, 3
@@ -1466,6 +1615,9 @@ def game_glmix(seed):
     auc = grouped_auc(base.scores, data.labels, np.asarray(data.id_tags["user"]))
     if not auc >= 0.8:
         fail(f"game_glmix: per-user grouped AUC {auc} < 0.8")
+    if profile:
+        coordinate_split("config4", est._build_coordinates(data), est.update_sequence,
+                         est.descent_iterations)
 
     # the estimator's options on the same widths
     data_i, valid_i = with_intercept(data), with_intercept(valid)
@@ -1848,6 +2000,43 @@ def busy_from_events(scorer, reader, wall):
             "device_busy_share": device_ms / 1e3 / wall}
 
 
+def traced(run, ring):
+    """``run()`` with the causal trace plane armed as a user arms it,
+    ``PHOTON_TRACE=1`` (and ``PHOTON_TRACE_RING=ring``, room for every
+    chunk's trace): its result, the Chrome trace and the buffer's census,
+    the plane disarmed again after."""
+    import os
+
+    from photon_tpu_torch.obs import causal
+
+    os.environ["PHOTON_TRACE"] = "1"
+    os.environ["PHOTON_TRACE_RING"] = str(ring)
+    try:
+        out = run()
+        doc = causal.chrome_trace()
+    finally:
+        del os.environ["PHOTON_TRACE"], os.environ["PHOTON_TRACE_RING"]
+        causal.clear()
+    errs = causal.validate_chrome_trace(doc)
+    if errs:
+        fail(f"stream_trace: the trace violates the schema: {errs[:3]}")
+    return out, doc, doc["otherData"]["causal_tracing"]
+
+
+def chunk_traces(phase, doc, stats, name, chunks, streams):
+    """Fails unless every one of ``chunks`` chunks had one ``name`` trace,
+    finished and exported, and each of ``streams`` streams minted one more
+    around its producer's last, empty pull."""
+    kept = [t for t in doc["otherData"]["causal_tracing"]["traces"] if t["name"] == name]
+    if not (stats["finished"] == len(kept) == chunks and stats["minted"] == chunks + streams):
+        fail(f"{phase}: {stats['minted']} {name} traces minted, {stats['finished']} finished, "
+             f"{len(kept)} exported for {chunks} chunks in {streams} streams")
+    flows = {e["id"] for e in doc["traceEvents"] if e["ph"] == "f"}
+    return {"traces": len(kept), "chunks": chunks, "streams": streams,
+            "resolved_flows": len(flows), "exported_events": len(doc["traceEvents"]),
+            "outcomes": sorted({t["outcome"] for t in kept})}
+
+
 def scoring_stream(seed, tmp):
     """Bench config 6 (``game_scoring_stream``): its model and traffic at
     full widths, 16 Avro parts of 2^18 rows (the depth cut from 2^20), in
@@ -1971,6 +2160,21 @@ def scoring_stream(seed, tmp):
         telemetry = {"off_rows_per_s": [warm_row["rows_per_s"], again_row["rows_per_s"]],
                      "on_rows_per_s": obs_row["rows_per_s"], "on_spans": obs_spans,
                      "on_stage_sum_s": obs_row["stage_sum_s"]}
+        # stream_trace: the warm stream with PHOTON_TRACE armed, one
+        # score.chunk trace per chunk, the scores bit for bit
+        (warm_traced, _, traced_row), tdoc, tstats = traced(
+            lambda: stream_leg("cache_warm_traced", lambda: warm_reader.iter_chunks(SS_BATCH)),
+            ring=4 * SS_N // SS_BATCH)
+        if not np.array_equal(warm_traced, warm):
+            fail("stream_trace: the warm stream scored differently with PHOTON_TRACE armed")
+        log(json.dumps({
+            "phase": "stream_trace", "run": "scoring_stream warm cache",
+            **chunk_traces("stream_trace", tdoc, tstats, "score.chunk",
+                           traced_row["batches"], 1),
+            "rows_per_s": {"armed": traced_row["rows_per_s"],
+                           "disarmed": [warm_row["rows_per_s"], again_row["rows_per_s"]]},
+            "scores_bit_equal": True,
+        }))
         # the same warm stream again under the profiler, for the busy share
         # only: its rows/s and stage walls come from the run above
         (profiled, _, profiled_row), busy = device_busy_share(
@@ -3370,7 +3574,8 @@ def serve_engine(seed):
                         "stages": cl_stats.stage_percentiles(),
                         "profiled_rows_per_s": rows / prof_wall, "device": busy},
     }))
-    return registry, requests, exp_b
+    return registry, requests, {"a": (model_a, model_fingerprint(model_a), exp_a),
+                                "b": (model_b, fp_b, exp_b)}
 
 
 def serve_slo(seed, registry, requests, exp_b):
@@ -3412,6 +3617,237 @@ def serve_slo(seed, registry, requests, exp_b):
         "traffic_wall_s": wall, "rows_per_s": SERVE_REQUESTS * SERVE_REQ_ROWS / wall,
         "e2e": stats.e2e_percentiles(), "serve_counters": doc["counters"],
         "traffic_compiles": summary["compiles"],
+    }))
+
+
+SERVE_TRACE_FAULT = "serve.dispatch@40=stall:0.05"
+#: a budget the injected 50 ms stall must break, so its request ends
+#: "deadline" and is kept as an exemplar (the paced leg's p99 is ~27 ms)
+SERVE_TRACE_SLO = "p99<=40ms@60s"
+TRACE_OVERHEAD_P99_FRAC_MAX = 1.0  # bench.py QUALITY_BANDS game_scoring_tail
+TRACE_SCRAPE_PATHS = ("/metrics", "/healthz", "/slo", "/trace")
+
+
+class Scraper:
+    """A thread that GETs the live endpoints in turn every ``interval_s``
+    while traffic runs: it parses ``/metrics`` with the port's
+    ``parse_prometheus_text`` (and holds every counter, and every summary's
+    ``_count`` and ``_sum``, never to decrease), loads the JSON documents
+    and holds every ``/trace`` to ``validate_chrome_trace``. ``stop()``
+    joins it and returns the failures it saw."""
+
+    def __init__(self, port, interval_s=0.2):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.interval_s = interval_s
+        self.walls = {p: [] for p in TRACE_SCRAPE_PATHS}
+        self.failures: list[str] = []
+        self.last: dict = {}
+        self.counters: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="chip-smoke-scraper",
+                                        daemon=True)
+
+    def get(self, path):
+        import urllib.request
+
+        from photon_tpu_torch.obs import causal
+        from photon_tpu_torch.obs.http import parse_prometheus_text
+
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(self.base + path, timeout=10) as resp:
+            body = resp.read().decode()
+        self.walls[path].append(time.perf_counter() - t0)
+        if path == "/metrics":
+            fams = parse_prometheus_text(body)
+            for fam in fams.values():
+                for name, labels, value in fam["samples"]:
+                    if fam["type"] == "counter" or name.endswith(("_count", "_sum")):
+                        if value < self.counters.get(name, value):
+                            self.failures.append(f"{name} fell from {self.counters[name]} "
+                                                 f"to {value}")
+                        self.counters[name] = value
+            doc = fams
+        else:
+            doc = json.loads(body)
+        if path == "/trace":
+            errs = causal.validate_chrome_trace(doc)
+            if errs:
+                self.failures.append(f"/trace violates the schema: {errs[:3]}")
+        self.last[path] = doc
+        return doc
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            path = TRACE_SCRAPE_PATHS[i % len(TRACE_SCRAPE_PATHS)]
+            try:
+                self.get(path)
+            except Exception as e:  # noqa: BLE001 - a failed scrape is a finding
+                self.failures.append(f"{path}: {type(e).__name__}: {e}")
+            i += 1
+            self._stop.wait(self.interval_s)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        return self.failures
+
+
+def serve_trace(seed, registry, requests, models):
+    """The causal trace plane and the live endpoints under serving traffic:
+    the paced leg of ``serve_engine`` (128 requests of 1,024 rows at 24
+    qps, a hot swap from model B to model A at request 64) three times on
+    the same registry, each with telemetry on and the SLO SERVE_TRACE_SLO
+    installed, B made active again before each:
+
+    - ``disarmed``: no trace plane, no fault;
+    - ``armed``: ``causal.install(sample_n=1)`` and a ``TelemetryServer``
+      on 127.0.0.1:0 scraped every 0.2 s in turns (``/metrics``,
+      ``/healthz``, ``/slo``, ``/trace``), no fault. This pair measures
+      what tracing costs: the armed p99 must lie within
+      TRACE_OVERHEAD_P99_FRAC_MAX of the disarmed p99;
+    - ``faulted``: armed and scraped as above, with the fault plan
+      SERVE_TRACE_FAULT (a 50 ms stall in one dispatch), which breaks the
+      SLO. It carries the chain checks: at least one exemplar retained,
+      the injected fault inside a request's chain, the swap instant
+      present.
+
+    In both armed legs: every scrape answered and parsed, each ``/trace``
+    valid (every flow id resolves), at least three scrapes of each
+    endpoint, Prometheus counters never decreasing, no one-time cost in
+    the traffic window. In every leg each answer equals the cold scorer's
+    on the model that served it, and an armed answer equals the disarmed
+    one wherever both legs served a request from the same model."""
+    import numpy as np
+
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import causal, slo
+    from photon_tpu_torch.obs.http import TelemetryServer
+    from photon_tpu_torch.util import faults
+
+    model_a, fp_a, exp_a = models["a"]
+    model_b, fp_b, exp_b = models["b"]
+    swap = {"at": SERVE_REQUESTS // 2, "model": model_a, "fingerprint": fp_a}
+    legs = {}
+    for leg, armed_leg, fault in (("disarmed", False, False), ("armed", True, False),
+                                  ("faulted", True, True)):
+        if registry.entry("default").fingerprint != fp_b:
+            registry.begin_swap("default", model_b, expect_fingerprint=fp_b)
+            registry.apply_pending_swap("default")
+        causal.clear()
+        slo.clear()
+        obs.reset()
+        obs.enable()
+        slo.install(SERVE_TRACE_SLO)
+        if fault:
+            faults.install(SERVE_TRACE_FAULT)
+        server = scraper = buf = None
+        try:
+            if armed_leg:
+                buf = causal.install(sample_n=1, ring=2 * SERVE_REQUESTS)
+                server = TelemetryServer(0)
+                scraper = Scraper(server.start()).start()
+            futures, post_flip, swap_row, stats, summary, wall = serve_paced(
+                registry, requests, seed, swap=swap)
+            if scraper is not None:
+                failures = scraper.stop()
+                t0 = time.perf_counter()
+                final = scraper.get("/trace")
+                final_wall = time.perf_counter() - t0
+        finally:
+            if scraper is not None:
+                scraper.stop()
+            if server is not None:
+                server.stop()
+            faults.clear()
+        answers = [f.result(timeout=5) for f in futures]
+        on = []
+        for i, got in enumerate(answers):
+            which = ("b" if np.array_equal(got, exp_b[i]) else
+                     "a" if np.array_equal(got, exp_a[i]) else None)
+            if which is None or (i in set(post_flip) and which != "a"):
+                fail(f"serve_trace[{leg}]: request {i} answered {which or 'neither model'}")
+            on.append(which)
+        legs[leg] = {"answers": answers, "on": on, "stats": stats, "summary": summary,
+                     "swap": swap_row, "wall": wall, "slo": slo.report()}
+        if armed_leg:
+            legs[leg].update(doc=final, buf=buf, failures=failures, scraper=scraper,
+                             final_wall=final_wall)
+    causal.clear()
+    slo.clear()
+    obs.disable()
+    obs.reset()
+
+    disarmed = legs["disarmed"]
+    same = {}
+    for leg in ("armed", "faulted"):
+        got = legs[leg]
+        same[leg] = [i for i in range(SERVE_REQUESTS) if got["on"][i] == disarmed["on"][i]]
+        for i in same[leg]:
+            if not np.array_equal(got["answers"][i], disarmed["answers"][i]):
+                fail(f"serve_trace[{leg}]: request {i} answered differently armed and disarmed")
+        if got["failures"]:
+            fail(f"serve_trace[{leg}]: {len(got['failures'])} scrape failures: "
+                 f"{got['failures'][:3]}")
+        counts = {p: len(w) for p, w in got["scraper"].walls.items()}
+        if min(counts.values()) < 3:
+            fail(f"serve_trace[{leg}]: too few scrapes during traffic: {counts}")
+        errs = causal.validate_chrome_trace(got["doc"])
+        if errs:
+            fail(f"serve_trace[{leg}]: /trace violates the schema: {errs[:3]}")
+        compiles = got["summary"]["compiles"]
+        if compiles["backend_compiles"] != 0 or got["summary"]["swap_build_compiles"] != 0:
+            fail(f"serve_trace[{leg}]: one-time costs in the traffic window: {compiles}")
+        names = [e["name"] for e in got["doc"]["traceEvents"]]
+        if names.count("serve.swap") != 1:
+            fail(f"serve_trace[{leg}]: {names.count('serve.swap')} swap instants on /trace")
+    faulted = legs["faulted"]
+    tracing = faulted["doc"]["otherData"]["causal_tracing"]
+    if tracing["retained_exemplars"] < 1:
+        fail(f"serve_trace: no exemplar retained ({tracing})")
+    victims = [t.trace_id for t in faulted["buf"].traces()
+               if any(e["name"] == "fault.injected" for g in t.shared for e in g.events)]
+    if not victims or "fault.injected" not in [e["name"] for e in faulted["doc"]["traceEvents"]]:
+        fail("serve_trace: the injected fault is in no request's chain")
+    e2e = {leg: legs[leg]["stats"].e2e_percentiles() for leg in legs}
+    frac = (e2e["armed"]["p99"] - e2e["disarmed"]["p99"]) / e2e["disarmed"]["p99"]
+    if not frac <= TRACE_OVERHEAD_P99_FRAC_MAX:
+        fail(f"serve_trace: armed p99 {e2e['armed']['p99']} vs disarmed "
+             f"{e2e['disarmed']['p99']} (+{frac:.3f}, band {TRACE_OVERHEAD_P99_FRAC_MAX})")
+
+    def pct(xs):
+        xs = sorted(xs)
+        return {"n": len(xs), "p50_ms": 1e3 * xs[len(xs) // 2], "max_ms": 1e3 * xs[-1]}
+
+    log(json.dumps({
+        "phase": "serve_trace", "fault_plan": SERVE_TRACE_FAULT, "slo": SERVE_TRACE_SLO,
+        "swap_at": SERVE_REQUESTS // 2, "e2e": e2e,
+        "p99_delta_frac": frac,
+        "p50_delta_frac": (e2e["armed"]["p50"] - e2e["disarmed"]["p50"]) / e2e["disarmed"]["p50"],
+        "p99_delta_frac_band": TRACE_OVERHEAD_P99_FRAC_MAX,
+        "traffic_wall_s": {leg: legs[leg]["wall"] for leg in legs},
+        "violations": {leg: legs[leg]["slo"]["violations"] for leg in legs},
+        "requests_on_the_same_model": {leg: len(v) for leg, v in same.items()},
+        "tracing": {leg: {k: legs[leg]["doc"]["otherData"]["causal_tracing"][k]
+                          for k in ("minted", "finished", "retained_sampled",
+                                    "retained_exemplars", "windows", "dropped",
+                                    "evicted_exemplars")} for leg in same},
+        "exported_events": {leg: len(legs[leg]["doc"]["traceEvents"]) for leg in same},
+        "fault_victims": len(victims),
+        "scrapes": {leg: {p: len(w) for p, w in legs[leg]["scraper"].walls.items()}
+                    for leg in same},
+        "scrape_walls": {leg: {p: pct(w) for p, w in legs[leg]["scraper"].walls.items()}
+                         for leg in same},
+        "final_trace_scrape_ms": {leg: 1e3 * legs[leg]["final_wall"] for leg in same},
+        "prometheus_counters_monotonic": {leg: len(legs[leg]["scraper"].counters)
+                                          for leg in same},
+        "armed_compiles": {leg: legs[leg]["summary"]["compiles"] for leg in same},
     }))
 
 
@@ -4003,7 +4439,7 @@ def overlap_us(spans, cover):
     return total
 
 
-def daily_retrain(seed):
+def daily_retrain(seed, profile=False):
     """bench glmix_daily_retrain at full scale on the card (module
     docstring, phase 11): the cold streaming fit with a model snapshot,
     the warm delta day from it, a second cold streaming fit, the
@@ -4083,6 +4519,8 @@ def daily_retrain(seed):
     unprofiled_s = time.perf_counter() - t
     _, traced_s, kernels, h2d, other = device_intervals(
         lambda: run_coordinate_descent(coords, ["per-user"], 1))
+    if profile:
+        coordinate_split("daily_retrain", coords, ["per-user"], 1)
     del coords
     busy = merged(kernels + h2d + other)
     busy_s = sum(b - a for a, b in busy) / 1e6
@@ -4220,6 +4658,28 @@ def game_glmix_stream(seed):
     str_s = time.perf_counter() - t0
     str_peak = torch.cuda.max_memory_allocated()
     st = stream_checks("game_glmix_stream", str_est, got)
+    # stream_trace: the same streamed refit with PHOTON_TRACE armed, one
+    # train.chunk trace per chunk, the model and scores bit for bit
+    traced_est = estimator(True)
+    t0 = time.perf_counter()
+    traced_got, tdoc, tstats = traced(
+        lambda: traced_est.fit(data, stream=DR_CHUNK, initial_model=base)[0], ring=1 << 14)
+    traced_s = time.perf_counter() - t0
+    same = np.array_equal(got.model["fixed"].coefficients.means,
+                          traced_got.model["fixed"].coefficients.means) and all(
+        np.array_equal(a.coefficients, b.coefficients)
+        for a, b in zip(got.model["user"].buckets, traced_got.model["user"].buckets,
+                        strict=True))
+    if not same or not np.array_equal(got.scores, traced_got.scores):
+        fail("stream_trace: the streamed refit differs with PHOTON_TRACE armed")
+    tst = traced_est.last_fit_stats["stream"]
+    log(json.dumps({
+        "phase": "stream_trace", "run": "game_glmix_stream streamed refit",
+        **chunk_traces("stream_trace", tdoc, tstats, "train.chunk", tst["chunks"],
+                       tst["streams"]),
+        "refit_s": {"armed": traced_s, "disarmed": str_s}, "model_bit_equal": True,
+    }))
+    del traced_est, traced_got, tdoc
 
     want_fe = base["fixed"].coefficients.means
     for name, m in (("materialized", mat.model), ("streamed", got.model)):
@@ -4257,6 +4717,144 @@ def game_glmix_stream(seed):
         "stream": {k: v for k, v in st.items() if k != "single_chunk_buckets"},
         "max_memory_allocated_streamed_bytes": str_peak,
         "max_memory_allocated_materialized_bytes": mat_peak,
+    }))
+
+
+CLI_LIVE_SLO = "p99<=250ms@60s"  # scripts/live_probe.py's spec: the training driver
+# scores no batches, so /slo holds the spec and the burn windows' shape
+
+
+def cli_game_live(ctx):
+    """The live endpoints of a real training run: ``python -m
+    photon_tpu_torch.cli.game_training`` as a subprocess on the card with
+    ``cli_game``'s command line (``--output-mode BEST``: one model saved),
+    ``PHOTON_OBS_HTTP_PORT`` on a free loopback port, ``PHOTON_OBS_FLUSH_S=1``
+    and ``PHOTON_SLO_SPEC``. While it runs, ``/metrics``, ``/healthz`` and
+    ``/slo`` are checked as scripts/live_probe.py checks them (parsed
+    Prometheus text with ``photon_*`` families; the health document's keys
+    and its armed spec; the SLO spec and three burn windows), each at least
+    three times, and one ``/metrics`` scrape taken while the process lives
+    must count finished sweeps. After it exits 0: ``obs/series.jsonl``
+    rows parse, ``obs/trace.json`` holds the ``descent.sweep`` spans with
+    their ``dispatches``, and the saved best model equals ``cli_game``'s
+    bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import urllib.error
+    import urllib.request
+
+    from photon_tpu_torch.io.model_io import load_game_model
+    from photon_tpu_torch.obs.http import parse_prometheus_text
+    from photon_tpu_torch.obs.series import read_series
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = f"{ctx['tmp']}/live"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    env.update(PHOTON_OBS_HTTP_PORT=str(port), PHOTON_OBS_FLUSH_S="1",
+               PHOTON_SLO_SPEC=CLI_LIVE_SLO)
+    base = f"http://127.0.0.1:{port}"
+    log_path = f"{ctx['tmp']}/live.log"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=10) as resp:
+            return resp.read().decode()
+
+    def check(path, body):
+        if path == "/metrics":
+            # empty before the run's first counter; its sweeps are required
+            # below, from a scrape taken while the process lived
+            fams = parse_prometheus_text(body)
+            if any(not name.startswith("photon_") for name in fams):
+                fail(f"cli_game_live: a family outside photon_* on /metrics: {sorted(fams)}")
+            sweeps = fams.get("photon_descent_sweeps_total")
+            return sweeps["samples"][0][2] if sweeps else 0.0
+        doc = json.loads(body)
+        if path == "/healthz":
+            missing = {"status", "recovery", "watchdog", "recorder", "flusher"} - set(doc)
+            if missing or doc["status"] not in ("ok", "diverged"):
+                fail(f"cli_game_live: /healthz missing {missing} or status {doc.get('status')}")
+            if (doc.get("slo") or {}).get("spec") != CLI_LIVE_SLO:
+                fail(f"cli_game_live: /healthz slo section {doc.get('slo')}")
+        else:
+            spec = doc.get("spec") or {}
+            burn = doc.get("burn_rates")
+            if not doc.get("armed") or spec.get("spec") != CLI_LIVE_SLO or not (
+                    isinstance(burn, dict) and len(burn) == 3 and all(
+                        {"window_s", "batches", "violations", "rate"} <= set(b)
+                        for b in burn.values())):
+                fail(f"cli_game_live: /slo document {doc}")
+        return None
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "photon_tpu_torch.cli.game_training",
+             *cli_args(ctx, "live", "--output-mode", "BEST")],
+            env=env, stdout=log_f, stderr=subprocess.STDOUT)
+    scrapes = {"/metrics": 0, "/healthz": 0, "/slo": 0}
+    first_s = None
+    mid_fit_sweeps = 0.0
+    try:
+        i = 0
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > 900:
+                fail("cli_game_live: the training driver ran past 900 s")
+            path = list(scrapes)[i % 3]
+            try:
+                body = get(path)
+            except (urllib.error.URLError, ConnectionError, OSError):
+                if proc.poll() is not None or first_s is not None:
+                    break  # the driver is shutting its endpoints down
+                time.sleep(0.25)
+                continue
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            sweeps = check(path, body)
+            if proc.poll() is None:
+                scrapes[path] += 1
+                if sweeps:
+                    mid_fit_sweeps = max(mid_fit_sweeps, sweeps)
+            i += 1
+            time.sleep(0.25)
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"cli_game_live: the training driver exited {rc}: {tail}")
+    if min(scrapes.values()) < 3 or mid_fit_sweeps < 1:
+        fail(f"cli_game_live: scrapes while the driver ran {scrapes}, sweeps seen "
+             f"{mid_fit_sweeps}")
+    rows = read_series(f"{out}/obs/series.jsonl")
+    if not rows:
+        fail("cli_game_live: obs/series.jsonl holds no row")
+    with open(f"{out}/obs/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    sweep_dispatches = [e["args"]["dispatches"] for e in events
+                        if e.get("name") == "descent.sweep" and "dispatches" in e.get("args", {})]
+    want_sweeps = sum(1 for r in ctx["res"]["results"] for t in r.tracker
+                      if "sweep_seconds" in t)
+    if len(sweep_dispatches) != want_sweeps or min(sweep_dispatches) < 3:
+        fail(f"cli_game_live: obs/trace.json sweep spans' dispatches {sweep_dispatches}")
+    t1 = time.perf_counter()
+    loaded = load_game_model(f"{out}/best", ctx["res"]["index_maps"])
+    load_s = time.perf_counter() - t1
+    differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, loaded)
+    if differs:
+        fail(f"cli_game_live: {differs} of the saved best model differs from cli_game's")
+    log(json.dumps({
+        "phase": "cli_game_live", "driver_wall_s": wall, "endpoints_up_after_s": first_s,
+        "scrapes_while_running": scrapes, "sweeps_seen_mid_run": mid_fit_sweeps,
+        "series_rows": len(rows), "sweep_span_dispatches": sweep_dispatches,
+        "best_model_load_s": load_s, "best_model_bit_equal": True,
     }))
 
 
@@ -4359,8 +4957,8 @@ def cli_game_stream(seed, tmp, train_dir=None):
                     "saved_equals_direct": True}))
 
 
-def streaming_phases(seed) -> None:
-    daily_retrain(seed)
+def streaming_phases(seed, profile=False) -> None:
+    daily_retrain(seed, profile)
     daily_retrain_parity(seed)
     game_glmix_stream(seed)
 
@@ -4371,7 +4969,9 @@ def main() -> None:
     ap.add_argument(
         "--profile", action="store_true",
         help="trace the sweeps of a second fit with torch.profiler (device time by "
-        "kernel) and count a third fit's host syncs by call site",
+        "kernel), count a third fit's host syncs by call site, and split the wall, CUDA "
+        "launches, device time, host syncs and work counter of each coordinate of config 5, "
+        "config 4 and daily_retrain (coordinate_split)",
     )
     ap.add_argument(
         "--streaming-only", action="store_true",
@@ -4413,7 +5013,7 @@ def main() -> None:
                     "nvcc_seconds": cuda_build.build_seconds}))
 
     if args.streaming_only:
-        streaming_phases(args.seed)
+        streaming_phases(args.seed, args.profile)
         with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-stream-") as tmp:
             cli_game_stream(args.seed, tmp)
         return
@@ -4435,6 +5035,10 @@ def main() -> None:
     if args.profile:
         profile_sweeps(data, args.seed, sweeps_s)
         sync_census(data, args.seed)
+        est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float32, seed=args.seed)
+        coordinate_split("config5", est._build_coordinates(data), est.update_sequence,
+                         est.descent_iterations)
+        del est
     del data
 
     glm_a1a(args.seed)
@@ -4447,7 +5051,8 @@ def main() -> None:
     segmented_launches = owlqn_segmented_and_full(args.seed)
 
     variance_launches, kvar = small_game_parity(args.seed)
-    game_launches = {"game_glmix": game_glmix(args.seed), "game_ctr_mf": game_ctr_mf(args.seed)}
+    game_launches = {"game_glmix": game_glmix(args.seed, args.profile),
+                     "game_ctr_mf": game_ctr_mf(args.seed)}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
         cli_launches, kcli, ctx = cli_game(args.seed, tmp)
         recovery_launches = {"cli_game_resume": cli_game_resume(ctx)}
@@ -4457,6 +5062,7 @@ def main() -> None:
         del train, valid, settings
         recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
         cache_launches = cli_game_cache(ctx)
+        cli_game_live(ctx)
         cli_game_stream(args.seed, tmp, ctx["train"])
         serve_requests, serve_reference = cli_serving(ctx)
         cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
@@ -4466,10 +5072,11 @@ def main() -> None:
     cli_legacy_diagnose(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
         scoring_stream(args.seed, tmp)
-    registry, requests, exp_b = serve_engine(args.seed)
-    serve_slo(args.seed, registry, requests, exp_b)
-    del registry, requests, exp_b
-    streaming_phases(args.seed)
+    registry, requests, models = serve_engine(args.seed)
+    serve_slo(args.seed, registry, requests, models["b"][2])
+    serve_trace(args.seed, registry, requests, models)
+    del registry, requests, models
+    streaming_phases(args.seed, args.profile)
 
     def timings(row):
         return {key: row[key] for key in (

@@ -189,7 +189,9 @@ def run_profile(out_root=None):
     ``out_root`` also arms the live plane under ``<out_root>/obs/``: a
     stale flight ring that a killed previous run left there is recovered
     into ``blackbox-<seq>.json`` first, then the flight recorder with its
-    crash handlers and the series flusher (``PHOTON_OBS_FLUSH_S``) run for
+    crash handlers, the series flusher (``PHOTON_OBS_FLUSH_S``) and the
+    opt-in HTTP endpoints (``PHOTON_OBS_HTTP_PORT``: ``/metrics``,
+    ``/healthz``, ``/slo``, ``/trace``, ``/blackbox`` on 127.0.0.1) run for
     the session. A run that FAILS writes a blackbox dump and best-effort
     ``partial.*`` artifacts before the exception propagates.
 

@@ -23,7 +23,8 @@ Knobs (env wins over flag): ``PHOTON_SERVE_QUEUE_CAP`` / ``--queue-cap``,
 ``PHOTON_SERVE_DEADLINE_S`` / ``--default-deadline-s``,
 ``PHOTON_SERVE_MEM_BYTES`` / ``--mem-budget-bytes``,
 ``PHOTON_SCORE_BATCH_ROWS`` / ``--score-batch-rows``; ``PHOTON_SLO_SPEC``
-arms a latency SLO.
+arms a latency SLO, ``PHOTON_TRACE=1`` causal request tracing (obs/causal.py),
+and ``PHOTON_OBS_HTTP_PORT`` the live endpoints, ``/trace`` among them.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from photon_tpu_torch.cli import game_base
 from photon_tpu_torch.game.recovery import classify_failure
 from photon_tpu_torch.game.scoring import score_batch_rows
 from photon_tpu_torch.io.model_io import load_game_model, read_model_feature_keys
-from photon_tpu_torch.obs import slo
+from photon_tpu_torch.obs import causal, slo
 from photon_tpu_torch.serve import AdmissionQueue, ModelRegistry, ServingEngine, spool
 from photon_tpu_torch.serve.admission import ServeSheddingError
 from photon_tpu_torch.serve.registry import MANIFEST_NAME, SwapValidationError
@@ -188,8 +189,8 @@ def run(argv=None, *, device="cuda") -> dict:
     with game_base.run_profile(out_root), PhotonLogger(
         os.path.join(out_root, "driver.log"), level=args.log_level
     ) as log:
-        obs.refuse_unported_env(("PHOTON_TRACE",))
         slo.ensure_from_env()
+        causal.ensure_from_env()
         registry = ModelRegistry(mem_budget_bytes=args.mem_budget_bytes,
                                  manifest_path=manifest_path, device=device)
         widths = {s: int(v) for s, v in _parse_kv(args.precompile_nnz, "--precompile-nnz").items()}

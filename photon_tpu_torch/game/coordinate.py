@@ -15,6 +15,19 @@ Counterpart of photon_tpu/game/coordinate.py, single device, no mesh.
 
 ``sweep_step`` is the coordinate-descent step: residual = total − own
 score, train on it, rescore, fold the new score back into the total.
+
+Work counter (``obs.record_dispatch``): a ``sweep_step`` is one launch
+site, as JAX's fused step is one compiled program (the port has no
+unfused variant; the ``train`` and ``score`` it calls count as part of
+it), and ``train`` or ``score`` called on its own is one, as in JAX.
+These are coordinate-level sites, not CUDA kernels: a step launches
+many.
+
+Placement: each random-effect bucket goes to the device inside
+``retry_call(..., label="device_put")`` with the fault point
+``coordinate.placement`` inside the retried thunk, as JAX's
+``put_with_retry`` does; a failed attempt's tensors are dropped before
+the retry.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.data.dataset import choose_sparse
 from photon_tpu_torch.game.config import (
     FeatureRepresentation,
@@ -50,8 +64,15 @@ from photon_tpu_torch.ops.sparse_windows import maybe_build_windows
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype
+from photon_tpu_torch.util import faults
+from photon_tpu_torch.util.retry import RetryPolicy, is_transient, retry_call
 
 Tensor = torch.Tensor
+
+#: bucket placement retries: JAX's put_with_retry schedule (3 attempts,
+#: 20 s doubling to a 2-minute cap, ±10% jitter)
+PLACEMENT_RETRY_POLICY = RetryPolicy(attempts=3, base_s=20.0, multiplier=2.0, cap_s=120.0,
+                                     jitter=0.1)
 
 
 def _use_sparse(representation: FeatureRepresentation, shard, dtype, bf16=False) -> bool:
@@ -113,9 +134,10 @@ def score_rows(feats: Tensor, coef_rows: Tensor) -> Tensor:
 class Coordinate:
     def sweep_step(self, total: Tensor, score: Tensor, state):
         """→ (new_state, new_score, new_total, info)"""
-        residual = total - score
-        new_state, info = self.train(residual, state)
-        new_score = self.score(new_state)
+        with obs.dispatch_site():
+            residual = total - score
+            new_state, info = self.train(residual, state)
+            new_score = self.score(new_state)
         return new_state, new_score, residual + new_score, info
 
     def place_state(self, state):
@@ -206,11 +228,13 @@ class FixedEffectCoordinate(Coordinate):
         return torch.zeros(self.num_features, dtype=self.dtype, device=self.device)
 
     def train(self, residual_scores: Tensor, state: Tensor):
+        obs.record_dispatch()
         res = self.problem.solve(self.batch, state, extra_offsets=residual_scores)
         return res.x, res
 
     def score(self, state: Tensor) -> Tensor:
         """x·(w .* factor) + margin shift, offsets excluded."""
+        obs.record_dispatch()
         return self.score_batch(self.batch, state)
 
     def score_batch(self, batch, state: Tensor) -> Tensor:
@@ -264,19 +288,26 @@ class RandomEffectCoordinate(Coordinate):
         dtype: torch.dtype,
         device: torch.device,
     ) -> "RandomEffectCoordinate":
-        def f(a):
-            return torch.as_tensor(a).to(device=device, dtype=dtype)
-
-        def i(a):
-            return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+        def place(b) -> _DeviceBucket:
+            # inside the retried thunk: an injected transient fault takes
+            # the real retry path (each retry counts an occurrence)
+            faults.fault_point("coordinate.placement")
+            placed = {}
+            try:
+                for name in ("features", "labels", "offsets", "weights", "score_feats"):
+                    placed[name] = torch.as_tensor(getattr(b, name)).to(device=device,
+                                                                         dtype=dtype)
+                for name in ("sample_pos", "score_slot", "score_pos"):
+                    placed[name] = torch.as_tensor(getattr(b, name)).to(device=device,
+                                                                         dtype=torch.int64)
+                return _DeviceBucket(**placed)
+            except BaseException:
+                placed.clear()  # the retry must not hold this attempt's tensors
+                raise
 
         device_buckets = [
-            _DeviceBucket(
-                features=f(b.features), labels=f(b.labels), offsets=f(b.offsets),
-                weights=f(b.weights), sample_pos=i(b.sample_pos),
-                score_feats=f(b.score_feats), score_slot=i(b.score_slot),
-                score_pos=i(b.score_pos),
-            )
+            retry_call(lambda b=b: place(b), policy=PLACEMENT_RETRY_POLICY,
+                       classify=is_transient, label="device_put")
             for b in dataset.buckets
         ]
         return RandomEffectCoordinate(
@@ -314,6 +345,7 @@ class RandomEffectCoordinate(Coordinate):
         )
 
     def train(self, residual_scores: Tensor, state: list[Tensor]):
+        obs.record_dispatch()
         res_pad = torch.cat([residual_scores, residual_scores.new_zeros(1)])
         infos = [
             self._solve_bucket(db, w0, res_pad)
@@ -325,6 +357,7 @@ class RandomEffectCoordinate(Coordinate):
         """Flat scoring: each kept sample's compacted row dotted with its
         entity's coefficients, written to its position. Every kept sample
         appears once per coordinate, so the writes never collide."""
+        obs.record_dispatch()
         out = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
         for db, coefs in zip(self.device_buckets, state):
             out[db.score_pos] = score_rows(db.score_feats, coefs[db.score_slot])
@@ -452,6 +485,7 @@ class MatrixFactorizationCoordinate(Coordinate):
         return value_and_grad
 
     def train(self, residual_scores: Tensor, state):
+        obs.record_dispatch()
         u0, v0 = state
         vg = self.value_and_grad_fn(residual_scores, (tuple(u0.shape), tuple(v0.shape)))
         res = minimize_lbfgs(
@@ -462,6 +496,7 @@ class MatrixFactorizationCoordinate(Coordinate):
         return (res.x[:n_u].reshape(u0.shape), res.x[n_u:].reshape(v0.shape)), res
 
     def score(self, state) -> Tensor:
+        obs.record_dispatch()
         u, v = state
         s = (u[self.row_idx] * v[self.col_idx]).sum(-1)
         return torch.where(self.weights > 0, s, torch.zeros_like(s))

@@ -32,6 +32,16 @@ sweeps; the two differ by roundoff only.)
 Fault points (util/faults.py): ``descent.sweep`` at the start of each
 sweep, and ``descent.coordinate`` before each coordinate step, where a
 ``nan`` clause poisons that coordinate's state on its device.
+
+Work counters, with JAX's names and meanings: each sweep row carries
+``dispatches`` (the coordinate-level launch sites of ``obs.record_dispatch``
+in the sweep: one per coordinate step, one per streamed chunk, one per
+injected NaN; not CUDA kernels), ``compiles`` and ``compile_seconds``
+(compile_watch's one-time costs) and ``granularity``. The spans
+``descent.initial_score`` and ``descent.coordinate`` (each carrying its
+own ``dispatches``), ``descent.sweep`` (carrying those counters) and
+``descent.barrier`` enter ``torch.profiler.record_function`` while
+telemetry is on, so a profiler trace splits device work by coordinate.
 """
 from __future__ import annotations
 
@@ -76,10 +86,16 @@ def clone_state(state):
 def _poison_state_nan(state):
     """Fault injection only (``descent.coordinate`` → ``nan``): every
     leaf of a coordinate state becomes NaN on its device, the divergence
-    the health check must catch at this sweep's barrier."""
+    the health check must catch at this sweep's barrier. One launch site,
+    as in JAX."""
+    obs.record_dispatch()
+    return _poison_leaves(state)
+
+
+def _poison_leaves(state):
     if isinstance(state, torch.Tensor):
         return state * float("nan")
-    return type(state)(_poison_state_nan(s) for s in state)
+    return type(state)(_poison_leaves(s) for s in state)
 
 
 def _sum_scores(scores: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -138,6 +154,7 @@ def run_coordinate_descent(
     initial_best: tuple[dict, float] | None = None,
     sweep_callback: Callable | None = None,
     sweep_hook: Callable[[int, dict], None] | None = None,
+    tracker_granularity: str = "sweep",
     on_divergence: str | None = None,
 ) -> CoordinateDescentResult:
     """``validation_fn(states) -> metric`` runs after each sweep on the
@@ -156,8 +173,19 @@ def run_coordinate_descent(
     non-finite sweep does: ``"raise"`` a DivergenceError, ``"warn"``, or
     ``"halt_coordinate"`` (fresh state for the offender, frozen for the
     rest of this descent, the total summed afresh). Each sweep's tracker
-    row carries the host health rows as ``health``."""
+    row carries the host health rows as ``health``.
+
+    ``tracker_granularity`` says what the per-coordinate rows' ``seconds``
+    mean: ``"sweep"`` (default) the host wall around each step, with ONE
+    device barrier closing the sweep (``barrier_seconds``); ``"coordinate"``
+    closes each coordinate's step with a device sync, so its ``seconds``
+    is the step's whole wall on the card, at the cost of a sync per
+    coordinate per sweep (the profiling mode; ``barrier_seconds`` is 0)."""
     on_divergence = resolve_policy(on_divergence)
+    if tracker_granularity not in ("sweep", "coordinate"):
+        raise ValueError(
+            f"tracker_granularity must be 'sweep' or 'coordinate', got {tracker_granularity!r}"
+        )
     unknown = [c for c in update_sequence if c not in coordinates]
     if unknown:
         raise ValueError(f"update sequence references unknown coordinates {unknown}")
@@ -173,50 +201,73 @@ def run_coordinate_descent(
         for cid, coord in coordinates.items()
     }
     # initial scores: locked coordinates contribute through these forever
-    scores = {cid: coordinates[cid].score(states[cid]) for cid in coordinates}
-    total = _sum_scores(scores)
+    with obs.span("descent.initial_score", coordinates=len(coordinates)) as init_span:
+        d0 = obs.dispatch_count()
+        scores = {cid: coordinates[cid].score(states[cid]) for cid in coordinates}
+        total = _sum_scores(scores)
+        init_span.set(dispatches=obs.dispatch_count() - d0)
 
     tracker: list = []
     best_states, best_metric = initial_best or (None, None)
     trainable = [c for c in update_sequence if c not in locked_coordinates]
+    per_coordinate = tracker_granularity == "coordinate"
     halted: set[str] = set()
     for it in range(start_iteration, num_iterations):
         # fault injection (a no-op without a plan): crash or fail mid-fit
         faults.fault_point("descent.sweep")
-        t_sweep = time.perf_counter()
-        compiles0 = compile_watch.snapshot()["backend_compiles"]
+        d0 = obs.dispatch_count()
+        c0 = compile_watch.snapshot()
         health_dev: dict[str, dict] = {}
-        for cid in trainable:
-            if cid in halted:
-                continue
-            clause = faults.fault_point("descent.coordinate")
-            obs.flight.record("coordinate", iteration=it, coordinate=cid)
-            if clause is not None and clause.kind == "nan":
-                states[cid] = _poison_state_nan(states[cid])
-            t0 = time.perf_counter()
-            states[cid], scores[cid], total, info = coordinates[cid].sweep_step(
-                total, scores[cid], states[cid]
-            )
-            if info is not None:  # a coordinate with no optimizer result has no row
-                health_dev[cid] = sweep_health(states[cid], info)
-            tracker.append(
-                {
-                    "iteration": it,
-                    "coordinate": cid,
-                    "seconds": time.perf_counter() - t0,
-                    "info": info,
-                }
-            )
-        # the sweep's total summed afresh (see the module docstring)
-        total = _sum_scores(scores)
-        t_bar = time.perf_counter()
-        health = _read_health(health_dev, total)
-        now = time.perf_counter()
+        with obs.span("descent.sweep", iteration=it) as sweep_span:
+            for cid in trainable:
+                if cid in halted:
+                    continue
+                clause = faults.fault_point("descent.coordinate")
+                obs.flight.record("coordinate", iteration=it, coordinate=cid)
+                with obs.span("descent.coordinate", iteration=it, coordinate=cid) as coord_span:
+                    dc0 = obs.dispatch_count()
+                    if clause is not None and clause.kind == "nan":
+                        states[cid] = _poison_state_nan(states[cid])
+                    states[cid], scores[cid], total, info = coordinates[cid].sweep_step(
+                        total, scores[cid], states[cid]
+                    )
+                    if info is not None:  # a coordinate with no optimizer result has no row
+                        health_dev[cid] = sweep_health(states[cid], info)
+                    if per_coordinate:
+                        _barrier(scores[cid])
+                    coord_span.set(dispatches=obs.dispatch_count() - dc0)
+                obs.counter("descent.coordinate_steps")
+                tracker.append(
+                    {
+                        "iteration": it,
+                        "coordinate": cid,
+                        "seconds": coord_span.duration_s,
+                        "info": info,
+                    }
+                )
+            # the sweep's total summed afresh (see the module docstring)
+            total = _sum_scores(scores)
+            barrier_s = 0.0
+            if per_coordinate:
+                health = _read_health(health_dev, total)
+            else:
+                with obs.span("descent.barrier", iteration=it) as bar_span:
+                    health = _read_health(health_dev, total)
+                barrier_s = bar_span.duration_s
+            cw = compile_watch.delta(c0)
+            dispatches = obs.dispatch_count() - d0
+            sweep_span.set(dispatches=dispatches, compiles=cw["backend_compiles"],
+                           compile_seconds=cw["backend_compile_s"], barrier_seconds=barrier_s,
+                           granularity=tracker_granularity)
         sweep_row = {
             "iteration": it,
-            "sweep_seconds": now - t_sweep,
-            "barrier_seconds": now - t_bar,
-            "compiles": compile_watch.snapshot()["backend_compiles"] - compiles0,
+            "sweep_seconds": sweep_span.duration_s,
+            "barrier_seconds": barrier_s,
+            "dispatches": dispatches,
+            # one-time costs in this sweep: 0 from sweep 1 on
+            "compiles": cw["backend_compiles"],
+            "compile_seconds": cw["backend_compile_s"],
+            "granularity": tracker_granularity,
             "health": health,
         }
         tracker.append(sweep_row)
@@ -228,7 +279,8 @@ def run_coordinate_descent(
         # already fetched (no new sync)
         obs.flight.record("sweep", iteration=it,
                           sweep_seconds=round(sweep_row["sweep_seconds"], 6),
-                          barrier_seconds=round(sweep_row["barrier_seconds"], 6), health=health)
+                          barrier_seconds=round(sweep_row["barrier_seconds"], 6),
+                          dispatches=dispatches, health=health)
         if sweep_hook is not None:
             sweep_hook(it, sweep_row)
         for cid in [c for c, h in health.items() if not h["finite"]]:

@@ -26,6 +26,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.game.config import (
     FixedEffectCoordinateConfig,
     RandomEffectCoordinateConfig,
@@ -65,6 +66,7 @@ from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.obs.health import resolve_policy
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.types import TaskType, resolve_device
+from photon_tpu_torch.util import compile_watch
 
 logger = logging.getLogger(__name__)
 
@@ -102,8 +104,9 @@ class GameEstimator:
     scores ``validation_data`` after every sweep and picks the model.
     ``events`` (a ``util.events.EventEmitter``) receives ``setup``,
     ``sweep_complete``, ``training_finish`` and ``training_failure`` with
-    the JAX package's payloads; the dispatch and compile fields, which
-    the port does not count, are None.
+    the JAX package's payloads. ``last_fit_stats`` holds the fit's phase
+    walls, its ``dispatches`` (the descent's work counter), ``ingest`` and
+    the compile_watch delta, as JAX's does.
 
     ``on_divergence`` is what a non-finite sweep does (obs/health.py):
     ``"raise"`` (the default), ``"warn"`` or ``"halt_coordinate"``; None
@@ -173,7 +176,8 @@ class GameEstimator:
     def _build_coordinates(self, data: GameData, initial_model=None, shape_pool=None,
                            stream_cfg: StreamConfig | None = None):
         if shape_pool is None:
-            shape_pool = self._build_shape_pool(data, initial_model)
+            with obs.span("fit.shape_profile"):
+                shape_pool = self._build_shape_pool(data, initial_model)
         norm = self.normalization_contexts or {}
         coords = {}
         telemetry = StreamTelemetry() if stream_cfg is not None else None
@@ -288,26 +292,42 @@ class GameEstimator:
             )
 
         restarts = []
-        try:
-            if self.max_restarts:
-                if checkpoint_dir is None:
-                    logger.warning(
-                        "max_restarts=%d without checkpoint_dir: a restart retrains "
-                        "from scratch instead of resuming mid-descent", self.max_restarts,
+        # per-fit deltas of the process-global work and one-time-cost
+        # counters, so repeated fits never double-count
+        fit_d0 = obs.dispatch_count()
+        fit_c0 = compile_watch.snapshot()
+        with obs.span("fit", task=self.task.name, coordinates=len(self.coordinate_configs),
+                      grid_length=self._grid_length()) as fit_span:
+            obs.counter("fit.count")
+            try:
+                if self.max_restarts:
+                    if checkpoint_dir is None:
+                        logger.warning(
+                            "max_restarts=%d without checkpoint_dir: a restart retrains "
+                            "from scratch instead of resuming mid-descent", self.max_restarts,
+                        )
+                    results = run_with_recovery(
+                        attempt, max_restarts=self.max_restarts,
+                        on_restart=lambda i, e: restarts.append(f"{type(e).__name__}: {e}"),
                     )
-                results = run_with_recovery(
-                    attempt, max_restarts=self.max_restarts,
-                    on_restart=lambda i, e: restarts.append(f"{type(e).__name__}: {e}"),
-                )
-            else:
-                results = attempt()
-        except Exception as e:
-            # a failed fit leaves no earlier fit's numbers behind
-            self.last_fit_stats = None
-            if emitter is not None:
-                emitter.emit("training_failure", error=f"{type(e).__name__}: {e}")
-            raise
-        self.last_fit_stats["restarts"] = restarts
+                else:
+                    results = attempt()
+            except Exception as e:
+                # a failed fit leaves no earlier fit's numbers behind
+                self.last_fit_stats = None
+                if emitter is not None:
+                    emitter.emit("training_failure", error=f"{type(e).__name__}: {e}")
+                raise
+            # JAX's keys: the work counter, the ingest provenance ("cache"
+            # for a feature-cache replay) and the compile_watch delta
+            self.last_fit_stats.update(
+                dispatches=obs.dispatch_count() - fit_d0,
+                ingest=(getattr(data, "provenance", None) or {}).get("source", "host"),
+                **compile_watch.delta(fit_c0),
+                restarts=restarts,
+            )
+            fit_span.set(**{k: v for k, v in self.last_fit_stats.items()
+                            if isinstance(v, (int, float, str))})
         if model_checkpoint_dir is not None:
             final = [r for r in results if r is not None]
             if final:
@@ -322,7 +342,7 @@ class GameEstimator:
                 n_grid_points=len(results),
                 best_evaluation=pick(evals) if evals else None,
                 wall_time_s=round(self.last_fit_stats["wall_s"], 4),
-                dispatches=None,
+                dispatches=self.last_fit_stats["dispatches"],
             )
         return results
 
@@ -352,22 +372,25 @@ class GameEstimator:
         if self.ignore_threshold_for_new_models and initial_model is None:
             raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
-        coordinates = self._build_coordinates(data, initial_model, shape_pool, stream_cfg)
+        with obs.span("fit.data_build", num_samples=int(data.num_samples)):
+            coordinates = self._build_coordinates(data, initial_model, shape_pool, stream_cfg)
         telemetry = (
             self._arm_stream_guard(coordinates, stream_cfg) if stream_cfg is not None else None
         )
-        states = (
-            self._place_states(self._states_from_model(initial_model, coordinates), coordinates)
-            if initial_model is not None
-            else None
-        )
+        states = None
+        if initial_model is not None:
+            with obs.span("fit.warm_start"):
+                states = self._place_states(
+                    self._states_from_model(initial_model, coordinates), coordinates
+                )
         build_s = time.perf_counter() - t0
         validation_fn = None
         t_val = time.perf_counter()
         if validation_data is not None and self.validation_evaluator is not None:
-            validation_fn = DeviceValidationScorer.build(
-                validation_data, coordinates, self.validation_evaluator
-            ).evaluate
+            with obs.span("fit.validation_build"):
+                validation_fn = DeviceValidationScorer.build(
+                    validation_data, coordinates, self.validation_evaluator
+                ).evaluate
         validation_build_s = time.perf_counter() - t_val
         larger = (
             self.validation_evaluator.larger_is_better if self.validation_evaluator else True
@@ -513,8 +536,8 @@ class GameEstimator:
             grid_index=grid_index,
             iteration=it,
             sweep_seconds=row["sweep_seconds"],
-            dispatches=None,
-            compiles=None,
+            dispatches=row["dispatches"],
+            compiles=row["compiles"],
             health=row["health"],
         )
 

@@ -50,9 +50,17 @@ slot's reuse wait and the read-back are the sanctioned syncs.
 :meth:`GameScorer.precompile` warms one batch shape: it runs a zero batch
 through every staging slot and the score program, so the first request of
 that shape allocates nothing new, and ``compile_watch`` counts any
-dispatch at a shape no warm-up covered. Causal tracing (``PHOTON_TRACE``)
-raises NotImplementedError (ROADMAP A5b). ``PHOTON_SCORE_DONATION`` is an
+dispatch at a shape no warm-up covered. ``PHOTON_SCORE_DONATION`` is an
 XLA knob and is dropped.
+
+Causal tracing (obs/causal.py, ``PHOTON_TRACE``): one ``score.chunk``
+trace per chunk, minted on the producer thread before decode (so a decode
+fault lands inside it) and carried on the chunk's item across the
+hand-off, the copy stream and the deferred read-back. Its slices
+(``score.decode``, ``score.assemble``, ``score.h2d``, ``score.dispatch``,
+``score.pipeline``, ``score.readback``, ``score.write``) reuse the walls
+the stages measure; flows start in the decode slice, step at assemble and
+finish inside the read-back.
 """
 from __future__ import annotations
 
@@ -81,7 +89,7 @@ from photon_tpu_torch.game.model import (
     MatrixFactorizationModel,
     RandomEffectModel,
 )
-from photon_tpu_torch.obs import slo
+from photon_tpu_torch.obs import causal, slo
 from photon_tpu_torch.obs.memory import allocator_stats, record_executable
 from photon_tpu_torch.types import numpy_dtype, resolve_device
 from photon_tpu_torch.util import compile_watch, faults
@@ -258,6 +266,9 @@ class _ChunkItem:
     birth_t: float
     decode_s: float
     decoded_t: float
+    #: the chunk's causal trace (obs/causal.py; the shared null context
+    #: while tracing is disarmed)
+    trace: object
 
 
 class _StageCounter:
@@ -602,10 +613,14 @@ class GameScorer:
                     continue
             return False
 
+        ctx = causal.null()
         try:
             while not stop.is_set():
                 t_pull = time.perf_counter()
-                with obs.span("score.decode"):
+                # one trace per chunk, minted before decode so a decode
+                # fault lands inside this chunk's chain
+                ctx = causal.mint("score.chunk", kind="score")
+                with ctx.active(), obs.span("score.decode"):
                     # inside the hand-off: a decode fault reaches the consumer
                     faults.fault_point("scoring.chunk")
                     chunk = next(chunk_iter, _DONE)
@@ -620,13 +635,19 @@ class GameScorer:
                 birth = t_pull if arrival is None else float(arrival)
                 item = _ChunkItem(chunk=chunk, birth_t=birth,
                                   decode_s=max(0.0, t_decoded - max(t_pull, birth)),
-                                  decoded_t=t_decoded)
+                                  decoded_t=t_decoded, trace=ctx)
+                # the decode slice and the flow start the consumer's
+                # assemble step binds to
+                ctx.event("score.decode", t_decoded - item.decode_s, item.decode_s, cat="score",
+                          rows=chunk.num_samples)
+                ctx.flow("s", t_decoded - item.decode_s)
                 with staged.lock:
                     staged.value += 1
                     stats.max_staged_chunks = max(stats.max_staged_chunks, staged.value)
                 if not put(item):
                     return
         except BaseException as e:  # handed to the consumer, which raises it
+            ctx.finish("error")
             put(_Failure(e))
 
     def _next_item(self, q: queue.Queue, producer: threading.Thread):
@@ -668,10 +689,11 @@ class GameScorer:
         rows). ``on_batch(chunk, scores)`` is called in input order as each
         batch's scores arrive (float64, padding dropped); the result holds
         them concatenated."""
-        obs.refuse_unported_env(("PHOTON_TRACE",))
-        # the SLO armed by PHOTON_SLO_SPEC (a no-op when unset, or when one
-        # was installed programmatically)
+        # the SLO armed by PHOTON_SLO_SPEC and the trace plane armed by
+        # PHOTON_TRACE (each a no-op when unset, or when one was installed
+        # programmatically)
         slo.ensure_from_env()
+        causal.ensure_from_env()
         stats = StreamStats()
         collected: list[np.ndarray] = []
         q: queue.Queue = queue.Queue(maxsize=MAX_STAGED_CHUNKS - 1)
@@ -687,6 +709,7 @@ class GameScorer:
         def finish(pending) -> None:
             enqueued, item, t_dispatch, stages, t_enqueued = pending
             chunk = item.chunk
+            tr = item.trace
             t_r0 = time.perf_counter()
             # the double-buffer hold: this batch waited for the next one
             # to be enqueued before its read-back
@@ -695,6 +718,12 @@ class GameScorer:
                 obs.memory.count_d2h(enqueued[0].nbytes)
                 scores = self._read_back(enqueued)
             stages["readback"] = time.perf_counter() - t_r0
+            # the hold contains the next batch's slices on this track:
+            # Perfetto nests them, which is the overlap
+            tr.event("score.pipeline", t_enqueued, stages["pipeline"], cat="score")
+            tr.event("score.readback", t_r0, stages["readback"], cat="score",
+                     rows=chunk.num_samples)
+            tr.flow("f", t_r0)
             wall = time.perf_counter() - t_dispatch
             if not stats.batch_walls_s:
                 stats.compiles_first_batch = compile_watch.delta(cw_start)
@@ -710,6 +739,7 @@ class GameScorer:
                 with obs.span("score.write", rows=chunk.num_samples):
                     on_batch(chunk, scores)
                 stages["write"] = time.perf_counter() - t_w0
+                tr.event("score.write", t_w0, stages["write"], cat="score")
             e2e = time.perf_counter() - item.birth_t
             stats.e2e_walls_s.append(e2e)
             for stage, sec in stages.items():
@@ -717,6 +747,7 @@ class GameScorer:
                 obs.histogram(f"score.stage_seconds.{stage}", sec)
             obs.histogram("score.e2e_seconds", e2e)
             dominant = slo.observe_batch(e2e, stages)
+            tr.finish("ok" if dominant is None else "deadline", e2e_s=e2e)
             if dominant is not None:
                 stats.deadline_violations += 1
                 stats.violations_by_stage[dominant] = (
@@ -754,6 +785,12 @@ class GameScorer:
                         stats.padded_rows += self.batch_rows - chunk.num_samples
                         obs.counter("score.padded_rows", self.batch_rows - chunk.num_samples)
                     stages["assemble"] = time.perf_counter() - t_pickup
+                    tr = item.trace
+                    # the queue wait rides as an argument (a queue slice
+                    # would overlap the previous batch's slices)
+                    tr.event("score.assemble", t_pickup, stages["assemble"], cat="score",
+                             rows=chunk.num_samples, queue_s=round(stages["queue"], 6))
+                    tr.flow("t", t_pickup)
                     tries = 0
                     h2d = [0.0]
 
@@ -770,12 +807,18 @@ class GameScorer:
                         return self._dispatch(batch_dev, key, rows)
 
                     t_dispatch = time.perf_counter()
-                    enqueued = retry_call(
-                        run_batch, policy=BATCH_RETRY_POLICY, classify=is_transient,
-                        label="score_batch",
-                    )
+                    # active through the retries: a scoring.batch fault
+                    # lands in this chunk's chain
+                    with tr.active():
+                        enqueued = retry_call(
+                            run_batch, policy=BATCH_RETRY_POLICY, classify=is_transient,
+                            label="score_batch",
+                        )
                     stages["h2d"] = h2d[0]
                     stages["dispatch"] = time.perf_counter() - t_dispatch - h2d[0]
+                    tr.event("score.h2d", t_dispatch, stages["h2d"], cat="score")
+                    tr.event("score.dispatch", t_dispatch + stages["h2d"], stages["dispatch"],
+                             cat="score", tries=tries)
                     if tries > 1:
                         stats.batch_retries += tries - 1
                         obs.counter("score.batch_retries", tries - 1)

@@ -55,7 +55,14 @@ turns into :class:`ProducerDiedError`), ``train.stream.chunk`` (per chunk,
 handed to the consumer) and ``train.stream.h2d`` (the consumer, before it
 takes a staged chunk). ``compile_watch`` counts the first dispatch at
 each chunk shape as a one-time cost, so sweeps from 1 on count 0.
-Causal tracing (``PHOTON_TRACE``) raises (ROADMAP A5b).
+Causal tracing (obs/causal.py, ``PHOTON_TRACE``): one ``train.chunk``
+trace per chunk, minted on the producer before the chunk is assembled
+(so a ``train.stream.chunk`` fault lands inside it) and carried on the
+staged item to the consumer: ``train.produce`` and ``train.h2d`` slices on
+the producer's track, ``train.dispatch`` and ``train.readback`` on the
+consumer's, flows from produce through dispatch to the read-back. Each
+chunk's dispatch is one launch site of the descent's work counter
+(``obs.record_dispatch``), as in JAX.
 """
 from __future__ import annotations
 
@@ -86,6 +93,7 @@ from photon_tpu_torch.game.coordinate import (
 from photon_tpu_torch.game.data import GameData, RandomEffectDataset
 from photon_tpu_torch.game.model import BucketCoefficients, RandomEffectModel
 from photon_tpu_torch.game.scoring import ProducerDiedError, StreamStallError, stream_watchdog_s
+from photon_tpu_torch.obs import causal
 from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.problem import GLMProblem
@@ -269,6 +277,7 @@ class _Staged:
     nbytes: int
     h2d_s: float
     overlapped: bool
+    trace: object  # the chunk's causal trace (obs/causal.py)
 
 
 class _Stager:
@@ -340,15 +349,23 @@ def _produce(chunks: Iterator, q: queue.Queue, stop: threading.Event,
                 continue
         return False
 
+    ctx = causal.null()
     try:
         if stager.cuda:
             torch.cuda.set_device(stager.index)
         while not stop.is_set():
-            faults.fault_point("train.stream.chunk")
-            item = next(chunks, _DONE)
+            t_pull = time.perf_counter()
+            # one trace per chunk, minted before assembly so a chunk fault
+            # lands inside this chunk's chain
+            ctx = causal.mint("train.chunk", kind="train")
+            with ctx.active():
+                faults.fault_point("train.stream.chunk")
+                item = next(chunks, _DONE)
             if item is _DONE:
                 put(_DONE)
                 return
+            ctx.event("train.produce", t_pull, time.perf_counter() - t_pull, cat="train")
+            ctx.flow("s", t_pull)
             meta, host = item
             while not slots.acquire(timeout=0.05):
                 if stop.is_set():
@@ -358,9 +375,12 @@ def _produce(chunks: Iterator, q: queue.Queue, stop: threading.Event,
             dev, event = stager.stage(host)
             h2d_s = time.perf_counter() - t0
             nbytes = sum(t.nbytes for t in host)
-            if not put(_Staged(meta, dev, event, nbytes, h2d_s, overlapped)):
+            ctx.event("train.h2d", t0, h2d_s, cat="train", nbytes=int(nbytes))
+            if not put(_Staged(meta, dev, event, nbytes, h2d_s, overlapped, ctx)):
                 return
+            ctx = causal.null()  # the consumer owns it now
     except BaseException as e:  # handed to the consumer, which raises it
+        ctx.finish("error")
         put(_Failure(e))
 
 
@@ -406,7 +426,7 @@ def run_stream(chunks: Iterator, run_fn: Callable, sink_fn: Callable, *,
     chunk while this one computes; makes the compute stream wait on this
     chunk's copy and calls ``run_fn(meta, dev) -> out`` (the ``dispatch``
     wall). Returns the number of chunks."""
-    obs.refuse_unported_env(("PHOTON_TRACE",))
+    causal.ensure_from_env()
     q: queue.Queue = queue.Queue(maxsize=DEVICE_SLOTS)
     stop = threading.Event()
     slots = threading.Semaphore(DEVICE_SLOTS)
@@ -420,15 +440,21 @@ def run_stream(chunks: Iterator, run_fn: Callable, sink_fn: Callable, *,
     producer.start()
     telemetry.streams += 1
     n_chunks = 0
-    pending = None  # (meta, out) of the chunk awaiting its read-back
+    pending = None  # (meta, out, trace) of the chunk awaiting its read-back
     t_stream = time.perf_counter()
 
     def retire(held) -> None:
+        meta, out, ctx = held
         t2 = time.perf_counter()
-        sink_fn(*held)
-        telemetry.record_stage("readback", time.perf_counter() - t2)
+        sink_fn(meta, out)
+        rb_s = time.perf_counter() - t2
+        telemetry.record_stage("readback", rb_s)
         flight.count -= 1
         slots.release()
+        # the flow finishes inside the read-back slice
+        ctx.event("train.readback", t2, rb_s, cat="train")
+        ctx.flow("f", t2)
+        ctx.finish("ok")
 
     try:
         while True:
@@ -439,7 +465,13 @@ def run_stream(chunks: Iterator, run_fn: Callable, sink_fn: Callable, *,
                 raise item.exc
             if item is _DONE:
                 break
-            faults.fault_point("train.stream.h2d")
+            ctx = item.trace
+            try:
+                with ctx.active():
+                    faults.fault_point("train.stream.h2d")
+            except BaseException:
+                ctx.finish("fault")
+                raise
             telemetry.record_stage("h2d", item.h2d_s)
             telemetry.record_chunk(item.nbytes, item.h2d_s, item.overlapped)
             if telemetry.guard is not None:
@@ -457,11 +489,16 @@ def run_stream(chunks: Iterator, run_fn: Callable, sink_fn: Callable, *,
                     t.record_stream(compute)
             del item
             t3 = time.perf_counter()
-            out = run_fn(meta, dev)
+            obs.record_dispatch()
+            with ctx.active():
+                out = run_fn(meta, dev)
             del dev
-            telemetry.record_stage("dispatch", time.perf_counter() - t3)
-            pending = (meta, out)
-            del out
+            dispatch_s = time.perf_counter() - t3
+            telemetry.record_stage("dispatch", dispatch_s)
+            ctx.event("train.dispatch", t3, dispatch_s, cat="train")
+            ctx.flow("t", t3)
+            pending = (meta, out, ctx)
+            del out, ctx
             n_chunks += 1
         if pending is not None:
             held, pending = pending, None

@@ -25,7 +25,7 @@ from photon_tpu_torch.data.dataset import (
 from photon_tpu_torch.models.coefficients import Coefficients
 from photon_tpu_torch.models.glm import GeneralizedLinearModel, model_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
-from photon_tpu_torch.optimize.common import OptimizeResult
+from photon_tpu_torch.optimize.common import OptimizeResult, record_optimize_metrics
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, resolve_device
 
@@ -110,6 +110,8 @@ def train_glm_grid(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+        # the solve's work counters into telemetry (after its sync)
+        record_optimize_metrics(result)
 
         variances = problem.variances(batch, result.x)
         if variances is not None and normalization.factors is not None:

@@ -21,12 +21,16 @@ behind one enable switch, so instrumentation sites stay one-liners::
 - :mod:`.slo`: latency objectives, burn rates, stage attribution;
 - :mod:`.health`: the divergence monitor of the descent loop.
 
+- :mod:`.causal`: request- and chunk-scoped causal traces with flow
+  links and tail exemplars (``PHOTON_TRACE``), served by ``/trace``.
+
 The live half, composed per run by :class:`LiveTelemetryPlane`:
 :mod:`.flight` (the crash-surviving mmap ring, blackbox dumps, stale-ring
-recovery after a SIGKILL) and :mod:`.series` (periodic ``series.jsonl``
-rows). The JAX package's HTTP endpoints (``PHOTON_OBS_HTTP_PORT``), fleet
-plane (``PHOTON_OBS_FLEET``) and causal tracing (``PHOTON_TRACE``) are not
-ported (ROADMAP A5b); setting one raises NotImplementedError.
+recovery after a SIGKILL), :mod:`.series` (periodic ``series.jsonl``
+rows) and :mod:`.http` (``/metrics``, ``/healthz``, ``/slo``, ``/trace``,
+``/blackbox`` on ``PHOTON_OBS_HTTP_PORT``). The JAX package's fleet plane
+(``PHOTON_OBS_FLEET``) is not ported (ROADMAP A7); setting it raises
+NotImplementedError.
 
 Telemetry is DISABLED by default (``PHOTON_OBS=1`` enables it at import,
 or call :func:`enable`). A disabled span still measures its wall but
@@ -35,10 +39,12 @@ work or synchronizes with the card.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+import threading
 
-from photon_tpu_torch.obs import flight, health, memory, series, slo
+from photon_tpu_torch.obs import causal, flight, health, http, memory, series, slo
 from photon_tpu_torch.obs.export import (
     chrome_trace,
     export_artifacts,
@@ -59,9 +65,12 @@ __all__ = [
     "MetricsRegistry",
     "Span",
     "Tracer",
+    "causal",
     "chrome_trace",
     "counter",
     "disable",
+    "dispatch_count",
+    "dispatch_site",
     "enable",
     "enabled",
     "export_artifacts",
@@ -73,10 +82,12 @@ __all__ = [
     "health",
     "histogram",
     "histogram_summary",
+    "http",
     "instant",
     "live_plane",
     "memory",
     "phase_summary",
+    "record_dispatch",
     "refuse_unported_env",
     "reset",
     "series",
@@ -96,19 +107,14 @@ _registry = MetricsRegistry()
 
 #: environment switches of JAX telemetry layers the port does not carry
 _UNPORTED_ENV = (
-    ("PHOTON_TRACE", "ROADMAP A5b: obs.causal, causal tracing", ("", "0")),
-    ("PHOTON_OBS_HTTP_PORT", "ROADMAP A5b: obs.http, the live endpoints", ("",)),
-    ("PHOTON_OBS_FLEET", "ROADMAP A5b: obs.fleet, the cross-process plane", ("", "0")),
+    ("PHOTON_OBS_FLEET", "ROADMAP A7: obs.fleet, the cross-process plane", ("", "0")),
 )
 
 
-def refuse_unported_env(names=None) -> None:
+def refuse_unported_env() -> None:
     """Raise NotImplementedError for a set switch of an unported layer
-    (``PHOTON_TRACE``, ``PHOTON_OBS_HTTP_PORT``, ``PHOTON_OBS_FLEET=1``);
-    ``names`` limits the check to those variables."""
+    (``PHOTON_OBS_FLEET=1``)."""
     for var, item, off in _UNPORTED_ENV:
-        if names is not None and var not in names:
-            continue
         value = os.environ.get(var, "").strip()
         if value not in off:
             raise NotImplementedError(
@@ -141,12 +147,14 @@ def disable() -> None:
 
 def reset() -> None:
     """Drop every recorded span, zero the registry, and clear the memory
-    ledger's and the SLO tracker's per-run state (the artifact boundary;
-    warm-up footprints and an armed SLO spec survive)."""
+    ledger's, the SLO tracker's and the causal buffer's per-run state (the
+    artifact boundary; warm-up footprints, an armed SLO spec and an armed
+    trace plane with its knobs survive)."""
     _tracer.clear()
     _registry.clear()
     memory.get_ledger().reset_run_state()
     slo.reset_run_state()
+    causal.reset_run_state()
 
 
 def span(name: str, cat: str = "phase", **args) -> Span:
@@ -179,13 +187,61 @@ def histogram(name: str, value: float) -> None:
         _registry.histogram(name, value)
 
 
+#: coordinate-level launch sites counted so far (see record_dispatch)
+_dispatches = 0
+_dispatch_lock = threading.Lock()
+_dispatch_tls = threading.local()
+
+
+def record_dispatch() -> None:
+    """Count one launch site on the descent's work counter, mirrored as the
+    ``descent.dispatches`` counter while telemetry is enabled. The sites
+    are the port's counterparts of the places where JAX counts a compiled
+    program launch (``photon_tpu/util/dispatch_count.py``): a coordinate's
+    sweep step, a coordinate's score or train called on its own, the
+    injected NaN, and each chunk a streaming coordinate dispatches. It
+    counts coordinate-level launch SITES, so on the same fit it equals
+    JAX's count; it is not the number of CUDA kernels a site launches
+    (``chip_smoke.py --profile`` counts those). Always counted: a sweep
+    row's ``dispatches`` does not depend on telemetry being on. Inside a
+    :func:`dispatch_site` on this thread it counts nothing."""
+    global _dispatches
+    if getattr(_dispatch_tls, "depth", 0):
+        return
+    with _dispatch_lock:
+        _dispatches += 1
+    counter("descent.dispatches")
+
+
+@contextlib.contextmanager
+def dispatch_site():
+    """One launch site around work whose own sites count as part of it (a
+    coordinate's sweep step around its train and score, as JAX's fused
+    step program is one launch)."""
+    record_dispatch()
+    _dispatch_tls.depth = getattr(_dispatch_tls, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _dispatch_tls.depth -= 1
+
+
+def dispatch_count() -> int:
+    """The cumulative count of :func:`record_dispatch` (monotonic: a sweep
+    or a fit reports the difference of two reads)."""
+    return _dispatches
+
+
 class LiveTelemetryPlane:
     """The always-on half of telemetry for ONE run directory: stale-ring
     recovery (what a killed previous run was doing, as ``blackbox-
     <seq>.json``), the mmap flight recorder with its crash handlers, and
-    the series flusher, started together and torn down together (LIFO,
-    each step guarded: telemetry never fails or outlives the run).
-    ``PHOTON_OBS_RING_MB=0`` and ``PHOTON_OBS_FLUSH_S=0`` turn pieces off.
+    the series flusher and the opt-in HTTP endpoints
+    (``PHOTON_OBS_HTTP_PORT``), started together and torn down together
+    (LIFO, each step guarded: telemetry never fails or outlives the run).
+    ``PHOTON_OBS_RING_MB=0`` and ``PHOTON_OBS_FLUSH_S=0`` turn pieces off;
+    an unset port opens no socket. A port that cannot be bound fails the
+    start loudly, never a plane that quietly runs without its endpoints.
     """
 
     def __init__(self, directory):
@@ -193,25 +249,28 @@ class LiveTelemetryPlane:
         self.recovered_blackbox: str | None = None
         self.recorder = None
         self.flusher = None
+        self.server = None
 
     def start(self) -> "LiveTelemetryPlane":
         """Arm the plane. If a step fails (a bad knob), every piece armed
         so far is torn down before the error propagates."""
         try:
-            refuse_unported_env(("PHOTON_OBS_HTTP_PORT", "PHOTON_OBS_FLEET"))
+            refuse_unported_env()
             os.makedirs(self.directory, exist_ok=True)
             self.recovered_blackbox = flight.recover_stale(self.directory)
             self.recorder = flight.enable(self.directory)
             if self.recorder is not None:
                 flight.install_crash_handler()
             self.flusher = series.start_flusher(os.path.join(self.directory, "series.jsonl"))
+            self.server = http.start_from_env()
         except BaseException:
             self.close()
             raise
         return self
 
     def close(self) -> None:
-        for step in (series.stop_flusher, flight.uninstall_crash_handler, flight.disable):
+        for step in (http.stop_server, series.stop_flusher, flight.uninstall_crash_handler,
+                     flight.disable):
             try:
                 step()
             except Exception as e:  # pragma: no cover - defensive

@@ -154,7 +154,8 @@ def _write_summary(path, tracer, registry) -> str:
 def export_artifacts(directory, prefix: str = "", tracer=None, registry=None,
                      meta: dict | None = None) -> dict:
     """Write the artifact set under ``directory`` and return ``{"trace",
-    "metrics", "manifest", "memory", "summary"[, "slo"]}`` paths.
+    "metrics", "manifest", "memory", "summary"[, "slo", "trace_exemplars"]}``
+    paths.
     ``prefix`` namespaces the file names."""
     from photon_tpu_torch.obs import slo as obs_slo
 
@@ -177,6 +178,15 @@ def export_artifacts(directory, prefix: str = "", tracer=None, registry=None,
         with open(slo_path, "w") as f:
             json.dump(_json_safe({**(meta or {}), "slo": slo_doc}), f, indent=2, sort_keys=True)
         paths["slo"] = slo_path
+    # the causal-trace exemplars: the document /trace serves, written only
+    # when the trace plane is armed
+    from photon_tpu_torch.obs import causal as obs_causal
+
+    if obs_causal.active() is not None:
+        trace_path = _path("trace_exemplars.json")
+        with open(trace_path, "w") as f:
+            json.dump(_json_safe(obs_causal.chrome_trace(meta)), f, indent=2, sort_keys=True)
+        paths["trace_exemplars"] = trace_path
     paths["summary"] = _write_summary(_path("summary.txt"), tracer, registry)
     return paths
 

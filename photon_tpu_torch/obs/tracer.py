@@ -12,9 +12,14 @@ monotonic timeline in wall-clock time.
 Where JAX enters a ``jax.profiler.TraceAnnotation`` per recorded span, the
 port enters ``torch.profiler.record_function``: under a ``torch.profiler``
 trace the host span then appears as a range that the device work it
-launched lines up with. A DISABLED tracer's span still measures its wall
-(two clock reads) but takes no lock, records nothing and enters no
-annotation; no mode of the tracer launches device work or synchronizes.
+launched lines up with. While a profiler is running, the range carries
+the span's id and, inside an active causal trace (obs/causal.py), its
+``trace_id`` as its argument string (``"span_id=7,trace_id=3"``), so a
+device trace joins back to host spans and request traces; with no
+profiler running nothing is formatted. A DISABLED tracer's span still
+measures its wall (two clock reads) but takes no lock, records nothing
+and enters no annotation; no mode of the tracer launches device work or
+synchronizes.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+
+from photon_tpu_torch.obs import causal
 
 
 @dataclass
@@ -41,6 +48,18 @@ class SpanRecord:
     parent_id: int | None
     args: dict[str, Any] = field(default_factory=dict)
     instant: bool = False
+
+
+def _annotation_args(span_id: int) -> str | None:
+    """The ``record_function`` argument string of a span: its id and the
+    causal trace active on this thread, formatted only while a profiler
+    runs (JAX's TraceAnnotation metadata)."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    trace_id = causal.current_trace_id()
+    if trace_id is None:
+        return f"span_id={span_id}"
+    return f"span_id={span_id},trace_id={trace_id}"
 
 
 class Span:
@@ -88,7 +107,7 @@ class Span:
             self._parent_id = stack[-1] if stack else None
             stack.append(self.span_id)
             if tracer.annotate_device:
-                self._ann = torch.profiler.record_function(self.name)
+                self._ann = torch.profiler.record_function(self.name, _annotation_args(self.span_id))
                 self._ann.__enter__()
         self._t0_ns = time.perf_counter_ns()
         return self

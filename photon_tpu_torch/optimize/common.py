@@ -95,6 +95,23 @@ def select_lanes(cond: torch.Tensor, new, old):
     return torch.where(cond.view(cond.shape + (1,) * (new.dim() - cond.dim())), new, old)
 
 
+def record_optimize_metrics(result: OptimizeResult) -> None:
+    """Feed a single solve's work counters into the telemetry registry
+    (``optimize.iterations`` / ``.n_evals`` / ``.n_hvp`` /
+    ``.n_feature_passes``, JAX's names): the inner-loop accounting spans
+    cannot see. A no-op while telemetry is disabled; enabled, it reads the
+    four scalars back in one copy, so call it where the solve has already
+    been waited for."""
+    from photon_tpu_torch import obs
+
+    if not obs.enabled():
+        return
+    names = ("iterations", "n_evals", "n_hvp", "n_feature_passes")
+    values = torch.stack([getattr(result, n).reshape(()).to(torch.float64) for n in names])
+    for name, v in zip(names, values.tolist()):
+        obs.counter(f"optimize.{name}", int(v))
+
+
 def project_to_box(x: torch.Tensor, lower, upper) -> torch.Tensor:
     """Clamp coefficients into the box (reference
     OptimizationUtils.projectCoefficientsToSubspace, after every step).

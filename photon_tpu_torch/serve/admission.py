@@ -21,8 +21,14 @@ Both are load-shed outcomes, not failures of the server:
 no restart. Every shed bumps ``serve.shed`` and ``serve.shed.<reason>``
 (queue_full / deadline / oversize / closed) and, with the tenant known,
 ``serve.shed.tenant.<tenant>``. The ``serve.admit`` fault point fires
-inside ``submit``. (JAX mints a causal trace per request here; causal
-tracing is ROADMAP A5b.)
+inside ``submit``.
+
+Each request's causal trace (obs/causal.py) is minted at the top of
+``submit``, before the fault point, and rides on the request
+(``ServeRequest.trace``): the ``serve.admit`` slice and the flow start
+are recorded here, a shed closes the trace with ``shed:<reason>`` (an
+exemplar), and the engine carries it through the batch. Disarmed, the
+mint is the shared null context and records nothing.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import time
 
 from photon_tpu_torch import obs
 from photon_tpu_torch.game.data import GameData
+from photon_tpu_torch.obs import causal
 from photon_tpu_torch.util import faults
 
 __all__ = [
@@ -142,6 +149,10 @@ class ServeRequest:
     arrival_t: float
     deadline_s: float
     future: ServeFuture
+    #: the request's causal trace (obs/causal.py TraceCtx, or the shared
+    #: null context while tracing is disarmed; None for a request built by
+    #: hand — every consumer checks)
+    trace: object = None
 
     def expired(self, now: float | None = None) -> bool:
         now = time.perf_counter() if now is None else now
@@ -189,15 +200,33 @@ class AdmissionQueue:
         """Admit one request, or shed it (typed). ``arrival_t`` is the
         scheduled arrival in the ``perf_counter`` timebase: open-loop load
         sources stamp it so that queueing counts against the deadline."""
-        faults.fault_point("serve.admit")
+        # the chain's first event: the trace is minted before the fault
+        # point so an injected admit fault lands inside it
+        ctx = causal.mint("serve.request", kind="serve")
+        t_admit = time.perf_counter()
+        try:
+            with ctx.active():
+                faults.fault_point("serve.admit")
+        except BaseException:
+            ctx.finish("fault")
+            raise
         now = time.perf_counter()
         arrival = now if arrival_t is None else float(arrival_t)
         budget = self.default_deadline_s if deadline_s is None else float(deadline_s)
+
+        def shed_trace(reason: str) -> None:
+            end = time.perf_counter()
+            ctx.event("serve.admit", t_admit, end - t_admit, cat="serve", tenant=tenant)
+            ctx.instant("serve.shed", reason=reason)
+            ctx.finish(f"shed:{reason}", e2e_s=end - arrival)
+
         if budget <= 0:
+            ctx.finish("error")
             raise ValueError(f"deadline budget must be > 0 s, got {budget}")
         if self.max_rows is not None and chunk.num_samples > self.max_rows:
             self.shed_count += 1
             _shed("oversize", tenant)
+            shed_trace("oversize")
             raise AdmissionRejected(
                 f"request has {chunk.num_samples} rows > the engine's "
                 f"batch_rows={self.max_rows}; split it upstream"
@@ -206,6 +235,7 @@ class AdmissionQueue:
             # born already dead (a backed-up open-loop producer)
             self.shed_count += 1
             _shed("deadline", tenant)
+            shed_trace("deadline")
             raise DeadlineExceeded(
                 f"request arrived {now - arrival:.3f}s after its scheduled "
                 f"arrival with a {budget:g}s deadline budget"
@@ -214,20 +244,27 @@ class AdmissionQueue:
             if self._closed:
                 self.shed_count += 1
                 _shed("closed", tenant)
+                shed_trace("closed")
                 raise AdmissionRejected("admission queue is closed")
             if len(self._items) >= self.cap:
                 self.shed_count += 1
                 _shed("queue_full", tenant)
+                shed_trace("queue_full")
                 raise AdmissionRejected(
                     f"admission queue at cap ({self.cap} requests waiting); "
                     "the device cannot make this deadline"
                 )
             self._seq += 1
             req = ServeRequest(seq=self._seq, tenant=tenant, chunk=chunk, arrival_t=arrival,
-                               deadline_s=budget, future=ServeFuture())
+                               deadline_s=budget, future=ServeFuture(), trace=ctx)
             self._items.append(req)
             obs.counter("serve.admitted")
             self._not_empty.notify()
+        # the admit slice and the flow start the batch fan-in binds to
+        # (the flow's stamp inside the slice, on this producer's track)
+        ctx.event("serve.admit", t_admit, time.perf_counter() - t_admit, cat="serve",
+                  tenant=tenant, seq=req.seq)
+        ctx.flow("s", t_admit)
         return req.future
 
     def close(self) -> None:
@@ -246,6 +283,10 @@ class AdmissionQueue:
     def _shed_expired(self, req: ServeRequest, now: float, where: str) -> None:
         self.shed_count += 1
         _shed("deadline", req.tenant)
+        if req.trace is not None:
+            req.trace.instant("serve.shed", reason="deadline",
+                              waited_s=round(now - req.arrival_t, 6))
+            req.trace.finish("deadline", e2e_s=now - req.arrival_t)
         req.future.set_exception(DeadlineExceeded(
             f"request {req.seq} waited {now - req.arrival_t:.3f}s {where}, past its "
             f"{req.deadline_s:g}s deadline"

@@ -36,6 +36,16 @@ brackets the traffic window: ``stats.compiles["backend_compiles"]`` must
 read 0 once serving starts, apart from swap-candidate builds.
 ``PHOTON_SANITIZE=transfers`` runs the loop with host syncs raising; the
 staging slot's reuse wait and the read-back are the sanctioned syncs.
+
+Causal tracing (obs/causal.py, ``PHOTON_TRACE``): each request's trace,
+minted at admission, joins ONE ``serve.batch`` group per micro-batch (the
+fan-in). The group is active on this thread over the dispatch window, so
+an injected ``serve.dispatch`` fault lands in the batch; its slices
+(``serve.assemble``, ``serve.h2d``, ``serve.dispatch``,
+``serve.pipeline``, ``serve.readback``) are recorded once per batch from
+the walls the stages already measured. Every member's flow steps into the
+assemble slice and finishes inside the read-back slice, and an applied
+swap is a global ``serve.swap`` instant.
 """
 from __future__ import annotations
 
@@ -46,7 +56,7 @@ import time
 from photon_tpu_torch import obs
 from photon_tpu_torch.game.data import concat_game_data
 from photon_tpu_torch.game.scoring import BATCH_RETRY_POLICY, StreamStats
-from photon_tpu_torch.obs import slo
+from photon_tpu_torch.obs import causal, slo
 from photon_tpu_torch.serve.admission import AdmissionQueue, ServeRequest
 from photon_tpu_torch.serve.registry import ModelRegistry
 from photon_tpu_torch.util import compile_watch, faults
@@ -66,10 +76,10 @@ class _Pending:
     """One dispatched batch whose read-back is deferred."""
 
     __slots__ = ("requests", "tenant", "scorer", "enqueued", "rows", "t_dispatch", "stages",
-                 "t_enqueued")
+                 "t_enqueued", "group")
 
     def __init__(self, requests, tenant, scorer, enqueued, rows, t_dispatch, stages,
-                 t_enqueued):
+                 t_enqueued, group):
         self.requests = requests
         self.tenant = tenant
         self.scorer = scorer
@@ -78,6 +88,7 @@ class _Pending:
         self.t_dispatch = t_dispatch
         self.stages = stages
         self.t_enqueued = t_enqueued
+        self.group = group
 
 
 class ServingEngine:
@@ -102,7 +113,7 @@ class ServingEngine:
     def start(self) -> None:
         if self._thread is not None:
             raise RuntimeError("serving engine already started")
-        obs.refuse_unported_env(("PHOTON_TRACE",))
+        causal.ensure_from_env()
         slo.ensure_from_env()
         compile_watch.install()
         self._cw_start = compile_watch.snapshot()
@@ -177,6 +188,8 @@ class ServingEngine:
             in_flight = self.registry.in_flight(tenant)
             t0 = time.perf_counter()
             if self.registry.apply_pending_swap(tenant):
+                # a global instant: the flip in the victims' timeline
+                causal.mark("serve.swap", tenant=tenant, in_flight_at_flip=in_flight)
                 self.last_swap = {
                     "tenant": tenant,
                     "in_flight_at_flip": in_flight,
@@ -188,12 +201,19 @@ class ServingEngine:
     def _resolve_error(requests: list[ServeRequest], exc) -> None:
         for req in requests:
             if not req.future.done():
+                if req.trace is not None:
+                    req.trace.instant("serve.error", error=type(exc).__name__)
+                    req.trace.finish("error")
                 req.future.set_exception(exc)
 
     def _dispatch_batch(self, batch: list[ServeRequest]) -> _Pending | None:
         tenant = batch[0].tenant
         t_pickup = time.perf_counter()
         stages = {"queue": t_pickup - batch[0].arrival_t}
+        # the fan-in: N request traces join one group whose slices are
+        # recorded once and referenced by every member
+        group = causal.group("serve.batch", [r.trace for r in batch], tenant=tenant,
+                             requests=len(batch))
         try:
             scorer = self.registry.acquire(tenant)
         except KeyError as exc:
@@ -209,6 +229,12 @@ class ServingEngine:
                 key = scorer._shape_key(host_batch)
                 self.stats.padded_rows += scorer.batch_rows - packed.num_samples
             stages["assemble"] = time.perf_counter() - t_pickup
+            group.event("serve.assemble", t_pickup, stages["assemble"], tenant=tenant,
+                        requests=len(batch), rows=packed.num_samples)
+            for req in batch:
+                if req.trace is not None:
+                    # the flow steps INTO the batch at the assemble slice
+                    req.trace.flow("t", t_pickup)
             tries = 0
             h2d = [0.0]
 
@@ -226,10 +252,17 @@ class ServingEngine:
                 return scorer._dispatch(batch_dev, key, packed.num_samples)
 
             t_dispatch = time.perf_counter()
-            enqueued = retry_call(run_batch, policy=BATCH_RETRY_POLICY, classify=is_transient,
-                                  label="serve_batch")
+            # the group is active over the dispatch window: an injected
+            # serve.dispatch fault lands in the batch
+            with group.active():
+                enqueued = retry_call(run_batch, policy=BATCH_RETRY_POLICY,
+                                      classify=is_transient, label="serve_batch")
             stages["h2d"] = h2d[0]
             stages["dispatch"] = (time.perf_counter() - t_dispatch) - h2d[0]
+            # H2D then dispatch, back to back from the dispatch stamp
+            group.event("serve.h2d", t_dispatch, stages["h2d"])
+            group.event("serve.dispatch", t_dispatch + stages["h2d"], stages["dispatch"],
+                        tries=tries)
             if tries > 1:
                 self.stats.batch_retries += tries - 1
                 obs.counter("serve.batch_retries", tries - 1)
@@ -242,7 +275,7 @@ class ServingEngine:
             return None
         return _Pending(requests=batch, tenant=tenant, scorer=scorer, enqueued=enqueued,
                         rows=packed.num_samples, t_dispatch=t_dispatch, stages=stages,
-                        t_enqueued=time.perf_counter())
+                        t_enqueued=time.perf_counter(), group=group)
 
     def _finish(self, pending: _Pending | None) -> None:
         if pending is None:
@@ -260,6 +293,8 @@ class ServingEngine:
             self.registry.release(pending.tenant, pending.scorer)
             return
         stages["readback"] = time.perf_counter() - t_r0
+        pending.group.event("serve.pipeline", pending.t_enqueued, stages["pipeline"])
+        pending.group.event("serve.readback", t_r0, stages["readback"], rows=pending.rows)
         wall = time.perf_counter() - pending.t_dispatch
         if not self.stats.batch_walls_s and self._cw_start is not None:
             self.stats.compiles_first_batch = compile_watch.delta(self._cw_start)
@@ -287,6 +322,10 @@ class ServingEngine:
             obs.counter("serve.rows", n)
             obs.histogram("serve.e2e_seconds", e2e)
             dominant = slo.observe_batch(e2e, stages)
+            if req.trace is not None:
+                # the flow finishes inside the read-back slice
+                req.trace.flow("f", t_r0)
+                req.trace.finish("ok" if dominant is None else "deadline", e2e_s=e2e)
             if dominant is not None:
                 self.stats.deadline_violations += 1
                 self.stats.violations_by_stage[dominant] = (

@@ -265,6 +265,14 @@ def fault_point(point: str) -> FaultClause | None:
     if clause is None:
         return None
     logger.warning("fault injected at %s: %s", point, clause.render())
+    try:
+        # the fired fault lands as an instant in whatever causal trace is
+        # active on this thread (obs/causal.py), inside the victim's chain
+        from photon_tpu_torch.obs import causal
+
+        causal.mark_fault(point, clause.kind)
+    except Exception:  # fault injection must not depend on tracing
+        pass
     if clause.kind == "unavailable":
         raise InjectedFault(
             f"UNAVAILABLE: injected fault at {point!r} "

@@ -245,9 +245,22 @@ def test_series_knob_and_process_info(monkeypatch):
 
 @pytest.mark.parametrize("var,value", [("PHOTON_OBS_HTTP_PORT", "0"), ("PHOTON_OBS_FLEET", "1")])
 def test_live_plane_refuses_unported_layers(tmp_path, monkeypatch, var, value):
+    """Of the JAX plane's switches only ``PHOTON_OBS_FLEET=1`` is refused
+    (ROADMAP A7), leaving nothing armed; ``PHOTON_OBS_HTTP_PORT`` arms the
+    endpoints with the plane and its close stops them. The name dates from
+    when both were refused; it is kept so that the test's history reads
+    on."""
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A5b"):
-        obs.live_plane(tmp_path / "obs")
+    if var == "PHOTON_OBS_FLEET":
+        with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A7"):
+            obs.live_plane(tmp_path / "obs")
+    else:
+        plane = obs.live_plane(tmp_path / "obs")
+        try:
+            assert plane.server is obs.http.get_server() and plane.server.port > 0
+        finally:
+            plane.close()
+        assert obs.http.get_server() is None
     assert obs.flight.get_recorder() is None and obs.series.get_flusher() is None
 
 
@@ -294,10 +307,21 @@ def test_run_profile_success_failure_and_opt_out(tmp_path, monkeypatch):
 
 
 def test_trace_switch_still_raises_naming_a5b(monkeypatch):
+    """``PHOTON_TRACE`` is no longer refused: ``refuse_unported_env``
+    passes it and ``causal.ensure_from_env`` arms the plane; the one
+    switch still refused is ``PHOTON_OBS_FLEET=1``, naming ROADMAP A7.
+    The name dates from when ``PHOTON_TRACE`` was refused, naming A5b; it
+    is kept so that the test's history reads on."""
     monkeypatch.setenv("PHOTON_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="PHOTON_TRACE.*ROADMAP A5b"):
+    obs.refuse_unported_env()
+    try:
+        assert obs.causal.ensure_from_env() is obs.causal.active() is not None
+    finally:
+        obs.causal.clear()
+    monkeypatch.setenv("PHOTON_OBS_FLEET", "1")
+    with pytest.raises(NotImplementedError, match="PHOTON_OBS_FLEET.*ROADMAP A7"):
         obs.refuse_unported_env()
-    monkeypatch.setenv("PHOTON_TRACE", "0")
+    monkeypatch.setenv("PHOTON_OBS_FLEET", "0")
     obs.refuse_unported_env()
 
 

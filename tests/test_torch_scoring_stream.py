@@ -42,6 +42,7 @@ from photon_tpu_torch.io.avro import read_avro_dir
 from photon_tpu_torch.io.data_reader import AvroDataReader
 from photon_tpu_torch.io.data_reader import FeatureShardConfig as TShard
 from photon_tpu_torch.io.model_io import ShardedScoringWriter
+from photon_tpu_torch.obs import causal
 from photon_tpu_torch.types import TaskType as TTask
 from photon_tpu_torch.util import faults
 from photon_tpu_torch.util.retry import RetryPolicy, is_transient_io, retry_call
@@ -262,6 +263,10 @@ def test_hung_producer_trips_stall_watchdog(models, monkeypatch):
 
 
 def test_watchdog_and_unported_knobs(models, monkeypatch):
+    """The stream's knobs: the watchdog, the sanitizer on the CPU path, and
+    ``PHOTON_TRACE``, which arms causal tracing and changes no score. The
+    name dates from when ``PHOTON_TRACE`` was refused; it is kept so that
+    the test's history reads on."""
     _, tmodel = models["index-mapped"]
     assert _scorer(tmodel, 64).watchdog_s == tscoring.DEFAULT_WATCHDOG_S
     monkeypatch.setenv("PHOTON_STREAM_WATCHDOG_S", "7.5")
@@ -304,12 +309,18 @@ def test_watchdog_and_unported_knobs(models, monkeypatch):
     # the sanitizer guards CUDA regions only: the CPU path passes unchanged
     monkeypatch.setenv("PHOTON_SANITIZE", "transfers")
     np.testing.assert_array_equal(scorer.score_data(td), clean)
-    # causal tracing stays unported and says where it is planned
+    # PHOTON_TRACE arms causal tracing at the stream's entry, and the
+    # armed stream scores the same numbers bit for bit
     monkeypatch.setenv("PHOTON_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="PHOTON_TRACE.*ROADMAP A5b"):
-        scorer.stream(iter(()))
+    try:
+        np.testing.assert_array_equal(scorer.score_data(td), clean)
+        assert causal.active() is not None
+        assert causal.active().export_state()[3]["finished"] == 3
+    finally:
+        causal.clear()
     monkeypatch.setenv("PHOTON_TRACE", "0")
     scorer.stream(iter(()))
+    assert causal.active() is None
 
 
 @pytest.mark.cuda

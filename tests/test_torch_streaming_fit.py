@@ -35,6 +35,7 @@ from photon_tpu_torch.game.checkpoint import ModelCheckpointStore
 from photon_tpu_torch.game.estimator import GameEstimator
 from photon_tpu_torch.game.scoring import ProducerDiedError
 from photon_tpu_torch.game.streaming import StreamConfig, StreamingModeError, stream_chunk_rows
+from photon_tpu_torch.obs import causal
 from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.optimize import problem as tprob
 from photon_tpu_torch.optimize.common import OptimizerConfig as TOptConfig
@@ -210,9 +211,25 @@ def test_streaming_residency_assertion_opt_out():
 
 
 def test_streaming_refuses_causal_tracing(monkeypatch):
+    """``PHOTON_TRACE=1`` is no longer refused: the streaming fit arms the
+    trace plane, mints one ``train.chunk`` trace per chunk, and gives the
+    disarmed fit's coefficients bit for bit. The name dates from when the
+    switch was refused; it is kept so that the test's history reads on."""
+    base = _re_est(descent_iterations=1).fit(_data(), stream=128)[0]
     monkeypatch.setenv("PHOTON_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="PHOTON_TRACE.*ROADMAP A5b"):
-        _re_est(descent_iterations=1).fit(_data(), stream=128)
+    est = _re_est(descent_iterations=1)
+    try:
+        traced = est.fit(_data(), stream=128)[0]
+        stats = causal.active().export_state()[3]
+    finally:
+        causal.clear()
+    report = est.last_fit_stats["stream"]
+    # every chunk's trace finished; each stream's end mints one more (the
+    # trace around the producer's last, empty pull), as in JAX
+    assert stats["finished"] == report["chunks"]
+    assert stats["minted"] == report["chunks"] + report["streams"]
+    for a, b in zip(base.model["user"].buckets, traced.model["user"].buckets):
+        np.testing.assert_array_equal(a.coefficients, b.coefficients)
 
 
 # ---------------------------------------------------------------------------
