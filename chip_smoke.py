@@ -187,7 +187,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sweep's work counter; with ``--profile``, ``coordinate_split`` splits
    config 5's, config 4's and ``daily_retrain``'s descents per coordinate
    (wall, CUDA launches, device time, host syncs, work counter);
-13. print one ``{"kernels": [...]}`` line and, last, the ok line.
+13. the fit's warm-up and the lint's sync check, which launch no new
+   kernel: ``cli_game_precompile`` (in the cli block: the training driver
+   with ``--precompile`` as a fresh subprocess on ``cli_game``'s parts and
+   command line: its best model bit for bit ``cli_game``'s, no one-time
+   cost in any sweep row, as many warmed programs as program keys the fit
+   dispatched, the kernel launched inside the warm-up; before it the same
+   command line without ``--precompile``, also fresh and unscraped, whose
+   first sweep alone counts one-time costs; the warm-up, sweep 0 and fit
+   walls of both printed beside ``cli_game_live``'s scraped run), the
+   warm leg of ``game_glmix_stream`` (the streamed refit with the warm-up:
+   every stream key warmed, no one-time cost in any sweep, the residency
+   guard under its limit, the model bit for bit the unwarmed refit's) and
+   ``sync_sites`` (after ``small_game_parity``: one sweep of a small GAME
+   fit with a windowed fixed effect, a random effect and MF, one streamed
+   sweep and one scorer batch under ``torch.cuda.set_sync_debug_mode
+   ("warn")``; every sync the card reports in a hot-path module of the
+   port must be an annotated PHL002 finding of ``photon_tpu_torch.analysis``
+   in the same statement, and the lint's ``--programs`` fixture fit passes
+   on the card);
+14. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -665,6 +684,158 @@ def sync_census(data, seed) -> None:
         "by_site": dict(sites.most_common(8)),
         "per_sync_round_trip_us": per_sync_us,
     }))
+
+
+def sync_sites(seed):
+    """The lint's host-sync findings checked against the card's sync sites.
+    Under ``torch.cuda.set_sync_debug_mode("warn")``, with the coordinates
+    built first (their one-time placements are not the question): one
+    sweep of a small GAME fit (a fixed effect through the window layout,
+    a per-user random effect and user × item MF, as ``small_game_data``
+    shapes them), one sweep of a streamed refit of the random effect with
+    that fixed effect locked, and one scorer batch. Each warning is
+    attributed to the innermost frame in ``photon_tpu_torch`` (a sync
+    that torch raises from its own Python files lands on the port line
+    that called it). Every such site in a hot-path module must be an
+    annotated (``# phl-ok: PHL002``) finding of ``photon_tpu_torch.analysis``
+    over this tree, matched by the statement that spans its line. The
+    coordinates are built before the watch starts, so each site is a
+    steady-state sync: one that matches only a baseline entry fails, as
+    that entry's note (a build, teardown or host-value site) is then
+    wrong. Then the lint's own entry point with ``--programs``, whose
+    fixture fit runs on the card by default, must pass. Printed, not
+    gated: the sites outside the hot paths and the hot-path findings that
+    never synced here."""
+    import os
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    from photon_tpu_torch.analysis import analyze_tree, match_sites
+    from photon_tpu_torch.analysis.baseline import apply_baseline, load_baseline
+    from photon_tpu_torch.analysis.core import is_hot_path
+    from photon_tpu_torch.game import (
+        FeatureRepresentation,
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        GameScorer,
+        MatrixFactorizationCoordinateConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_tpu_torch.game.data import slice_game_data
+    from photon_tpu_torch.game.descent import run_coordinate_descent
+    from photon_tpu_torch.game.streaming import StreamConfig
+    from photon_tpu_torch.types import TaskType
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = os.path.join(root, "photon_tpu_torch") + os.sep
+    t0 = time.perf_counter()
+    data = make_ctr_data(seed + 21, 1 << 14, 1 << 11, 8, [("user", 512, 8, 64),
+                                                         ("item", 64, 8, 256)])
+    fixed = FixedEffectCoordinateConfig(
+        feature_shard="global", optimization=l2_config(10, 8), regularization_weights=(1.0,),
+        representation=FeatureRepresentation.SPARSE, column_windows=True)
+    user = RandomEffectCoordinateConfig(
+        random_effect_type="user", feature_shard="per_user", optimization=l2_config(6, 8),
+        regularization_weights=(1.0,), active_data_upper_bound=64)
+    mf = MatrixFactorizationCoordinateConfig(
+        row_entity_type="user", col_entity_type="item", optimization=l2_config(6, 8),
+        num_factors=4, regularization_weights=(1.0,))
+    est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION,
+                        coordinate_configs={"fixed": fixed, "user": user, "mf": mf},
+                        update_sequence=["fixed", "user", "mf"], seed=seed, device="cuda")
+    coords = est._build_coordinates(data)
+    str_est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION,
+                            coordinate_configs={"fixed": fixed, "user": user},
+                            update_sequence=["fixed", "user"],
+                            locked_coordinates=frozenset({"fixed"}), seed=seed, device="cuda")
+    scoords = str_est._build_coordinates(data, stream_cfg=StreamConfig(chunk_rows=4096))
+    torch.cuda.synchronize()
+
+    sites: Counter = Counter()
+    outside: Counter = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        for fr in reversed(traceback.extract_stack()):
+            if fr.filename.startswith(port):
+                sites[(os.path.relpath(fr.filename, root).replace(os.sep, "/"), fr.lineno)] += 1
+                return
+        outside[f"{os.path.relpath(filename, root)}:{lineno}"] += 1
+
+    def watched(fn):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    cd = watched(lambda: run_coordinate_descent(coords, est.update_sequence, 1))
+    fixed_state = cd.states["fixed"].detach().cpu()
+    watched(lambda: run_coordinate_descent(
+        scoords, str_est.update_sequence, 1, initial_states={"fixed": fixed_state},
+        locked_coordinates=str_est.locked_coordinates))
+    scorer = GameScorer(est._to_model(coords, cd.states), device="cuda", batch_rows=4096)
+    batch = slice_game_data(data, 0, 4096)
+    watched(lambda: scorer.score_data(batch))
+    del coords, scoords, scorer
+
+    findings = analyze_tree(root)
+    gate = apply_baseline(findings, load_baseline(
+        os.path.join(root, "photon_tpu_torch", "analysis", "baseline.toml")))
+    if gate.new or gate.stale:
+        fail(f"sync_sites: the tree fails its own lint gate ({len(gate.new)} new findings, "
+             f"{len(gate.stale)} stale baseline entries)")
+    reviewed = [*gate.allowed, *gate.annotated]
+    hot = {s: n for s, n in sites.items() if is_hot_path(s[0])}
+    matched = match_sites(root, hot, gate.annotated)
+    baselined = match_sites(root, [s for s, f in matched.items() if f is None], gate.allowed)
+    missing = sorted(f"{p}:{ln} ({hot[(p, ln)]}x)" for (p, ln), f in baselined.items()
+                     if f is None)
+    baseline_only = sorted(f"{p}:{ln} ({hot[(p, ln)]}x) -> {f.path}:{f.line} {f.snippet}"
+                           for (p, ln), f in baselined.items() if f is not None)
+    matched.update(baselined)
+    hit = {(f.path, f.line) for f in matched.values() if f is not None}
+    silent = sorted({f"{f.path}:{f.line}" for f in reviewed
+                     if f.rule == "PHL002" and (f.path, f.line) not in hit})
+    row = {
+        "phase": "sync_sites", "wall_s": time.perf_counter() - t0,
+        "syncs": sum(sites.values()) + sum(outside.values()),
+        "hot_path_sites": {f"{p}:{ln}": {"syncs": n, "finding": f"{matched[(p, ln)].path}:"
+                                         f"{matched[(p, ln)].line} {matched[(p, ln)].status}"
+                                         if matched[(p, ln)] else None}
+                           for (p, ln), n in sorted(hot.items())},
+        "other_port_sites": {f"{p}:{ln}": n for (p, ln), n in sorted(sites.items())
+                             if (p, ln) not in hot},
+        "outside_port_sites": dict(outside),
+        "phl002_findings": sum(1 for f in reviewed if f.rule == "PHL002"),
+        "phl002_findings_never_synced": len(silent),
+        "never_synced_sample": silent[:12],
+    }
+    log(json.dumps(row))
+    if not hot:
+        fail("sync_sites: the card reported no sync in a hot-path module")
+    if missing:
+        fail(f"sync_sites: hot-path sync sites the card reported that no PHL002 finding "
+             f"covers: {missing}")
+    if baseline_only:
+        fail(f"sync_sites: hot-path sync sites the card reported that only a baseline entry "
+             f"covers (its build/teardown note is wrong; annotate the barrier or remove "
+             f"it): {baseline_only}")
+    from photon_tpu_torch.analysis.cli import main as lint_main
+
+    t1 = time.perf_counter()
+    rc = lint_main(["--root", root, "--programs"])
+    log(json.dumps({"phase": "sync_sites[programs]", "rc": rc, "device": "cuda",
+                    "wall_s": time.perf_counter() - t1}))
+    if rc != 0:
+        fail(f"sync_sites: python -m photon_tpu_torch.analysis --programs exited {rc} on the card")
 
 
 #: the CUDA runtime and driver calls that launch device work
@@ -4602,6 +4773,47 @@ def daily_retrain_parity(seed):
                     "wall_s": time.perf_counter() - t0, "max_abs_diff": worst}))
 
 
+def stream_warm_leg(est, data, base, want, unwarmed_s):
+    """The warm leg of ``game_glmix_stream``: the streamed refit again with
+    ``precompile=True``. Every stream program key the fit dispatched was
+    warmed (``n_programs`` of them, none more), no sweep reads a one-time
+    cost, the residency guard (sampled once per chunk and once per warm-up
+    chunk) stays under its limit, and the model and scores equal the
+    unwarmed streamed refit's bit for bit. Returns the printed row."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    got = est.fit(data, stream=DR_CHUNK, initial_model=base)[0]
+    wall = time.perf_counter() - t0
+    pre = est.last_fit_stats["precompile"]
+    coords = est.last_coordinates.values()
+    dispatched = sum(len(c.programs.dispatched) for c in coords)
+    unwarmed = [k for c in coords for k in c.programs.dispatched - c.programs.warmed]
+    if pre["n_programs"] != dispatched or unwarmed:
+        fail(f"game_glmix_stream[warm]: {pre['n_programs']} programs warmed, {dispatched} "
+             f"stream keys dispatched, unwarmed {unwarmed}")
+    compiles = [r["compiles"] for r in got.tracker if "sweep_seconds" in r]
+    if any(compiles):
+        fail(f"game_glmix_stream[warm]: one-time costs {compiles} in the sweeps")
+    st = est.last_fit_stats["stream"]
+    res = st["residency"]
+    if res["samples"] != st["chunks"] + pre["n_programs"]:
+        fail(f"game_glmix_stream[warm]: the guard sampled {res['samples']} times for "
+             f"{st['chunks']} chunks and {pre['n_programs']} warm-up chunks")
+    if not res["peak_over_baseline_bytes"] <= res["limit_bytes"]:
+        fail(f"game_glmix_stream[warm]: residency {res['peak_over_baseline_bytes']} B over "
+             f"the baseline, limit {res['limit_bytes']} B")
+    same = np.array_equal(want.scores, got.scores) and all(
+        np.array_equal(a.coefficients, b.coefficients)
+        for a, b in zip(want.model["user"].buckets, got.model["user"].buckets, strict=True))
+    if not same:
+        fail("game_glmix_stream[warm]: the warmed streamed refit differs from the unwarmed one")
+    return {"n_programs": pre["n_programs"], "programs": [p["program"] for p in pre["programs"]],
+            "warmup_wall_s": pre["wall_s"], "refit_s": {"warmed": wall, "unwarmed": unwarmed_s},
+            "sweep_s": [r["sweep_seconds"] for r in got.tracker if "sweep_seconds" in r],
+            "compiles": compiles, "residency": res, "model_bit_equal": True}
+
+
 def game_glmix_stream(seed):
     """Bench config 4 at full scale with its fixed effect locked: train
     FE + per-user RE materialized, then refit the per-user RE streaming
@@ -4635,12 +4847,12 @@ def game_glmix_stream(seed):
             active_data_upper_bound=GLMIX_UB),
     }
 
-    def estimator(locked):
+    def estimator(locked, **kw):
         return GameEstimator(
             task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs,
             update_sequence=["fixed", "user"], descent_iterations=3 if not locked else 2,
             locked_coordinates=frozenset({"fixed"}) if locked else frozenset(),
-            seed=seed, device="cuda")
+            seed=seed, device="cuda", **kw)
 
     windowed_rmatvec.launches = 0
     t0 = time.perf_counter()
@@ -4658,6 +4870,8 @@ def game_glmix_stream(seed):
     str_s = time.perf_counter() - t0
     str_peak = torch.cuda.max_memory_allocated()
     st = stream_checks("game_glmix_stream", str_est, got)
+    warm_leg = stream_warm_leg(estimator(True, precompile=True, keep_coordinates=True), data,
+                               base, got, str_s)
     # stream_trace: the same streamed refit with PHOTON_TRACE armed, one
     # train.chunk trace per chunk, the model and scores bit for bit
     traced_est = estimator(True)
@@ -4715,6 +4929,7 @@ def game_glmix_stream(seed):
         "fe_score_streamed_equals_resident": fe_exact, "fe_score_max_abs_diff": fe_diff,
         "vs_materialized": classes, "locked_fe_unchanged": True,
         "stream": {k: v for k, v in st.items() if k != "single_chunk_buckets"},
+        "warm_leg": warm_leg,
         "max_memory_allocated_streamed_bytes": str_peak,
         "max_memory_allocated_materialized_bytes": mat_peak,
     }))
@@ -4856,6 +5071,126 @@ def cli_game_live(ctx):
         "series_rows": len(rows), "sweep_span_dispatches": sweep_dispatches,
         "best_model_load_s": load_s, "best_model_bit_equal": True,
     }))
+    sweep_s = [e.get("dur", 0) / 1e6 for e in events if e.get("name") == "descent.sweep"]
+    fit_s = [e.get("dur", 0) / 1e6 for e in events if e.get("name") == "fit"]
+    sweep_compiles = [e.get("args", {}).get("compiles") for e in events
+                      if e.get("name") == "descent.sweep"]
+    return {"driver_wall_s": wall, "sweep0_s": sweep_s[0] if sweep_s else None,
+            "fit_wall_s": fit_s[0] if fit_s else None, "sweep_compiles": sweep_compiles}
+
+
+#: the training driver's own entry (``game_training.run``), with the warm-up
+#: (when ``--precompile`` asks for it) spied on: the kernel's launches
+#: inside it and the coordinates it warmed
+PRECOMPILE_DRIVER = r"""
+import json, sys
+from photon_tpu_torch.cli import game_training
+from photon_tpu_torch.game import estimator
+from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+
+seen = {}
+warm = estimator.precompile_coordinates
+
+def spied(coordinates, **kw):
+    n0 = windowed_rmatvec.launches
+    report = warm(coordinates, **kw)
+    seen.update(coordinates=coordinates, launches=windowed_rmatvec.launches - n0)
+    return report
+
+estimator.precompile_coordinates = spied
+res = game_training.run(sys.argv[2:], device="cuda")
+coords = seen.get("coordinates", {}).values()
+stats = res["fit_stats"]
+with open(sys.argv[1], "w") as f:
+    json.dump({
+        "precompile": stats["precompile"],
+        "fit_wall_s": stats["wall_s"], "warmup_launches": seen.get("launches", 0),
+        "fit_launches": windowed_rmatvec.launches,
+        "dispatched_keys": sum(len(c.programs.dispatched) for c in coords),
+        "unwarmed_keys": [repr(k) for c in coords for k in c.programs.dispatched - c.programs.warmed],
+        "sweeps": [[{"compiles": t["compiles"], "sweep_seconds": t["sweep_seconds"]}
+                    for t in r.tracker if "sweep_seconds" in t] for r in res["results"]],
+    }, f)
+"""
+
+
+def cli_game_precompile(ctx, live):
+    """The training driver with and without ``--precompile``: two fresh
+    subprocesses on the card with ``cli_game``'s parts and command line,
+    ``--output-mode BEST``, first without the warm-up, then with it; no
+    scrapes in either. Both must exit 0 with their best model bit for bit
+    ``cli_game``'s. The unwarmed run must count its one-time costs in its
+    first sweep's ``compiles`` and none after; the warmed run must read 0
+    in every sweep row of every grid point, report as many warmed
+    programs (``fit.precompile``'s ``n_programs``) as program keys the fit
+    dispatched, every one of them warmed, and launch the windowed Xᵀr
+    kernel inside the warm-up. ``compiles`` 0 is bookkeeping (a warm-up
+    marks its key warmed); what the warm-up moves shows in the walls, which
+    are printed, not gated: the warm-up wall, sweep 0's wall and the fit
+    wall of each run, and ``cli_game_live``'s (the unwarmed command line
+    again, with scrapes)."""
+    import os
+    import subprocess
+    import sys
+
+    from photon_tpu_torch.io.model_io import load_game_model
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+
+    def drive(name, *flags):
+        out = f"{ctx['tmp']}/{name}"
+        report_path = f"{ctx['tmp']}/{name}.json"
+        log_path = f"{ctx['tmp']}/{name}.log"
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_f:
+            rc = subprocess.run(
+                [sys.executable, "-c", PRECOMPILE_DRIVER, report_path,
+                 *cli_args(ctx, name, "--output-mode", "BEST", *flags)],
+                env=env, stdout=log_f, stderr=subprocess.STDOUT, timeout=900).returncode
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            fail(f"cli_game_precompile[{name}]: the training driver exited {rc}: {tail}")
+        with open(report_path) as f:
+            got = json.load(f)
+        loaded = load_game_model(f"{out}/best", ctx["res"]["index_maps"])
+        differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, loaded)
+        if differs:
+            fail(f"cli_game_precompile[{name}]: {differs} of the saved best model differs "
+                 f"from cli_game's")
+        compiles = [[s["compiles"] for s in grid] for grid in got["sweeps"]]
+        return got, compiles, {
+            "driver_wall_s": wall, "fit_wall_s": got["fit_wall_s"],
+            "sweep0_s": got["sweeps"][0][0]["sweep_seconds"],
+            "sweep_s": [[s["sweep_seconds"] for s in grid] for grid in got["sweeps"]],
+            "compiles": compiles, "best_model_bit_equal": True,
+        }
+
+    _, cold_compiles, cold = drive("unwarmed")
+    first, *rest = [c for grid in cold_compiles for c in grid]
+    if first <= 0 or any(rest):
+        fail(f"cli_game_precompile[unwarmed]: one-time costs {cold_compiles}; expected them "
+             f"in the first sweep only")
+    got, compiles, warm = drive("precompile", "--precompile")
+    pre = got["precompile"]
+    if any(c for grid in compiles for c in grid):
+        fail(f"cli_game_precompile: one-time costs in the sweeps {compiles}")
+    if pre["n_programs"] != got["dispatched_keys"] or got["unwarmed_keys"]:
+        fail(f"cli_game_precompile: {pre['n_programs']} programs warmed, "
+             f"{got['dispatched_keys']} program keys dispatched, unwarmed "
+             f"{got['unwarmed_keys']}")
+    if got["warmup_launches"] <= 0:
+        fail("cli_game_precompile: the warm-up never launched the windowed Xᵀr kernel")
+    log(json.dumps({
+        "phase": "cli_game_precompile",
+        "n_programs": pre["n_programs"], "programs": pre["programs"],
+        "warmup_wall_s": pre["wall_s"], "warmup_launches": got["warmup_launches"],
+        "warmed": warm, "unwarmed": cold,
+        "sweep0_warmed_over_unwarmed": warm["sweep0_s"] / cold["sweep0_s"],
+        "unwarmed_scraped_run": live,
+    }))
+    return got["fit_launches"]
 
 
 def cli_game_stream(seed, tmp, train_dir=None):
@@ -4980,6 +5315,11 @@ def main() -> None:
         "result line",
     )
     ap.add_argument(
+        "--sync-sites-only", action="store_true",
+        help="only run sync_sites (the card's sync sites against the lint's PHL002 "
+        "findings) and stop, with no result line",
+    )
+    ap.add_argument(
         "--kernel-only", action="store_true",
         help="only hold and time the kernel on the config-5 layout (float32), print "
         "its row and stop, with no result line: copied into another checkout, it "
@@ -5012,6 +5352,9 @@ def main() -> None:
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "nvcc_seconds": cuda_build.build_seconds}))
 
+    if args.sync_sites_only:
+        sync_sites(args.seed)
+        return
     if args.streaming_only:
         streaming_phases(args.seed, args.profile)
         with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-stream-") as tmp:
@@ -5051,6 +5394,7 @@ def main() -> None:
     segmented_launches = owlqn_segmented_and_full(args.seed)
 
     variance_launches, kvar = small_game_parity(args.seed)
+    sync_sites(args.seed)
     game_launches = {"game_glmix": game_glmix(args.seed, args.profile),
                      "game_ctr_mf": game_ctr_mf(args.seed)}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
@@ -5062,7 +5406,8 @@ def main() -> None:
         del train, valid, settings
         recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
         cache_launches = cli_game_cache(ctx)
-        cli_game_live(ctx)
+        live = cli_game_live(ctx)
+        precompile_launches = cli_game_precompile(ctx, live)
         cli_game_stream(args.seed, tmp, ctx["train"])
         serve_requests, serve_reference = cli_serving(ctx)
         cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
@@ -5100,6 +5445,7 @@ def main() -> None:
             "owlqn_segmented_and_full": segmented_launches,
             **{path: n for path, n in game_launches.items() if n > 0},
             "cli_game": cli_launches,
+            "cli_game_precompile": precompile_launches,
             **recovery_launches,
             "cli_game_cache": cache_launches,
             "small_game_parity.windowed_variance": variance_launches,

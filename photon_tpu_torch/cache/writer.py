@@ -287,6 +287,7 @@ class FeatureCacheWriter:
         manifest = {
             "format_version": CACHE_FORMAT_VERSION,
             # an epoch stamp for `cache_tool inspect` and `prune`
+            # phl-ok: PHL006 manifest creation timestamp: an epoch stamp, not a duration
             "created_unix": time.time(),
             "num_samples": self._rows,
             "id_tags": list(self.id_tags),

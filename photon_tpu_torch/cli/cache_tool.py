@@ -129,6 +129,7 @@ def _prune(args) -> int:
     if not os.path.isdir(root):
         print(f"no cache root at {root}")
         return 0
+    # phl-ok: PHL006 compared with the manifests' epoch creation stamps
     now = time.time()
     cutoff = now - args.older_than_days * 86400.0
     pruned = kept = 0

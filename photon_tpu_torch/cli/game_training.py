@@ -13,8 +13,10 @@ and validation reads go through ``cache.resolve_reader``) and the
 ``PHOTON_FAULTS`` fault plan work as in JAX's driver, and so does
 out-of-core streaming training (``--stream-chunk-rows``, game/
 streaming.py; a fit it does not support is refused before any output is
-written). Flags whose modules are not ported yet (the mesh, precompile)
-raise NotImplementedError when set away from their defaults.
+written), and so does ``--precompile`` (every sweep and score program
+warmed before the first sweep, game/descent.precompile_coordinates). The
+mesh, whose module is not ported yet, raises NotImplementedError when
+set away from its default.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -82,7 +84,6 @@ class HyperparameterTuningMode(enum.Enum):
 #: argparse dest → (accepted values besides the default, ROADMAP item)
 UNPORTED_FLAGS = {
     "mesh": ((), "ROADMAP A7: mesh over NCCL"),
-    "precompile": ((), "ROADMAP A8: warm-up of the sweep and score programs"),
 }
 
 
@@ -149,7 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="write every evaluated (weights, metric) pair as prior JSON",
     )
     p.add_argument("--mesh", default=None, metavar="DxE|N|auto", help="not ported yet")
-    p.add_argument("--precompile", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--precompile", action="store_true",
+        help="warm every sweep and score program of the fit before its first sweep (each "
+        "runs once from a throwaway state), so no sweep pays a one-time cost",
+    )
     p.add_argument("--compute-variance", action="store_true")
     p.add_argument("--model-sparsity-threshold", type=float, default=1e-4)
     p.add_argument(
@@ -442,6 +447,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             device=device,
             events=emitter,
             max_restarts=args.max_restarts,
+            precompile=args.precompile,
         )
 
         emitter.emit("training_start", task=task.name)

@@ -28,6 +28,20 @@ Placement: each random-effect bucket goes to the device inside
 ``coordinate.placement`` inside the retried thunk, as JAX's
 ``put_with_retry`` does; a failed attempt's tensors are dropped before
 the retry.
+
+Program keys (:class:`ProgramKeys`), JAX's AOT cache keys: a coordinate's
+sweep step is its ``("sweep", False)`` program and a score called on its
+own its ``("score",)`` program (the port never donates). The first dispatch
+at a key no warm-up covered is compile_watch's one-time cost, as JAX's
+first call of a jit program compiles it; so an unwarmed fit counts its
+sweep programs in sweep 0's ``compiles`` and 0 after. For a random
+effect one sweep key holds every bucket shape, as JAX's fused sweep
+holds every bucket as a sub-solve. :meth:`Coordinate.precompile_specs`
+lists ``(key, label, warm_fn)`` per program for
+``descent.precompile_coordinates``: ``warm_fn()`` runs that program once
+on the coordinate's own resident tensors, from a throwaway state, with
+the optimizer capped at one iteration (its line search included), and
+touches no state, score, work counter or fault point of the fit.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ from photon_tpu_torch.game.model import (
     MatrixFactorizationModel,
     RandomEffectModel,
 )
+from photon_tpu_torch.obs.health import sweep_health
 from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD, loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import matvec
@@ -64,10 +79,15 @@ from photon_tpu_torch.ops.sparse_windows import maybe_build_windows
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype
-from photon_tpu_torch.util import faults
+from photon_tpu_torch.util import compile_watch, faults
 from photon_tpu_torch.util.retry import RetryPolicy, is_transient, retry_call
 
 Tensor = torch.Tensor
+
+#: JAX's AOT cache keys (photon_tpu/game/coordinate.py:222-236); the
+#: port's programs never donate their inputs
+SWEEP_KEY = ("sweep", False)
+SCORE_KEY = ("score",)
 
 #: bucket placement retries: JAX's put_with_retry schedule (3 attempts,
 #: 20 s doubling to a 2-minute cap, ±10% jitter)
@@ -131,9 +151,54 @@ def score_rows(feats: Tensor, coef_rows: Tensor) -> Tensor:
     return (feats * coef_rows).sum(-1)
 
 
+def one_iteration(config: GLMProblemConfig) -> GLMProblemConfig:
+    """``config`` with its optimizer capped at one iteration: a warm-up
+    solve that still runs the first line search."""
+    return dataclasses.replace(
+        config, optimizer_config=dataclasses.replace(config.optimizer_config, max_iterations=1)
+    )
+
+
+def device_barrier(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)  # phl-ok: PHL002 a warm-up's end, so its wall is honest
+
+
+class ProgramKeys:
+    """The program keys of one coordinate: those warmed ahead of the fit
+    and those the fit dispatched. A dispatch at a key in neither set is a
+    one-time cost (``compile_watch.record_cold_dispatch``)."""
+
+    def __init__(self):
+        self.warmed: set = set()
+        self.dispatched: set = set()
+
+    def dispatch(self, key: tuple) -> None:
+        if key not in self.warmed and key not in self.dispatched:
+            compile_watch.record_cold_dispatch()
+        self.dispatched.add(key)
+
+    def warm(self, key: tuple) -> None:
+        self.warmed.add(key)
+
+
 class Coordinate:
+    """The coordinate protocol: ``train(residual, state) -> (state, info)``,
+    ``score(state)``, ``initial_state()``. A coordinate that can warm its
+    programs also implements ``_train_warm`` (one capped solve) and
+    ``_score`` (the score without its launch-site accounting)."""
+
+    @property
+    def programs(self) -> ProgramKeys:
+        keys = self.__dict__.get("_programs")
+        if keys is None:
+            keys = self.__dict__["_programs"] = ProgramKeys()
+        return keys
+
     def sweep_step(self, total: Tensor, score: Tensor, state):
         """→ (new_state, new_score, new_total, info)"""
+        self.programs.dispatch(SWEEP_KEY)
         with obs.dispatch_site():
             residual = total - score
             new_state, info = self.train(residual, state)
@@ -146,6 +211,41 @@ class Coordinate:
         if isinstance(state, Tensor):
             return state.to(self.device)
         return type(state)(self.place_state(s) for s in state)
+
+    def precompile_specs(self, include_sweep: bool = True) -> list:
+        """``(key, label, warm_fn)`` for every program a fit dispatches on
+        this coordinate, JAX's ``(key, label, Lowered)``: the sweep step
+        (unless ``include_sweep`` is off, as for a locked coordinate) and
+        the score. ``warm_fn()`` runs the program once and marks its key
+        warmed. NotImplementedError for a coordinate with no warm-up."""
+        if type(self)._train_warm is Coordinate._train_warm:
+            raise NotImplementedError(f"{type(self).__name__} has no warm-up")
+        out = []
+        if include_sweep:
+            out.append((SWEEP_KEY, "sweep", self._warmer(SWEEP_KEY, self._warm_sweep)))
+        out.append((SCORE_KEY, "score", self._warmer(SCORE_KEY, self._warm_score)))
+        return out
+
+    def _train_warm(self, residual_scores: Tensor, state):
+        raise NotImplementedError
+
+    def _warmer(self, key: tuple, run):
+        def warm_fn():
+            self.programs.warm(key)
+            run()
+            device_barrier(self.device)
+        return warm_fn
+
+    def _warm_sweep(self) -> None:
+        """One sweep step's work from a throwaway state: a one-iteration
+        solve on a zero residual, its health triple and its score."""
+        residual = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
+        state, info = self._train_warm(residual, self.initial_state())
+        sweep_health(state, info)
+        self._score(state)
+
+    def _warm_score(self) -> None:
+        self._score(self.initial_state())
 
 
 @dataclasses.dataclass(eq=False)
@@ -224,6 +324,10 @@ class FixedEffectCoordinate(Coordinate):
         )
         return self
 
+    @property
+    def num_samples(self) -> int:
+        return self.batch.labels.shape[0]
+
     def initial_state(self) -> Tensor:
         return torch.zeros(self.num_features, dtype=self.dtype, device=self.device)
 
@@ -232,9 +336,20 @@ class FixedEffectCoordinate(Coordinate):
         res = self.problem.solve(self.batch, state, extra_offsets=residual_scores)
         return res.x, res
 
+    def _train_warm(self, residual_scores: Tensor, state: Tensor):
+        """``train`` capped at one iteration (through the window kernel
+        when the batch has a window layout)."""
+        problem = GLMProblem.build(one_iteration(self.problem.config), self.normalization)
+        res = problem.solve(self.batch, state, extra_offsets=residual_scores)
+        return res.x, res
+
     def score(self, state: Tensor) -> Tensor:
         """x·(w .* factor) + margin shift, offsets excluded."""
         obs.record_dispatch()
+        self.programs.dispatch(SCORE_KEY)
+        return self._score(state)
+
+    def _score(self, state: Tensor) -> Tensor:
         return self.score_batch(self.batch, state)
 
     def score_batch(self, batch, state: Tensor) -> Tensor:
@@ -335,29 +450,41 @@ class RandomEffectCoordinate(Coordinate):
             for b in self.device_buckets
         ]
 
-    def _solve_bucket(self, db: _DeviceBucket, w0: Tensor, res_pad: Tensor):
+    def _solve_bucket(self, db: _DeviceBucket, w0: Tensor, res_pad: Tensor, config=None):
         """One lane-batched solve over every entity of one size bucket; the
         residual is gathered by sample position (padding reads the zero
         sentinel at index num_samples)."""
         return solve_lanes(
-            self.problem_config, db.features, db.labels,
+            config or self.problem_config, db.features, db.labels,
             fold_residual(db.offsets, db.sample_pos, res_pad), db.weights, w0,
         )
 
     def train(self, residual_scores: Tensor, state: list[Tensor]):
         obs.record_dispatch()
+        return self._train(residual_scores, state)
+
+    def _train(self, residual_scores: Tensor, state: list[Tensor], config=None):
         res_pad = torch.cat([residual_scores, residual_scores.new_zeros(1)])
         infos = [
-            self._solve_bucket(db, w0, res_pad)
+            self._solve_bucket(db, w0, res_pad, config)
             for db, w0 in zip(self.device_buckets, state)
         ]
         return [r.x for r in infos], infos
+
+    def _train_warm(self, residual_scores: Tensor, state: list[Tensor]):
+        """``_train`` capped at one iteration: every bucket shape of the
+        one sweep program, on the resident buckets (no copy of them)."""
+        return self._train(residual_scores, state, one_iteration(self.problem_config))
 
     def score(self, state: list[Tensor]) -> Tensor:
         """Flat scoring: each kept sample's compacted row dotted with its
         entity's coefficients, written to its position. Every kept sample
         appears once per coordinate, so the writes never collide."""
         obs.record_dispatch()
+        self.programs.dispatch(SCORE_KEY)
+        return self._score(state)
+
+    def _score(self, state: list[Tensor]) -> Tensor:
         out = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
         for db, coefs in zip(self.device_buckets, state):
             out[db.score_pos] = score_rows(db.score_feats, coefs[db.score_slot])
@@ -451,6 +578,10 @@ class MatrixFactorizationCoordinate(Coordinate):
         self.l2_weight = float(w)
         return self
 
+    @property
+    def num_samples(self) -> int:
+        return self.labels.shape[0]
+
     def initial_state(self) -> tuple[Tensor, Tensor]:
         k = self.config.num_factors
         rng = np.random.default_rng(self.seed)
@@ -459,6 +590,7 @@ class MatrixFactorizationCoordinate(Coordinate):
         v = rng.normal(scale=scale, size=(len(self.col_vocab), k))
 
         def t(a):
+            # phl-ok: PHL002 once per fit: the seeded initial factors go to the card before the first sweep
             return torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
 
         return t(u), t(v)
@@ -486,17 +618,31 @@ class MatrixFactorizationCoordinate(Coordinate):
 
     def train(self, residual_scores: Tensor, state):
         obs.record_dispatch()
+        return self._train(residual_scores, state)
+
+    def _train(self, residual_scores: Tensor, state, optimizer_config=None):
         u0, v0 = state
         vg = self.value_and_grad_fn(residual_scores, (tuple(u0.shape), tuple(v0.shape)))
         res = minimize_lbfgs(
             vg, torch.cat([u0.reshape(-1), v0.reshape(-1)]),
-            self.config.optimization.optimizer_config,
+            optimizer_config or self.config.optimization.optimizer_config,
         )
         n_u = u0.numel()
         return (res.x[:n_u].reshape(u0.shape), res.x[n_u:].reshape(v0.shape)), res
 
+    def _train_warm(self, residual_scores: Tensor, state):
+        """``_train`` capped at one iteration. ``state`` is the seeded
+        initial draw, not zeros: at U = V = 0 the gradient is 0, the solve
+        stops before its line search and the warm-up would skip it."""
+        return self._train(residual_scores, state,
+                           one_iteration(self.config.optimization).optimizer_config)
+
     def score(self, state) -> Tensor:
         obs.record_dispatch()
+        self.programs.dispatch(SCORE_KEY)
+        return self._score(state)
+
+    def _score(self, state) -> Tensor:
         u, v = state
         s = (u[self.row_idx] * v[self.col_idx]).sum(-1)
         return torch.where(self.weights > 0, s, torch.zeros_like(s))

@@ -42,6 +42,11 @@ injected NaN; not CUDA kernels), ``compiles`` and ``compile_seconds``
 own ``dispatches``), ``descent.sweep`` (carrying those counters) and
 ``descent.barrier`` enter ``torch.profiler.record_function`` while
 telemetry is on, so a profiler trace splits device work by coordinate.
+
+:func:`precompile_coordinates` is the fit's warm-up (JAX's AOT
+precompile pass): it runs every program key of the coordinates once
+before the first sweep, so that an unwarmed fit's one-time costs
+(``compiles`` in sweep 0) move out of the sweeps.
 """
 from __future__ import annotations
 
@@ -69,8 +74,67 @@ class CoordinateDescentResult:
     best_metric: float | None = None
 
 
+def precompile_coordinates(
+    coordinates: Mapping[str, Coordinate], *, locked: frozenset = frozenset()
+) -> dict:
+    """Warm every program a fit dispatches, the counterpart of JAX's
+    ``precompile_coordinates`` (photon_tpu/game/descent.py:40): each
+    coordinate's ``precompile_specs`` lists ``(key, label, warm_fn)``, and
+    each ``warm_fn()`` runs its program once (the coordinate's one-time
+    costs: the first launch of each kernel and the lazy load of its
+    module, the BLAS handles and workspaces, new allocator segments, the
+    load of the native kernel library) and marks its key warmed, so the
+    fit's first dispatch at that key is not a cold one. Locked
+    coordinates get their score program only; a coordinate that raises
+    NotImplementedError is skipped with JAX's warning.
+
+    The programs run one after another on the compute stream, and the
+    report says ``max_workers`` 1: JAX overlaps XLA compiles on a thread
+    pool, but a warm-up here is device work queued on one stream, which a
+    pool has nothing to overlap with. The port's programs never donate
+    their inputs, so JAX's ``donate`` has no counterpart either. A warm-up
+    that fails raises: JAX logs and goes on because its jit path compiles
+    lazily, where here it would hide a broken kernel until the fit.
+
+    The warm-up touches no state, score, total, health or tracker row of
+    the fit, no work counter (``obs.record_dispatch``) and no fault
+    point. The report keeps JAX's keys that mean something here:
+    ``n_programs``, ``max_workers``, ``wall_s``, ``sum_program_walls_s``
+    and per program its ``wall_s`` and compile_watch's
+    ``backend_compile_s`` (a native build it paid); XLA's lowering wall
+    and cache counts have no counterpart."""
+    specs = []
+    for cid, coord in coordinates.items():
+        try:
+            entries = coord.precompile_specs(include_sweep=cid not in locked)
+        except NotImplementedError:
+            logger.warning("coordinate %s does not support precompile", cid)
+            continue
+        specs.extend((f"{cid}:{label}", warm_fn) for _key, label, warm_fn in entries)
+    programs = []
+    t0 = time.perf_counter()
+    for label, warm_fn in specs:
+        with compile_watch.watch() as cw, obs.span("precompile.program", cat="compile",
+                                                   program=label):
+            t1 = time.perf_counter()
+            warm_fn()
+            wall = time.perf_counter() - t1
+        programs.append({"program": label, "wall_s": round(wall, 4),
+                         "backend_compile_s": cw["backend_compile_s"]})
+    report = {
+        "n_programs": len(programs),
+        "max_workers": 1,
+        "wall_s": round(time.perf_counter() - t0, 4),
+        "sum_program_walls_s": round(sum(p["wall_s"] for p in programs), 4),
+        "programs": programs,
+    }
+    logger.info("warmed %d programs in %.2fs", report["n_programs"], report["wall_s"])
+    return report
+
+
 def _barrier(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
+        # phl-ok: PHL002 the sweep's device barrier (per-coordinate granularity, or no device health to copy)
         torch.cuda.synchronize(t.device)
 
 
@@ -119,6 +183,7 @@ def _read_health(health_dev: Mapping[str, dict], total: torch.Tensor) -> dict:
         for cid in on_device
         for k in ("loss", "gnorm", "finite")
     ]
+    # phl-ok: PHL002 the sweep's one health copy, which is also its barrier
     vals = torch.stack(flat).cpu().tolist()
     read = {
         cid: {
@@ -307,6 +372,7 @@ def run_coordinate_descent(
                 )
         if validation_fn is not None:
             t_val = time.perf_counter()
+            # phl-ok: PHL002 the validation metric, read once per sweep after the barrier
             metric = float(validation_fn(states))
             tracker.append(
                 {

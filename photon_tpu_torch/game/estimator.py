@@ -9,10 +9,12 @@ that got no new data), per-sweep validation with the best sweep's model
 returned, and fixed-effect, random-effect and matrix-factorization
 coordinates, the lifecycle events of JAX's ``events=`` bus, the
 divergence policies of the health check, mid-descent checkpoints with
-resume, supervised restarts and model snapshots for warm starts, and
-out-of-core streaming (``fit(stream=...)``, game/streaming.py). No mesh
-or precompile; its telemetry is the descent's, the recovery loop's and
-the stream's counters (JAX's ``fit.*`` spans are not carried).
+resume, supervised restarts and model snapshots for warm starts,
+out-of-core streaming (``fit(stream=...)``, game/streaming.py) and the
+warm-up of every sweep and score program before the first sweep
+(``precompile``, game/descent.precompile_coordinates). No mesh; its
+telemetry is the descent's, the recovery loop's and the stream's
+counters and the ``fit.*`` spans.
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
 asked for.
 """
@@ -46,7 +48,7 @@ from photon_tpu_torch.game.data import (
     re_bucket_entity_cap,
     re_shape_budget,
 )
-from photon_tpu_torch.game.descent import run_coordinate_descent
+from photon_tpu_torch.game.descent import precompile_coordinates, run_coordinate_descent
 from photon_tpu_torch.game.model import (
     GameModel,
     RandomEffectModel,
@@ -113,7 +115,16 @@ class GameEstimator:
     reads ``PHOTON_ON_DIVERGENCE``. ``max_restarts`` > 0 restarts a fit
     that failed with a transient or divergent error, from its newest
     checkpoint when ``fit`` has a ``checkpoint_dir``
-    (game/recovery.py); ``PHOTON_MAX_RESTARTS`` wins over it."""
+    (game/recovery.py); ``PHOTON_MAX_RESTARTS`` wins over it.
+
+    ``precompile`` warms every program the fit dispatches before its first
+    sweep (``descent.precompile_coordinates``, under the span
+    ``fit.precompile``), so no sweep reads a one-time cost;
+    ``last_fit_stats["precompile"]`` holds its report (None when off), as
+    JAX's grid-0 result does. ``keep_coordinates`` keeps the fit's built
+    coordinates in ``last_coordinates`` for audit tools (the lint's
+    ``--programs``), as JAX's does; otherwise their device memory goes
+    back when the fit returns."""
 
     task: TaskType
     coordinate_configs: Mapping[str, object]
@@ -129,6 +140,8 @@ class GameEstimator:
     events: object | None = None
     on_divergence: str | None = None
     max_restarts: int | None = None
+    precompile: bool = False
+    keep_coordinates: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -144,6 +157,7 @@ class GameEstimator:
         #: host seconds of the last fit's phases (build, validation build,
         #: grid), the checkpoint it resumed from and the errors it restarted on
         self.last_fit_stats: dict | None = None
+        self.last_coordinates: dict | None = None
 
     def _existing_model_keys(self, cid, initial_model):
         if not self.ignore_threshold_for_new_models or initial_model is None:
@@ -377,13 +391,22 @@ class GameEstimator:
         telemetry = (
             self._arm_stream_guard(coordinates, stream_cfg) if stream_cfg is not None else None
         )
+        self.last_coordinates = coordinates if self.keep_coordinates else None
+        precompile_report = None
+        if self.precompile:
+            with obs.span("fit.precompile") as pre_span:
+                precompile_report = precompile_coordinates(
+                    coordinates, locked=self.locked_coordinates
+                )
+                pre_span.set(n_programs=precompile_report["n_programs"])
+            obs_memory.census("precompile")
         states = None
         if initial_model is not None:
             with obs.span("fit.warm_start"):
                 states = self._place_states(
                     self._states_from_model(initial_model, coordinates), coordinates
                 )
-        build_s = time.perf_counter() - t0
+        build_s = time.perf_counter() - t0 - (pre_span.duration_s if self.precompile else 0.0)
         validation_fn = None
         t_val = time.perf_counter()
         if validation_data is not None and self.validation_evaluator is not None:
@@ -477,6 +500,8 @@ class GameEstimator:
             "wall_s": time.perf_counter() - t0,
             # (grid, last completed sweep) of the checkpoint this fit resumed
             "resumed_from": None if ckpt is None else (ckpt.grid_index, ckpt.iteration),
+            # the warm-up's report, paid once before grid 0 (None when off)
+            "precompile": precompile_report,
         }
         if telemetry is not None:
             self.last_fit_stats["stream"] = {

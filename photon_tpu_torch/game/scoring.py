@@ -551,10 +551,12 @@ class GameScorer:
         copied = self._copied[slot]
         if copied is not None:
             with sanctioned_transfers("staging slot reuse: the slot's last copy must land"):
+                # phl-ok: PHL002 staging slot reuse: the slot's last copy must land
                 copied.synchronize()  # the last copy out of this slot is done
 
         def fill(path, a):
             buf = self._pinned_buffer(slot, path, a)
+            # phl-ok: PHL001 the page-locked view is np.copyto's destination, filled here and not held
             np.copyto(buf.numpy(), a)
             return buf
 
@@ -588,6 +590,7 @@ class GameScorer:
         out, event = enqueued
         if event is not None:
             with sanctioned_transfers("score read-back: the one D2H of a batch"):
+                # phl-ok: PHL002 score read-back: the one device-to-host wait of a batch
                 event.synchronize()  # the scores are in the host buffer now
         return out.numpy().astype(np.float64)
 

@@ -54,7 +54,16 @@ failure hand-off, so an ``error`` kills the thread, which the watchdog
 turns into :class:`ProducerDiedError`), ``train.stream.chunk`` (per chunk,
 handed to the consumer) and ``train.stream.h2d`` (the consumer, before it
 takes a staged chunk). ``compile_watch`` counts the first dispatch at
-each chunk shape as a one-time cost, so sweeps from 1 on count 0.
+each chunk shape as a one-time cost, so sweeps from 1 on count 0. The
+shape keys are JAX's (``Coordinate.programs``): ``("stream_solve", ec,
+rows, d, False)`` per solve chunk shape and ``("stream_score",
+chunk_rows, d, False)`` per random-effect score chunk shape, and
+``("stream_score", chunk_rows, False)`` for a locked fixed effect. Each
+coordinate's ``precompile_specs`` warms every such key once, on one
+chunk staged through a page-locked slot and the copy stream as a stream
+stages it, with at most one chunk on the card (under the residency
+bound), and outside ``run_stream``: no fault point, work counter or
+pipeline accounting of the fit sees it.
 Causal tracing (obs/causal.py, ``PHOTON_TRACE``): one ``train.chunk``
 trace per chunk, minted on the producer before the chunk is assembled
 (so a ``train.stream.chunk`` fault lands inside it) and carried on the
@@ -86,7 +95,9 @@ from photon_tpu_torch.game.coordinate import (
     FixedEffectCoordinate,
     RandomEffectCoordinate,
     _to_host,
+    device_barrier,
     fold_residual,
+    one_iteration,
     score_rows,
     solve_lanes,
 )
@@ -98,7 +109,7 @@ from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.problem import GLMProblem
 from photon_tpu_torch.types import LabeledBatch, numpy_dtype
-from photon_tpu_torch.util import compile_watch, faults
+from photon_tpu_torch.util import faults
 
 logger = logging.getLogger(__name__)
 
@@ -303,6 +314,7 @@ class _Stager:
         slot = self.slot
         self.slot = (slot + 1) % DEVICE_SLOTS
         if self.copied[slot] is not None:
+            # phl-ok: PHL002 staging slot reuse: the slot's last copy must land
             self.copied[slot].synchronize()  # the slot's last copy has landed
         bufs = []
         for i, t in enumerate(host):
@@ -524,17 +536,28 @@ def _pad_rows(t: Tensor, rows: int) -> Tensor:
     return out
 
 
-class _FirstDispatch:
-    """compile_watch's one-time cost: the first dispatch of a coordinate
-    at each chunk shape."""
-
-    def __init__(self):
-        self._seen: set = set()
-
-    def __call__(self, key: tuple) -> None:
-        if key not in self._seen:
-            self._seen.add(key)
-            compile_watch.record_cold_dispatch()
+def _warm_chunk(stager: _Stager, telemetry: StreamTelemetry, host: tuple, run_fn) -> None:
+    """One warm-up chunk: staged through a page-locked slot and the copy
+    stream of the coordinate's warm-up stager (one for all its keys, as a
+    stream has one for all its chunks), computed on the compute stream
+    behind the copy's event, read back, then dropped. The armed residency
+    guard is sampled with it on the card. No fault point, work counter or
+    stage accounting sees it."""
+    device = stager.device
+    dev, event = stager.stage(host)
+    if event is not None:
+        compute = torch.cuda.current_stream(device)
+        compute.wait_event(event)
+        for t in dev:
+            t.record_stream(compute)
+    if telemetry is not None and telemetry.guard is not None:
+        telemetry.guard.sample()
+    out = run_fn(dev)
+    del dev
+    for t in out:
+        # phl-ok: PHL002 the warm-up chunk's read-back, as a stream reads a chunk back
+        t.to(_HOST)
+    device_barrier(device)
 
 
 # -- streaming fixed effect (locked: a score stream only) ---------------------
@@ -553,7 +576,6 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
     num_samples: int = 0
     stream: StreamConfig = None
     telemetry: StreamTelemetry = None
-    first_dispatch: _FirstDispatch = dataclasses.field(default_factory=_FirstDispatch)
 
     @staticmethod
     def build_streaming(
@@ -604,17 +626,23 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
             hi = min(lo + cr, self.num_samples)
             yield (lo, hi), (self._dense_rows(lo, hi),)
 
+    def _score_key(self) -> tuple:
+        return ("stream_score", self.stream.chunk_rows, False)
+
     def score(self, state: Tensor) -> Tensor:
         out = torch.zeros(self.num_samples, dtype=self.dtype)
-        state_dev = state.to(self.device, self.dtype)
+        # the host state goes up without a stream sync: a copy from
+        # pageable memory is staged before the call returns
+        state_dev = state.to(self.device, self.dtype, non_blocking=True)
 
         def run_fn(meta, dev):
             (block,) = dev
-            self.first_dispatch(("stream_fe_score", *block.shape))
+            self.programs.dispatch(self._score_key())
             return self.score_batch(LabeledBatch(block, None, None, None), state_dev)
 
         def sink_fn(meta, res):
             lo, hi = meta
+            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
             out[lo:hi] = res[: hi - lo].to(_HOST)
 
         with obs.span("train.stream.fe_score", cat="stream", coordinate=self.feature_shard):
@@ -642,6 +670,21 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
 
     def sweep_step(self, total, score, state):
         self.train(None, state)  # raises
+
+    def precompile_specs(self, include_sweep: bool = True) -> list:
+        """The score program only (a streaming fixed effect is locked),
+        warmed on one zero [chunk_rows, D] block."""
+        key = self._score_key()
+
+        def warm_fn():
+            self.programs.warm(key)
+            state_dev = self.initial_state().to(self.device, non_blocking=True)
+            block = torch.zeros((self.stream.chunk_rows, self.num_features),
+                                dtype=self._feature_dtype)
+            _warm_chunk(_Stager(self.device), self.telemetry, (block,), lambda dev: (
+                self.score_batch(LabeledBatch(dev[0], None, None, None), state_dev),))
+
+        return [(key, "stream_score", warm_fn)]
 
     def to_model(self, state: Tensor):
         if self.problem.config.variance_computation.value != "NONE":
@@ -697,7 +740,6 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
     stream: StreamConfig = None
     telemetry: StreamTelemetry = None
     host_buckets: list = dataclasses.field(default_factory=list)
-    first_dispatch: _FirstDispatch = dataclasses.field(default_factory=_FirstDispatch)
 
     @staticmethod
     def build_streaming(
@@ -765,12 +807,13 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
 
         def run_fn(meta, dev):
             feats, crows = dev
-            self.first_dispatch(("stream_re_score", *feats.shape))
+            self.programs.dispatch(("stream_score", feats.shape[0], feats.shape[1], False))
             return score_rows(feats, crows)
 
         def sink_fn(meta, res):
             pos, real = meta
             # positions are unique: the write equals the device's
+            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
             out[pos] = res[:real].to(_HOST)
 
         with obs.span("train.stream.re_score", cat="stream",
@@ -802,12 +845,13 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
 
         def run_fn(meta, dev):
             features, labels, offsets, weights, w0 = dev
-            self.first_dispatch(("stream_re_solve", *features.shape))
+            self.programs.dispatch(("stream_solve", *features.shape, False))
             res = solve_lanes(self.problem_config, features, labels, offsets, weights, w0)
             return res.x, res.value, res.gradient.to(torch.float32).square().sum(-1)
 
         def sink_fn(meta, out):
             bi, e0, real = meta
+            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
             x, value, gsq = (t[:real].to(_HOST) for t in out)
             new_state[bi][e0 : e0 + real] = x
             sums[0] += float(value.to(torch.float64).sum())
@@ -832,6 +876,54 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
             "a streaming random effect trains through sweep_step (the chunked solve "
             "stream); train() is the materialized coordinates' entry point"
         )
+
+    def precompile_specs(self, include_sweep: bool = True) -> list:
+        """One ``stream_solve`` key per distinct solve chunk shape and one
+        ``stream_score`` key per distinct score chunk shape, deduplicated
+        across buckets as JAX's are. A solve key warms on its bucket's
+        first ``ec`` entity lanes with zero coefficients, a zero residual
+        and the optimizer capped at one iteration (zero features would
+        converge at iteration 0 and skip the line search); a score key on
+        a zero chunk. Every key stages through one stager."""
+        out, seen = [], set()
+        mc = self.stream.chunk_rows
+        stager = _Stager(self.device)
+        for hb in self.host_buckets:
+            key = ("stream_solve", hb.ec, hb.rows, hb.dim, False)
+            if include_sweep and key not in seen:
+                seen.add(key)
+                out.append((key, "stream_solve", self._solve_warmer(key, hb, stager)))
+            key = ("stream_score", mc, hb.dim, False)
+            if key not in seen:
+                seen.add(key)
+                out.append((key, "stream_score", self._score_warmer(key, hb.dim, stager)))
+        return out
+
+    def _solve_warmer(self, key: tuple, hb: _HostBucket, stager: _Stager):
+        def warm_fn():
+            self.programs.warm(key)
+            real = min(hb.ec, hb.num_entities)
+            res_pad = torch.zeros(self.num_samples + 1, dtype=self.dtype)
+            offsets = fold_residual(hb.offsets[:real], hb.sample_pos[:real], res_pad)
+            w0 = torch.zeros((real, hb.dim), dtype=self.dtype)
+            host = tuple(_pad_rows(t, hb.ec) for t in (
+                hb.features[:real], hb.labels[:real], offsets, hb.weights[:real], w0))
+            config = one_iteration(self.problem_config)
+
+            def run_fn(dev):
+                res = solve_lanes(config, *dev)
+                return res.x, res.value, res.gradient.to(torch.float32).square().sum(-1)
+
+            _warm_chunk(stager, self.telemetry, host, run_fn)
+        return warm_fn
+
+    def _score_warmer(self, key: tuple, dim: int, stager: _Stager):
+        def warm_fn():
+            self.programs.warm(key)
+            zeros = torch.zeros((self.stream.chunk_rows, dim), dtype=self.dtype)
+            _warm_chunk(stager, self.telemetry, (zeros, zeros.clone()),
+                        lambda dev: (score_rows(*dev),))
+        return warm_fn
 
     # -- accounting and export ----------------------------------------------------
 

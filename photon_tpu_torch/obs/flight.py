@@ -114,6 +114,7 @@ class FlightRecorder:
         self.dropped = 0  # records too large for the ring
         # monotonic timeline with ONE wall anchor so recovered records
         # can be placed in wall-clock time
+        # phl-ok: PHL006 epoch anchor: the one wall capture; records step from the monotonic base
         self.epoch_wall_s = time.time()
         self._epoch_ns = time.perf_counter_ns()
         size = _HEADER_SIZE + capacity_bytes

@@ -439,6 +439,7 @@ class TelemetryServer:
         self._httpd = ThreadingHTTPServer(("127.0.0.1", self.port), _Handler)
         self._httpd._monotonic = self._monotonic  # type: ignore[attr-defined]
         self.port = self._httpd.server_address[1]
+        # phl-ok: PHL003 run-scoped server thread: stop() shuts it down and joins, and every owner finally-guards stop()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever,
             kwargs={"poll_interval": 0.2},

@@ -109,6 +109,7 @@ class SeriesFlusher:
         self._prev = self._registry.snapshot()
         self.rows_written = 0
         self.errors = 0
+        # phl-ok: PHL006 epoch anchor: the one wall capture; rows step from the monotonic base
         self._epoch_wall_s = time.time()
         self._epoch = time.perf_counter()
         self._last_flush = self._epoch
@@ -168,6 +169,7 @@ class SeriesFlusher:
                 # a FRESH wall stamp per flush (wall_s above steps from
                 # the start epoch): the liveness signal a reader
                 # can age against its own clock
+                # phl-ok: PHL006 heartbeat stamps are wall-clock by definition (cross-process aging)
                 "heartbeat_wall_s": round(time.time(), 3),
                 "interval_s": round(interval, 6),
                 "counters": {
@@ -218,6 +220,7 @@ class SeriesFlusher:
             )
         if self._thread is not None:
             return self
+        # phl-ok: PHL003 run-scoped flusher thread: stop() sets the event and joins, and every owner finally-guards stop()
         self._thread = threading.Thread(
             target=self._run, name="obs-series-flush", daemon=True
         )

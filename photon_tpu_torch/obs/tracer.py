@@ -145,6 +145,7 @@ class Tracer:
         self._ids = itertools.count(1)
         self._tls = threading.local()
         # the one wall-clock capture; spans step from the monotonic base
+        # phl-ok: PHL006 epoch anchor: the one wall capture; spans step from the monotonic base
         self.epoch_wall_s = time.time()
         self.epoch_ns = time.perf_counter_ns()
         self.pid = os.getpid()

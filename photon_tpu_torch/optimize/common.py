@@ -108,6 +108,7 @@ def record_optimize_metrics(result: OptimizeResult) -> None:
         return
     names = ("iterations", "n_evals", "n_hvp", "n_feature_passes")
     values = torch.stack([getattr(result, n).reshape(()).to(torch.float64) for n in names])
+    # phl-ok: PHL002 telemetry on only: the solve's counters, read back in one copy
     for name, v in zip(names, values.tolist()):
         obs.counter(f"optimize.{name}", int(v))
 
@@ -118,8 +119,10 @@ def project_to_box(x: torch.Tensor, lower, upper) -> torch.Tensor:
     Bounds are cast to the coefficients' dtype and device; [D] bounds
     broadcast over a leading lane axis."""
     if lower is not None:
+        # phl-ok: PHL002 box bounds (host arrays of the config) placed at each projection: L-BFGS-B and boxed OWL-QN only
         x = torch.maximum(x, torch.as_tensor(lower, dtype=x.dtype, device=x.device))
     if upper is not None:
+        # phl-ok: PHL002 box bounds (host arrays of the config) placed at each projection: L-BFGS-B and boxed OWL-QN only
         x = torch.minimum(x, torch.as_tensor(upper, dtype=x.dtype, device=x.device))
     return x
 

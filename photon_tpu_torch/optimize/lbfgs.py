@@ -167,6 +167,7 @@ def minimize_lbfgs(
 
     for _ in range(t):
         active = reason == ConvergenceReason.NOT_CONVERGED
+        # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
         if not bool(active.any()):
             break
         direction = two_loop_direction(g, s_hist, y_hist, rho, num_pairs, pos)

@@ -77,6 +77,7 @@ def wolfe_search_phi(
 
     for _ in range(max_iterations):
         run = ~done & (i < max_iterations)
+        # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
         if not bool(run.any()):
             break
         in_zoom = stage == 1

@@ -102,6 +102,7 @@ class _OWLQNState(NamedTuple):
 
 def _any_active(s: _OWLQNState) -> bool:
     """The host check (one scalar sync): is any lane still running?"""
+    # phl-ok: PHL002 the per-iteration 'any lane active' sync of the OWL-QN loop
     return bool((s.reason == ConvergenceReason.NOT_CONVERGED).any())
 
 
@@ -149,7 +150,7 @@ def _owlqn_machinery(
     def make_init(x0: Tensor) -> _OWLQNState:
         dtype, dev = x0.dtype, x0.device
         b, d = x0.shape
-        l1 = torch.as_tensor(l1_weight, dtype=dtype, device=dev)
+        l1 = torch.full((), l1_weight, dtype=dtype, device=dev)
         if has_box:
             x0 = box(x0)
         # absolute tolerances from the zero state (Optimizer.scala:181)
@@ -184,7 +185,7 @@ def _owlqn_machinery(
         x, f, g, carry = s.x, s.f, s.g, s.carry
         dtype, dev = x.dtype, x.device
         lanes = torch.arange(x.shape[0], device=dev)
-        l1 = torch.as_tensor(l1_weight, dtype=dtype, device=dev)
+        l1 = torch.full((), l1_weight, dtype=dtype, device=dev)
         active = s.reason == ConvergenceReason.NOT_CONVERGED
         s_hist, y_hist, rho, num_pairs, pos = s.s_hist, s.y_hist, s.rho, s.num_pairs, s.pos
         pg = pseudo_gradient(x, g, l1)
@@ -212,6 +213,7 @@ def _owlqn_machinery(
         aux = carry if margin_trials else g  # accepted margins, or gradient
         for _ in range(config.ls_max_iterations):
             run = ~done
+            # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
             if not bool(run.any()):
                 break
             x_cand = x + step_len.unsqueeze(-1) * direction
@@ -290,7 +292,7 @@ def _owlqn_machinery(
         )
 
     def finalize(s: _OWLQNState) -> OptimizeResult:
-        l1 = torch.as_tensor(l1_weight, dtype=s.x.dtype, device=s.x.device)
+        l1 = torch.full((), l1_weight, dtype=s.x.dtype, device=s.x.device)
         pg_final = pseudo_gradient(s.x, s.g, l1)
         idx = torch.arange(t + 1, device=s.x.device)
         upto = idx.unsqueeze(0) <= s.it.unsqueeze(-1)

@@ -61,6 +61,7 @@ def _truncated_cg(
     done = ~active
     for _ in range(max_iterations):
         run = ~done & (torch.sqrt(rtr) > cg_tol)
+        # phl-ok: PHL002 one sync per CG step on 'any lane still running'
         if not bool(run.any()):
             break
         hp = hvp(p)
@@ -173,6 +174,7 @@ def minimize_tron(
 
     for _ in range(t):
         active = reason == ConvergenceReason.NOT_CONVERGED
+        # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
         if not bool(active.any()):
             break
         step, r, cg_iters = _truncated_cg(

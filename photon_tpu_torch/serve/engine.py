@@ -117,6 +117,7 @@ class ServingEngine:
         slo.ensure_from_env()
         compile_watch.install()
         self._cw_start = compile_watch.snapshot()
+        # phl-ok: PHL003 engine-scoped thread: stop() closes the queue, joins, and re-raises loop failures; every owner calls it
         self._thread = threading.Thread(target=self._run, name="serve-engine", daemon=True)
         self._thread.start()
         obs.instant("serve.engine_started", cat="lifecycle")

@@ -105,6 +105,7 @@ def write_request(
         "tenant": tenant,
         "deadline_s": float(deadline_s),
         "arrival_wall": (
+            # phl-ok: PHL006 arrival stamp that must survive a server relaunch (cross-process aging)
             time.time() if arrival_wall is None else float(arrival_wall)
         ),
     }
@@ -176,6 +177,7 @@ def rebase_arrival(arrival_wall: float) -> float:
     ``perf_counter`` frame, preserving the elapsed-since-arrival the
     deadline math runs on (a request that sat on disk across a server
     crash has been waiting the whole time)."""
+    # phl-ok: PHL006 rebases a cross-process wall stamp onto this process's monotonic clock
     return time.perf_counter() - (time.time() - float(arrival_wall))
 
 
@@ -242,6 +244,7 @@ def write_swap_command(
             "tenant": tenant,
             "model_dir": model_dir,
             "expect_fingerprint": expect_fingerprint,
+            # phl-ok: PHL006 swap-command stamp read by other processes
             "issued_wall": time.time(),
         },
     )
@@ -286,6 +289,7 @@ def request_stop(spool_dir: str) -> str:
     os.makedirs(spool_dir, exist_ok=True)
     path = os.path.join(spool_dir, "stop")
     with open(path, "w") as f:
+        # phl-ok: PHL006 stop-marker stamp read by other processes
         f.write(str(time.time()))
     return path
 

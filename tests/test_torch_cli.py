@@ -1263,7 +1263,6 @@ _INDEX = ["--input-data-directories", "x", "--root-output-directory", "{out}",
 
 UNPORTED = [
     (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
-    (t_gt, _TRAIN, ["--precompile"], "--precompile"),
 ]
 
 
@@ -1276,6 +1275,20 @@ def test_unported_flag_raises(tmp_path, mod, base, extra, flag):
     with pytest.raises(NotImplementedError, match=flag):
         mod.run(argv, **kw)
     assert not (tmp_path / "o").exists()
+
+
+def test_precompile_trains_the_models_of_the_run_without_it(avro_dirs, trained, tmp_path):
+    """--precompile warms every sweep and score program before the first
+    sweep: the saved models and summary are those of the run without it
+    bit for bit, and no sweep reads a one-time cost."""
+    res = _port_run(avro_dirs, tmp_path, "--precompile")
+    _assert_uninterrupted(trained, tmp_path)
+    report = res["fit_stats"]["precompile"]
+    assert report["n_programs"] == 4
+    assert [p["program"] for p in report["programs"]] == [
+        "global:sweep", "global:score", "per-user:sweep", "per-user:score"]
+    rows = [t for r in res["results"] for t in r.tracker if "sweep_seconds" in t]
+    assert len(rows) == 4 and all(t["compiles"] == 0 for t in rows)
 
 
 def test_accepted_defaults_do_not_raise(tmp_path):

@@ -108,7 +108,14 @@ def test_rows_and_fit_stats_carry_every_jax_key(fits):
     assert set(jest.last_fit_stats) - xla_only <= set(test.last_fit_stats)
     assert not xla_only & set(test.last_fit_stats)
     assert test.last_fit_stats["ingest"] == jest.last_fit_stats["ingest"] == "host"
-    assert test.last_fit_stats["backend_compiles"] == 0
+    # its one-time costs are the first dispatch at each program key (a
+    # sweep and a score program per coordinate, as JAX compiles each
+    # once) and the native builds it paid, if any
+    stats = test.last_fit_stats
+    assert stats["cold_dispatches"] == 2 * len(UPDATE)
+    assert stats["backend_compiles"] == stats["cold_dispatches"] + stats["native_builds"]
+    sweeps = _sweeps(tres.tracker)
+    assert sweeps[0]["compiles"] >= len(UPDATE) and sweeps[1]["compiles"] == 0
 
 
 def test_sweep_spans_carry_the_counters(fits):
