@@ -89,17 +89,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    replicates) chapters, and the same run at float64 on the card and on
    the CPU gives report.json within 1e-9 relative;
 8. recovery and tuning, on ``cli_game``'s Avro parts and widths:
-   ``cli_game_resume`` (the training command line with
-   ``--checkpoint-sweeps`` killed by the fault plan at grid 1's second
-   sweep, then rerun: it resumes there, and every model equals
-   ``cli_game``'s bit for bit), ``cli_game_restart`` (on the data the
-   driver read: a NaN injected into a sweep raises DivergenceError, and
-   with ``max_restarts=1`` the fit restarts from its checkpoint and gives
-   the uninterrupted models bit for bit), ``cli_game_warm`` (a model
-   snapshot saved by ``--model-checkpoint-directory`` loads back equal to
-   the final model, and a run with ``--warm-start-input-directory``
-   starts from its scores within 1e-4) and ``cli_game_tuning`` (BAYESIAN
-   tuning for 3 iterations: 5 finite evaluations, the kernel launched in
+   ``cli_game_resume`` (the training command line cut to grid 0 with
+   ``--checkpoint-sweeps``, killed by the fault plan at its second sweep,
+   then rerun: it resumes there, and its model equals ``cli_game``'s
+   grid-0 model bit for bit), ``cli_game_restart`` (on the data the
+   driver read, grid 0 alone: a NaN injected into a sweep raises
+   DivergenceError, and with ``max_restarts=1`` the fit restarts from its
+   checkpoint and gives the uninterrupted grid-0 model bit for bit),
+   ``cli_game_warm`` (grid 0's λ for one sweep: a model snapshot saved by
+   ``--model-checkpoint-directory`` loads back equal to the final model,
+   and a run with ``--warm-start-input-directory`` starts from its scores
+   within 1e-4) and ``cli_game_tuning`` (one sweep a fit, BAYESIAN
+   tuning for 2 iterations: 4 finite evaluations, the kernel launched in
    every tuned fit, the saved observations read back as priors) and
    ``cli_game_cache`` (the feature cache built by
    ``photon_tpu_torch.cli.cache_tool build``; the training driver with
@@ -163,7 +164,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and, inside
    the cli block on ``cli_game``'s parts, ``cli_game_stream`` (the
    training driver with ``--stream-chunk-rows 8192``, the two random
-   effects only, with ``--model-checkpoint-directory`` and then
+   effects only, one sweep, with ``--model-checkpoint-directory`` and then
    ``--warm-start-input-directory`` on the first part: each saved model
    equals a direct ``fit(..., stream=8192)`` bit for bit, and each run
    profile holds the ``train.stream.*`` stage histograms);
@@ -180,17 +181,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``game_glmix_stream``: the warm cache stream and the streamed refit
    again with ``PHOTON_TRACE=1``, one trace per chunk, valid, scores and
    models bit for bit) and ``cli_game_live`` (in the cli block: the
-   training driver as a subprocess with ``PHOTON_OBS_HTTP_PORT`` set,
-   ``/metrics``, ``/healthz`` and ``/slo`` checked while it fits, then its
-   series rows, the sweep spans' ``dispatches`` in ``obs/trace.json`` and
-   its best model bit for bit ``cli_game``'s); ``main_path`` prints each
+   training driver as a subprocess with ``PHOTON_OBS_HTTP_PORT`` set, on
+   grid 0 of ``cli_game``'s λ grid, ``/metrics``, ``/healthz`` and ``/slo``
+   checked while it fits, then its series rows, the sweep spans'
+   ``dispatches`` in ``obs/trace.json`` and its best model bit for bit
+   ``cli_game``'s grid-0 model); ``main_path`` prints each
    sweep's work counter; with ``--profile``, ``coordinate_split`` splits
    config 5's, config 4's and ``daily_retrain``'s descents per coordinate
    (wall, CUDA launches, device time, host syncs, work counter);
 13. the fit's warm-up and the lint's sync check, which launch no new
    kernel: ``cli_game_precompile`` (in the cli block: the training driver
    with ``--precompile`` as a fresh subprocess on ``cli_game``'s parts and
-   command line: its best model bit for bit ``cli_game``'s, no one-time
+   command line cut to grid 0: its best model bit for bit ``cli_game``'s
+   grid-0 model, no one-time
    cost in any sweep row, as many warmed programs as program keys the fit
    dispatched, the kernel launched inside the warm-up; before it the same
    command line without ``--precompile``, also fresh and unscraped, whose
@@ -206,7 +209,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    port must be an annotated PHL002 finding of ``photon_tpu_torch.analysis``
    in the same statement, and the lint's ``--programs`` fixture fit passes
    on the card);
-14. print one ``{"kernels": [...]}`` line and, last, the ok line.
+14. the mesh (``photon_tpu_torch/parallel/``): ``mesh_kernel_shards``
+   (after the config-5 and config-3 kernel rows: each layout padded for
+   1, 2, 3 and 4 instance shards, the kernel on every shard's instance
+   range, the partials summed within the kernel's Higham bound against
+   the float64 plain version, one shard bit for bit the unsharded layout,
+   each shard's ``kernel_ms`` beside its plain version's, ``torch.mv`` on
+   the shard's CSR Xᵀ and its bound), ``cli_game_mesh`` (in the cli block: the
+   training driver with ``--mesh 1x1`` as a fresh subprocess on
+   ``cli_game``'s parts and command line, NCCL over a world of one: its
+   best model (handed back pickled) bit for bit ``cli_game``'s, as many
+   kernel launches, the topology in its checkpoint fingerprint, its
+   collectives per sweep and walls beside ``cli_game``'s; then one sweep of ``sync_sites``' small fit
+   on a world-of-one mesh under ``torch.cuda.set_sync_debug_mode("warn")``,
+   every hot-path site an annotated PHL002 finding) and ``mesh_two_rank``
+   (after ``cli_game_parity``: two processes on the one card in a Gloo
+   group with CUDA tensors, at ``cli_game_parity``'s size at float64, on
+   meshes 2x1 and 1x2, against the same two ranks on the CPU and the
+   card's unmeshed fit, within 1e-9; the collectives Gloo takes on CUDA
+   tensors are printed);
+15. print one ``{"kernels": [...]}`` line and, last, the ok line.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -539,7 +561,9 @@ def config5_window_builds(idx, val, dim):
 
 def kernel_phase(data):
     """Every layout at float32 (the fit's type on the main path) and at
-    float64; returns the config-5 float32 row."""
+    float64, then the config-5 layout's instance shards
+    (``mesh_kernel_shards``); returns the config-5 float32 row and the
+    shard rows."""
     import numpy as np
     import torch
 
@@ -569,7 +593,7 @@ def kernel_phase(data):
         )
         # dim not a multiple of the window, a hot column, ELL padding slots
         kernel_case("dim_1000_w128", idx3, val3, d3, dtype=dtype)
-    return rows[torch.float32]
+    return rows[torch.float32], mesh_kernel_shards("config5_fe", idx, val, fe.num_cols, layout)
 
 
 def small_parity(dtype, tol):
@@ -707,42 +731,20 @@ def sync_sites(seed):
     gated: the sites outside the hot paths and the hot-path findings that
     never synced here."""
     import os
-    import traceback
-    import warnings
-    from collections import Counter
 
     import torch
 
-    from photon_tpu_torch.analysis import analyze_tree, match_sites
-    from photon_tpu_torch.analysis.baseline import apply_baseline, load_baseline
-    from photon_tpu_torch.analysis.core import is_hot_path
-    from photon_tpu_torch.game import (
-        FeatureRepresentation,
-        FixedEffectCoordinateConfig,
-        GameEstimator,
-        GameScorer,
-        MatrixFactorizationCoordinateConfig,
-        RandomEffectCoordinateConfig,
-    )
+    from photon_tpu_torch.game import GameEstimator, GameScorer
     from photon_tpu_torch.game.data import slice_game_data
     from photon_tpu_torch.game.descent import run_coordinate_descent
     from photon_tpu_torch.game.streaming import StreamConfig
     from photon_tpu_torch.types import TaskType
 
     root = os.path.dirname(os.path.abspath(__file__))
-    port = os.path.join(root, "photon_tpu_torch") + os.sep
     t0 = time.perf_counter()
     data = make_ctr_data(seed + 21, 1 << 14, 1 << 11, 8, [("user", 512, 8, 64),
                                                          ("item", 64, 8, 256)])
-    fixed = FixedEffectCoordinateConfig(
-        feature_shard="global", optimization=l2_config(10, 8), regularization_weights=(1.0,),
-        representation=FeatureRepresentation.SPARSE, column_windows=True)
-    user = RandomEffectCoordinateConfig(
-        random_effect_type="user", feature_shard="per_user", optimization=l2_config(6, 8),
-        regularization_weights=(1.0,), active_data_upper_bound=64)
-    mf = MatrixFactorizationCoordinateConfig(
-        row_entity_type="user", col_entity_type="item", optimization=l2_config(6, 8),
-        num_factors=4, regularization_weights=(1.0,))
+    fixed, user, mf = sync_site_configs()
     est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION,
                         coordinate_configs={"fixed": fixed, "user": user, "mf": mf},
                         update_sequence=["fixed", "user", "mf"], seed=seed, device="cuda")
@@ -754,6 +756,63 @@ def sync_sites(seed):
     scoords = str_est._build_coordinates(data, stream_cfg=StreamConfig(chunk_rows=4096))
     torch.cuda.synchronize()
 
+    sites, outside, watched = sync_watch(root)
+    cd = watched(lambda: run_coordinate_descent(coords, est.update_sequence, 1))
+    fixed_state = cd.states["fixed"].detach().cpu()
+    watched(lambda: run_coordinate_descent(
+        scoords, str_est.update_sequence, 1, initial_states={"fixed": fixed_state},
+        locked_coordinates=str_est.locked_coordinates))
+    scorer = GameScorer(est._to_model(coords, cd.states), device="cuda", batch_rows=4096)
+    batch = slice_game_data(data, 0, 4096)
+    watched(lambda: scorer.score_data(batch))
+    del coords, scoords, scorer
+    gate_sync_sites("sync_sites", root, sites, outside, t0)
+    from photon_tpu_torch.analysis.cli import main as lint_main
+
+    t1 = time.perf_counter()
+    rc = lint_main(["--root", root, "--programs"])
+    log(json.dumps({"phase": "sync_sites[programs]", "rc": rc, "device": "cuda",
+                    "wall_s": time.perf_counter() - t1}))
+    if rc != 0:
+        fail(f"sync_sites: python -m photon_tpu_torch.analysis --programs exited {rc} on the card")
+
+
+def sync_site_configs():
+    """``sync_sites``' small fit: a windowed fixed effect, a per-user random
+    effect and user × item MF."""
+    from photon_tpu_torch.game import (
+        FeatureRepresentation,
+        FixedEffectCoordinateConfig,
+        MatrixFactorizationCoordinateConfig,
+        RandomEffectCoordinateConfig,
+    )
+
+    fixed = FixedEffectCoordinateConfig(
+        feature_shard="global", optimization=l2_config(10, 8), regularization_weights=(1.0,),
+        representation=FeatureRepresentation.SPARSE, column_windows=True)
+    user = RandomEffectCoordinateConfig(
+        random_effect_type="user", feature_shard="per_user", optimization=l2_config(6, 8),
+        regularization_weights=(1.0,), active_data_upper_bound=64)
+    mf = MatrixFactorizationCoordinateConfig(
+        row_entity_type="user", col_entity_type="item", optimization=l2_config(6, 8),
+        num_factors=4, regularization_weights=(1.0,))
+    return fixed, user, mf
+
+
+def sync_watch(root):
+    """(sites, outside, watched): ``watched(fn)`` runs ``fn()`` under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and counts each sync
+    warning at the innermost frame in ``photon_tpu_torch`` (``sites``,
+    keyed by (path, line)), or where it was raised when no port frame is
+    on the stack (``outside``)."""
+    import os
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    port = os.path.join(root, "photon_tpu_torch") + os.sep
     sites: Counter = Counter()
     outside: Counter = Counter()
 
@@ -776,21 +835,24 @@ def sync_sites(seed):
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
-    cd = watched(lambda: run_coordinate_descent(coords, est.update_sequence, 1))
-    fixed_state = cd.states["fixed"].detach().cpu()
-    watched(lambda: run_coordinate_descent(
-        scoords, str_est.update_sequence, 1, initial_states={"fixed": fixed_state},
-        locked_coordinates=str_est.locked_coordinates))
-    scorer = GameScorer(est._to_model(coords, cd.states), device="cuda", batch_rows=4096)
-    batch = slice_game_data(data, 0, 4096)
-    watched(lambda: scorer.score_data(batch))
-    del coords, scoords, scorer
+    return sites, outside, watched
+
+
+def gate_sync_sites(phase, root, sites, outside, t0):
+    """Every hot-path sync site the card reported must be an annotated
+    PHL002 finding of the lint over this tree (matched by the statement
+    that spans its line), not a baselined one; prints the sites."""
+    import os
+
+    from photon_tpu_torch.analysis import analyze_tree, match_sites
+    from photon_tpu_torch.analysis.baseline import apply_baseline, load_baseline
+    from photon_tpu_torch.analysis.core import is_hot_path
 
     findings = analyze_tree(root)
     gate = apply_baseline(findings, load_baseline(
         os.path.join(root, "photon_tpu_torch", "analysis", "baseline.toml")))
     if gate.new or gate.stale:
-        fail(f"sync_sites: the tree fails its own lint gate ({len(gate.new)} new findings, "
+        fail(f"{phase}: the tree fails its own lint gate ({len(gate.new)} new findings, "
              f"{len(gate.stale)} stale baseline entries)")
     reviewed = [*gate.allowed, *gate.annotated]
     hot = {s: n for s, n in sites.items() if is_hot_path(s[0])}
@@ -805,7 +867,7 @@ def sync_sites(seed):
     silent = sorted({f"{f.path}:{f.line}" for f in reviewed
                      if f.rule == "PHL002" and (f.path, f.line) not in hit})
     row = {
-        "phase": "sync_sites", "wall_s": time.perf_counter() - t0,
+        "phase": phase, "wall_s": time.perf_counter() - t0,
         "syncs": sum(sites.values()) + sum(outside.values()),
         "hot_path_sites": {f"{p}:{ln}": {"syncs": n, "finding": f"{matched[(p, ln)].path}:"
                                          f"{matched[(p, ln)].line} {matched[(p, ln)].status}"
@@ -820,22 +882,14 @@ def sync_sites(seed):
     }
     log(json.dumps(row))
     if not hot:
-        fail("sync_sites: the card reported no sync in a hot-path module")
+        fail(f"{phase}: the card reported no sync in a hot-path module")
     if missing:
-        fail(f"sync_sites: hot-path sync sites the card reported that no PHL002 finding "
+        fail(f"{phase}: hot-path sync sites the card reported that no PHL002 finding "
              f"covers: {missing}")
     if baseline_only:
-        fail(f"sync_sites: hot-path sync sites the card reported that only a baseline entry "
+        fail(f"{phase}: hot-path sync sites the card reported that only a baseline entry "
              f"covers (its build/teardown note is wrong; annotate the barrier or remove "
              f"it): {baseline_only}")
-    from photon_tpu_torch.analysis.cli import main as lint_main
-
-    t1 = time.perf_counter()
-    rc = lint_main(["--root", root, "--programs"])
-    log(json.dumps({"phase": "sync_sites[programs]", "rc": rc, "device": "cuda",
-                    "wall_s": time.perf_counter() - t1}))
-    if rc != 0:
-        fail(f"sync_sites: python -m photon_tpu_torch.analysis --programs exited {rc} on the card")
 
 
 #: the CUDA runtime and driver calls that launch device work
@@ -1650,16 +1704,108 @@ def owlqn_segmented_and_full(seed):
 
 def config3_kernel_rows(idx, vals):
     """The kernel on the config-3 layout at float32 and float64 (one host
-    layout build for both)."""
+    layout build for both), then on its instance shards
+    (``mesh_kernel_shards``)."""
     import torch
 
     from photon_tpu_torch.ops import sparse_windows as sw
 
     layout = sw.build_column_windows_numpy(idx, vals, OWLQN_D)
-    return {
+    rows = {
         dtype: kernel_case("config3_fe", idx, vals, OWLQN_D, dtype=dtype, layout=layout)
         for dtype in (torch.float32, torch.float64)
     }
+    return rows, mesh_kernel_shards("config3_fe", idx, vals, OWLQN_D, layout)
+
+
+MESH_SHARDS = (1, 2, 3, 4)
+
+
+def mesh_kernel_shards(label, idx, val, dim, layout, seed=0):
+    """The kernel on each instance shard of a float32 layout padded for 1,
+    2, 3 and 4 shards (``parallel/sparse.pad_windows_for_mesh``; the meshed
+    fixed effect runs it so on each rank): the shards' partials, summed in
+    shard order as the all_reduce sums them, must lie within the kernel's
+    Higham bound (``kernel_case``) of the float64 plain version, with one
+    rounding more per extra shard; one shard must equal the unsharded
+    kernel bit for bit. Prints each shard's ``kernel_ms``, ``plain_ms``
+    (the plain version on the shard) and ``library_ms`` (``torch.mv`` on
+    the CSR Xᵀ of the shard's own nonzero triples, its padding instances
+    left out), all by ``kernel_case``'s ``time_ms`` method, and its
+    ``bound_ms``."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.ops import sparse_windows as sw
+    from photon_tpu_torch.parallel.sparse import pad_windows_for_mesh, shard_range
+
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    host = sw.column_windows_from_numpy(layout, device="cpu", dtype=torch.float32)
+    win = sw.ColumnWindows(*(t.to(dev) for t in host))
+    r = torch.as_tensor(np.random.default_rng(seed).standard_normal(idx.shape[0]),
+                        device=dev).to(torch.float32)
+    full = sw.windowed_rmatvec_cuda(win, r, dim)
+    want = sw.windowed_rmatvec_plain(win._replace(vals=win.vals.to(f64)), r.to(f64), dim)
+    m = sw.windowed_rmatvec_plain(
+        win._replace(vals=(win.vals != 0).to(f64)), torch.ones_like(r, dtype=f64), dim)
+    abs_sum = sw.windowed_rmatvec_plain(
+        win._replace(vals=win.vals.abs().to(f64)), r.abs().to(f64), dim)
+    u = torch.finfo(torch.float32).eps / 2
+    rows = {}
+    for shards in MESH_SHARDS:
+        padded = pad_windows_for_mesh(host, shards, dim)
+        w_inst = padded.rows.shape[0]
+        parts, fns, bounds, bound_by, lib_err = [], {}, [], set(), 0.0
+        for k in range(shards):
+            lo, hi = shard_range(w_inst, shards, k)
+            shard = sw.ColumnWindows(*(t[lo:hi].contiguous().to(dev) for t in padded[:4]),
+                                     padded.iota.to(dev))
+            parts.append(sw.windowed_rmatvec_cuda(shard, r, dim))
+            # the library yardstick for the same partial: CSR Xᵀ of the
+            # shard's nonzero triples (timed only)
+            keep = shard.vals != 0
+            cols = (shard.inst2win.long()[:, None] * shard.window + shard.lcols.long())[keep]
+            xt = torch.sparse_coo_tensor(
+                torch.stack([cols, shard.rows.long()[keep]]), shard.vals[keep],
+                (dim, r.numel())).coalesce().to_sparse_csr()
+            lib_err = max(lib_err, float((torch.mv(xt, r) - parts[-1]).abs().max()))
+            fns[f"shard{k}"] = lambda shard=shard: sw.windowed_rmatvec_cuda(shard, r, dim)
+            fns[f"plain{k}"] = lambda shard=shard: sw.windowed_rmatvec_plain(shard, r, dim)
+            fns[f"library{k}"] = lambda xt=xt: torch.mv(xt, r)
+            # kernel_case's floor for the shard's own work: its nonzero
+            # triples and window ids, r and the [dim] partial once each
+            nnz = int((padded.vals[lo:hi] != 0).sum())
+            bytes_min = nnz * 12 + (hi - lo) * 4 + r.numel() * 4 + dim * 4
+            t_bytes, t_ops = bytes_min / HBM_BYTES_PER_S, 2 * nnz / FP32_FLOPS
+            bounds.append(1e3 * max(t_bytes, t_ops))
+            bound_by.add("bytes" if t_bytes >= t_ops else "operations")
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        torch.cuda.synchronize()
+        diff = (total.to(f64) - want).abs()
+        tol = 1.01 * (m + shards - 1) * (u + 2.0**-53) * abs_sum
+        err = float(diff.max())
+        if not bool((diff <= tol).all()):
+            fail(f"mesh_kernel_shards[{label}, {shards} shards]: summed partials vs float64 "
+                 f"plain max_abs_err={err}, beyond the per-column bound")
+        if shards == 1 and not torch.equal(total, full):
+            fail(f"mesh_kernel_shards[{label}]: one shard differs from the unsharded layout")
+        times = time_ms(fns)
+        del fns
+        rows[shards] = {"w_inst_padded": int(w_inst), "pad_instances": int(
+            w_inst - host.rows.shape[0]), "max_abs_err": err,
+            "err_over_bound": float((diff / tol.clamp_min(1e-300)).max()),
+            "kernel_ms": [times[f"shard{k}"] for k in range(shards)],
+            "plain_ms": [times[f"plain{k}"] for k in range(shards)],
+            "library_ms": [times[f"library{k}"] for k in range(shards)],
+            "library_vs_kernel_max_abs": lib_err,
+            "bound_ms": bounds, "bound_by": "/".join(sorted(bound_by))}
+    log(json.dumps({"phase": "mesh_kernel_shards", "layout": label, "dtype": "float32",
+                    "w_inst": int(host.rows.shape[0]), "dim": int(dim),
+                    "unsharded_bit_equal_one_shard": True, "shards": rows}))
+    return rows
 
 
 # --- the GAME estimator's options (bench configs 4 and 6) ----------------------
@@ -2622,45 +2768,61 @@ def ctr_avro_schema():
     return dict(TRAINING_EXAMPLE_AVRO, fields=fields)
 
 
-def write_ctr_avro(data, out_dir, parts, row0=0):
-    """``make_ctr_data`` rows as Avro part files: the fixed-effect shard
-    without its intercept slot (column 0; the reader's shard adds the
-    intercept) as ``features``, the per-user and per-item columns as
-    ``userFeatures``/``itemFeatures``, ids in ``metadataMap``, uid r<row>."""
+def _write_ctr_part(path, row0, labels, users, items, bags):
+    """One Avro part of ``make_ctr_data`` rows (run in a worker process):
+    ``bags`` holds (field, indptr, indices, values, name prefix, first
+    slot kept) of the part's rows of each feature shard."""
+    from photon_tpu_torch.io.avro import AvroFileWriter
+
+    def records():
+        for r in range(len(labels)):
+            rec = {"uid": f"r{row0 + r}", "label": float(labels[r]),
+                   "metadataMap": {"userId": str(users[r]), "itemId": str(items[r])},
+                   "weight": 1.0, "offset": 0.0}
+            for field, indptr, indices, values, prefix, first in bags:
+                lo, hi = indptr[r] + first, indptr[r + 1]
+                rec[field] = [{"name": f"{prefix}{c}", "term": "", "value": v}
+                              for c, v in zip(indices[lo:hi].tolist(), values[lo:hi].tolist())]
+            yield rec
+
+    with AvroFileWriter(path, ctr_avro_schema()) as w:
+        w.append(records())
+
+
+def write_ctr_avro(*writes):
+    """``make_ctr_data`` rows as Avro part files, each ``(data, out_dir,
+    parts, row0)`` of ``writes`` split into ``parts`` files, every part
+    written by a worker process of its own at once: the fixed-effect
+    shard without its intercept slot (column 0; the reader's shard adds
+    the intercept) as ``features``, the per-user and per-item columns as
+    ``userFeatures``/``itemFeatures``, ids in ``metadataMap``, uid
+    r<row>."""
+    import multiprocessing
     import os
+    from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
 
-    from photon_tpu_torch.io.avro import AvroFileWriter
-
-    os.makedirs(out_dir)
-    schema = ctr_avro_schema()
-    fe = data.feature_shards["global"]
-    bags = [(bag, data.feature_shards[shard], prefix)
-            for bag, shard, prefix in (("userFeatures", "per_user", "u"),
-                                       ("itemFeatures", "per_item", "i"))]
-    users, items = np.asarray(data.id_tags["user"]), np.asarray(data.id_tags["item"])
-
-    def ntv(m, r, prefix, first=0):
-        lo, hi = m.indptr[r] + first, m.indptr[r + 1]
-        return [{"name": f"{prefix}{c}", "term": "", "value": v}
-                for c, v in zip(m.indices[lo:hi].tolist(), m.values[lo:hi].tolist())]
-
-    def records(lo, hi):
-        for r in range(lo, hi):
-            rec = {"uid": f"r{row0 + r}", "label": float(data.labels[r]),
-                   "features": ntv(fe, r, "c", first=1),
-                   "metadataMap": {"userId": str(users[r]), "itemId": str(items[r])},
-                   "weight": 1.0, "offset": 0.0}
-            for bag, m, prefix in bags:
-                rec[bag] = ntv(m, r, prefix)
-            yield rec
-
-    n = data.num_samples
-    bounds = np.linspace(0, n, parts + 1).astype(int)
-    for p in range(parts):
-        with AvroFileWriter(os.path.join(out_dir, f"part-{p:05d}.avro"), schema) as w:
-            w.append(records(bounds[p], bounds[p + 1]))
+    jobs = []
+    for data, out_dir, parts, row0 in writes:
+        os.makedirs(out_dir)
+        shards = [(field, data.feature_shards[shard], prefix, first)
+                  for field, shard, prefix, first in (("features", "global", "c", 1),
+                                                      ("userFeatures", "per_user", "u", 0),
+                                                      ("itemFeatures", "per_item", "i", 0))]
+        users, items = np.asarray(data.id_tags["user"]), np.asarray(data.id_tags["item"])
+        bounds = np.linspace(0, data.num_samples, parts + 1).astype(int)
+        for p in range(parts):
+            a, b = bounds[p], bounds[p + 1]
+            bags = [(field, m.indptr[a:b + 1] - m.indptr[a],
+                     m.indices[m.indptr[a]:m.indptr[b]], m.values[m.indptr[a]:m.indptr[b]],
+                     prefix, first) for field, m, prefix, first in shards]
+            jobs.append((os.path.join(out_dir, f"part-{p:05d}.avro"), row0 + a,
+                         data.labels[a:b], users[a:b], items[a:b], bags))
+    with ProcessPoolExecutor(min(8, len(jobs)),
+                             mp_context=multiprocessing.get_context("spawn")) as ex:
+        for f in [ex.submit(_write_ctr_part, *job) for job in jobs]:
+            f.result()
 
 
 CLI_SHARDS = [
@@ -2782,8 +2944,7 @@ def cli_game(seed, tmp):
     train, valid = slice_game_data(both, 0, CLI_N), slice_game_data(both, CLI_N, both.num_samples)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    write_ctr_avro(train, f"{tmp}/train", CLI_PARTS)
-    write_ctr_avro(valid, f"{tmp}/valid", 1, row0=CLI_N)
+    write_ctr_avro((train, f"{tmp}/train", CLI_PARTS, 0), (valid, f"{tmp}/valid", 1, CLI_N))
     write_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
@@ -2907,6 +3068,12 @@ def cli_args(ctx, out, *extra):
     return cli_train_argv(ctx["train"], ctx["valid"], f"{ctx['tmp']}/{out}") + list(extra)
 
 
+def grid0_args(ctx, out, *extra):
+    """``cli_args`` with the λ grid cut to its first point (a depth cut: a
+    fit of grid 0 alone gives ``cli_game``'s grid-0 model bit for bit)."""
+    return [a.replace("reg.weights=1|10", "reg.weights=1") for a in cli_args(ctx, out, *extra)]
+
+
 def launches_since_zero(fn):
     """``fn()`` with the kernel's launch count set to 0 just before; returns
     (its result, the launches it made)."""
@@ -2918,25 +3085,26 @@ def launches_since_zero(fn):
 
 
 def cli_game_resume(ctx):
-    """``cli_game``'s command line with ``--checkpoint-sweeps``, killed by
-    the fault plan at occurrence 4 of ``descent.sweep`` (grid 1's second
-    sweep, 2 sweeps per grid point): ``InjectedCrash`` propagates, the
-    checkpoints and ``models/0`` are on disk. The same command line with no
-    plan resumes at grid 1 after its sweep 0, and every model equals
-    ``cli_game``'s uninterrupted one bit for bit (``models/0`` as the
-    resumed run loaded it back with ``load_game_model``)."""
+    """``cli_game``'s command line cut to grid 0 (``grid0_args``) with
+    ``--checkpoint-sweeps``, killed by the fault plan at occurrence 2 of
+    ``descent.sweep`` (grid 0's second sweep): ``InjectedCrash``
+    propagates, the checkpoints are on disk and ``models/0`` is not. The
+    same command line with no plan resumes at grid 0 after its sweep 0, and
+    its model equals ``cli_game``'s uninterrupted grid-0 model bit for bit.
+    (A resume past a finished grid point, which loads that point's model
+    back from disk, is host code: the CPU tests hold it against JAX.)"""
     import os
 
     from photon_tpu_torch.cli import game_training
     from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.util import faults
 
-    argv = cli_args(ctx, "resume", "--checkpoint-sweeps")
+    argv = grid0_args(ctx, "resume", "--checkpoint-sweeps")
     out = f"{ctx['tmp']}/resume"
     t0 = time.perf_counter()
     windowed_rmatvec.launches = 0
     # the driver installs its fault plan from the environment at start
-    os.environ["PHOTON_FAULTS"] = "descent.sweep@4=crash"
+    os.environ["PHOTON_FAULTS"] = "descent.sweep@2=crash"
     try:
         game_training.run(argv, device="cuda")
     except faults.InjectedCrash:
@@ -2947,23 +3115,22 @@ def cli_game_resume(ctx):
         del os.environ["PHOTON_FAULTS"]
     crash_launches = windowed_rmatvec.launches
     crash_s = time.perf_counter() - t0
-    for path in ("checkpoints/descent-checkpoint.json", "models/0/model-metadata.json"):
-        if not os.path.isfile(f"{out}/{path}"):
-            fail(f"cli_game_resume: {path} is not on disk after the crash")
-    if os.path.exists(f"{out}/models/1"):
-        fail("cli_game_resume: models/1 is on disk although grid 1 never finished")
+    if not os.path.isfile(f"{out}/checkpoints/descent-checkpoint.json"):
+        fail("cli_game_resume: the checkpoint is not on disk after the crash")
+    if os.path.exists(f"{out}/models/0"):
+        fail("cli_game_resume: models/0 is on disk although grid 0 never finished")
     t0 = time.perf_counter()
     res, resume_launches = launches_since_zero(lambda: game_training.run(argv, device="cuda"))
     resume_s = time.perf_counter() - t0
-    if res["fit_stats"]["resumed_from"] != (1, 0):
-        fail(f"cli_game_resume: resumed from {res['fit_stats']['resumed_from']}, not (1, 0)")
-    if "resumed from checkpoint: grid 1, sweep 0" not in open(f"{out}/driver.log").read():
+    if res["fit_stats"]["resumed_from"] != (0, 0):
+        fail(f"cli_game_resume: resumed from {res['fit_stats']['resumed_from']}, not (0, 0)")
+    if "resumed from checkpoint: grid 0, sweep 0" not in open(f"{out}/driver.log").read():
         fail("cli_game_resume: driver.log does not record the resume")
     if resume_launches <= 0 or crash_launches <= 0:
         fail("cli_game_resume: a run never launched the windowed Xᵀr kernel")
-    want = ctx["res"]["results"]
-    if res["best"] != ctx["res"]["best"]:
-        fail(f"cli_game_resume: best model {res['best']}, uninterrupted {ctx['res']['best']}")
+    want = ctx["res"]["results"][:1]
+    if res["best"] != 0 or len(res["results"]) != 1:
+        fail(f"cli_game_resume: best model {res['best']} of {len(res['results'])}")
     for i, (w, g) in enumerate(zip(want, res["results"])):
         differs = model_mismatch(w.model, g.model)
         if differs:
@@ -2974,7 +3141,7 @@ def cli_game_resume(ctx):
             fail(f"cli_game_resume: model {i} evaluation {g.evaluation} vs {w.evaluation}")
     resumed_summary = json.loads(open(f"{out}/training-summary.json").read())
     if [m["evaluation"] for m in resumed_summary["models"]] != [
-            m["evaluation"] for m in ctx["summary"]["models"]]:
+            m["evaluation"] for m in ctx["summary"]["models"][:1]]:
         fail("cli_game_resume: the resumed training-summary.json differs from cli_game's")
     log(json.dumps({
         "phase": "cli_game_resume", "crash_run_s": crash_s, "resume_run_s": resume_s,
@@ -3013,17 +3180,23 @@ def cli_driver_data(ctx):
 
 
 def cli_game_restart(ctx, train, valid, settings):
-    """On the data ``cli_game``'s driver read, with its estimator settings:
-    a NaN injected into grid 0's sweep-1 fixed-effect state
+    """On the data ``cli_game``'s driver read, with its estimator settings
+    cut to grid 0 (depth: the fault and the restart both fall in it): a
+    NaN injected into grid 0's sweep-1 fixed-effect state
     (``descent.coordinate@4``) raises DivergenceError with no restart
     budget (policy ``raise``); with ``max_restarts=1`` and a checkpoint
     directory the fit restarts once from the sweep-0 checkpoint and gives
-    ``cli_game``'s uninterrupted models bit for bit."""
+    ``cli_game``'s uninterrupted grid-0 model bit for bit."""
+    import dataclasses
+
     from photon_tpu_torch.game import GameEstimator
     from photon_tpu_torch.obs.health import DivergenceError
     from photon_tpu_torch.util import faults
 
     plan = "descent.coordinate@4=nan"
+    settings = dict(settings, coordinate_configs={
+        cid: dataclasses.replace(cfg, regularization_weights=tuple(cfg.regularization_weights[:1]))
+        for cid, cfg in settings["coordinate_configs"].items()})
     t0 = time.perf_counter()
 
     def raising():
@@ -3053,6 +3226,8 @@ def cli_game_restart(ctx, train, valid, settings):
         fail(f"cli_game_restart: restarts {stats['restarts']}, expected one DivergenceError")
     if stats["resumed_from"] != (0, 0):
         fail(f"cli_game_restart: resumed from {stats['resumed_from']}, not (0, 0)")
+    if len(results) != 1:
+        fail(f"cli_game_restart: {len(results)} models from a grid of one point")
     for i, (w, g) in enumerate(zip(ctx["res"]["results"], results)):
         differs = model_mismatch(w.model, g.model)
         if differs:
@@ -3071,11 +3246,12 @@ def cli_game_restart(ctx, train, valid, settings):
 
 
 def cli_game_warm(ctx, train):
-    """``cli_game``'s command line with ``--model-checkpoint-directory D``
-    (no model files: output mode NONE): the snapshot loads back equal to
-    the run's final model. Then with ``--warm-start-input-directory D``:
-    the fit's initial scores equal the snapshot model's scores on the same
-    rows within 1e-4 (float32)."""
+    """``cli_game``'s command line, its depth cut to grid 0's λ and one
+    sweep, with ``--model-checkpoint-directory D`` (no model files: output
+    mode NONE): the snapshot loads back equal to the run's final model.
+    Then with ``--warm-start-input-directory D``: the fit's initial scores
+    equal the snapshot model's scores on the same rows within 1e-4
+    (float32)."""
     import numpy as np
 
     import photon_tpu_torch.game.estimator as estimator_mod
@@ -3084,10 +3260,14 @@ def cli_game_warm(ctx, train):
     from photon_tpu_torch.game.checkpoint import ModelCheckpointStore
 
     snap_dir = f"{ctx['tmp']}/snapshots"
+
+    def argv(out, *extra):
+        return grid0_args(ctx, out, "--output-mode", "NONE", "--coordinate-descent-iterations",
+                          "1", *extra)
+
     t0 = time.perf_counter()
-    res, save_launches = launches_since_zero(lambda: game_training.run(cli_args(
-        ctx, "warm-0", "--output-mode", "NONE", "--model-checkpoint-directory", snap_dir),
-        device="cuda"))
+    res, save_launches = launches_since_zero(lambda: game_training.run(
+        argv("warm-0", "--model-checkpoint-directory", snap_dir), device="cuda"))
     save_s = time.perf_counter() - t0
     loaded = ModelCheckpointStore(snap_dir).load_latest()
     if loaded is None or loaded[1] != 0:
@@ -3109,9 +3289,8 @@ def cli_game_warm(ctx, train):
     estimator_mod.run_coordinate_descent = capturing
     t0 = time.perf_counter()
     try:
-        warm, warm_launches = launches_since_zero(lambda: game_training.run(cli_args(
-            ctx, "warm-1", "--output-mode", "NONE", "--warm-start-input-directory", snap_dir),
-            device="cuda"))
+        warm, warm_launches = launches_since_zero(lambda: game_training.run(
+            argv("warm-1", "--warm-start-input-directory", snap_dir), device="cuda"))
     finally:
         estimator_mod.run_coordinate_descent = descent
     warm_s = time.perf_counter() - t0
@@ -3136,10 +3315,11 @@ def cli_game_warm(ctx, train):
 
 
 def cli_game_tuning(ctx):
-    """``cli_game``'s command line with BAYESIAN tuning for 3 iterations
-    (AUC:userId validation) and saved observations: 2 grid and 3 tuned
-    results, every evaluation finite, the kernel launched in every tuned
-    fit, and the observations read back through ``priors_from_json``."""
+    """``cli_game``'s command line, its depth cut to one sweep a fit, with
+    BAYESIAN tuning for 2 iterations (AUC:userId validation) and saved
+    observations: 2 grid and 2 tuned results, every evaluation finite,
+    the kernel launched in every tuned fit, and the observations read back
+    through ``priors_from_json``."""
     import math
 
     from photon_tpu_torch.cli import game_training
@@ -3162,21 +3342,21 @@ def cli_game_tuning(ctx):
     try:
         res, launches = launches_since_zero(lambda: game_training.run(cli_args(
             ctx, "tuning", "--output-mode", "NONE", "--hyper-parameter-tuning", "BAYESIAN",
-            "--hyper-parameter-tuning-iter", "3", "--hyper-parameter-save-observations",
-            obs_path), device="cuda"))
+            "--hyper-parameter-tuning-iter", "2", "--coordinate-descent-iterations", "1",
+            "--hyper-parameter-save-observations", obs_path), device="cuda"))
     finally:
         tuning.GameEstimatorEvaluationFunction.__call__ = evaluate
     wall = time.perf_counter() - t0
     results = res["results"]
-    if len(results) != 5:
-        fail(f"cli_game_tuning: {len(results)} results, expected 2 grid + 3 tuned")
+    if len(results) != 4:
+        fail(f"cli_game_tuning: {len(results)} results, expected 2 grid + 2 tuned")
     if not all(r.evaluation is not None and math.isfinite(r.evaluation) for r in results):
         fail(f"cli_game_tuning: evaluations {[r.evaluation for r in results]}")
-    if len(per_fit) != 3 or min(per_fit) <= 0:
+    if len(per_fit) != 2 or min(per_fit) <= 0:
         fail(f"cli_game_tuning: kernel launches per tuned fit {per_fit}")
     names = ["fixed", "user", "item"]
     priors = priors_from_json(open(obs_path).read(), names, {n: 1.0 for n in names})
-    if len(priors) != 5 or not all(math.isfinite(v) for _, v in priors):
+    if len(priors) != 4 or not all(math.isfinite(v) for _, v in priors):
         fail(f"cli_game_tuning: {len(priors)} observations read back from {obs_path}")
     log(json.dumps({
         "phase": "cli_game_tuning", "driver_s": wall, "tuning_s": res["walls"].get(
@@ -3310,8 +3490,8 @@ def cli_game_parity(seed):
     fits = []
     try:
         with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-parity-") as tmp:
-            write_ctr_avro(slice_game_data(both, 0, n), f"{tmp}/train", 2)
-            write_ctr_avro(slice_game_data(both, n, n + n_valid), f"{tmp}/valid", 1, row0=n)
+            write_ctr_avro((slice_game_data(both, 0, n), f"{tmp}/train", 2, 0),
+                           (slice_game_data(both, n, n + n_valid), f"{tmp}/valid", 1, n))
             for i, dev in enumerate(("cuda", "cpu")):
                 windowed_rmatvec.launches = 0
                 fits.append(game_training.run(
@@ -3346,6 +3526,175 @@ def cli_game_parity(seed):
         "evaluations": [r.evaluation for r in a["results"]],
         "kernel_launches_card": launches, "max_abs_err": max(errs.values()),
         "tolerance": 1e-9,
+    }))
+
+
+#: mesh_two_rank's meshes over its two ranks
+TWO_RANK_MESHES = ((2, 1), (1, 2))
+#: collectives probed on CUDA tensors in a Gloo group (each rank calls
+#: each, in this order)
+GLOO_PROBES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast", "barrier")
+
+
+def two_rank_data(seed):
+    """``cli_game_parity``'s training rows: config 5's widths at 2^13 rows."""
+    n = 1 << 13
+    coords = [("user", n // 2, RE_DIM, USER_UB), ("item", n // 16, RE_DIM, ITEM_UB)]
+    return make_ctr_data(seed + 6, n, FE_DIM, FE_NNZ, coords), coords
+
+
+def keyed_arrays(model):
+    """{name: array} of a GameModel: fixed-effect means, each random
+    effect's coefficient row per entity key (a meshed build orders a
+    bucket's entities shard-major, so positions do not compare)."""
+    import numpy as np
+
+    out = {}
+    for cid, cm in model.coordinates.items():
+        if hasattr(cm, "vocab"):
+            lookup = cm.dense_coefficient_lookup()
+            out.update({f"{cid}:{k}": np.asarray(lookup[i]) for i, k in enumerate(cm.vocab)})
+        else:
+            out[cid] = np.asarray(cm.coefficients.means)
+    return out
+
+
+def gloo_probe(device):
+    """Which collectives this torch's Gloo takes on ``device``'s tensors."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(4, device=device)
+    world = dist.get_world_size()
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * world, device=device), t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "barrier": dist.barrier,
+    }
+    out = {}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 -- the probe reports what Gloo refuses
+            out[name] = f"{type(e).__name__}: {e}"[:160]
+    return out
+
+
+def mesh_rank(rank, world, address, device, out, seed):
+    """One rank of ``mesh_two_rank``: joins a Gloo group at ``address``
+    (``parallel.distributed.initialize``; NCCL refuses two ranks on one
+    card, so Gloo is asked for by name), then fits ``two_rank_data`` on
+    each of ``TWO_RANK_MESHES`` over ``device``; rank 0 writes the models
+    to ``out``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from photon_tpu_torch.parallel import distributed
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    if device == "cpu":
+        torch.set_num_threads(2)  # two ranks beside the card's two on 8 cores
+    distributed.initialize(address, world, rank, backend="gloo", timeout_s=600)
+    try:
+        res = {"probe": gloo_probe(device)}
+        data, coords = two_rank_data(seed)
+        for d, e in TWO_RANK_MESHES:
+            t0 = time.perf_counter()
+            mesh = make_mesh(d, e, device=device)
+            est = ctr_estimator(coords, 10, 5, device=device, dtype=torch.float64, seed=seed,
+                                windows=True)
+            fit = est.fit(data, mesh=mesh)[0]
+            res[f"{d}x{e}"] = {
+                "arrays": keyed_arrays(fit.model), "scores": fit.scores,
+                "wall_s": time.perf_counter() - t0, "fit_wall_s": est.last_fit_stats["wall_s"],
+                "sweep_s": [t["sweep_seconds"] for t in fit.tracker if "sweep_seconds" in t],
+                "collectives": mesh.collectives,
+                "census": est.last_fit_stats["shard_census"],
+            }
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_two_rank(seed):
+    """Two processes on the one card in a Gloo group with CUDA tensors, at
+    ``cli_game_parity``'s size at float64, fitting on meshes 2x1 and 1x2;
+    beside them the same two ranks on the CPU, and the card's unmeshed fit
+    in this process. Each meshed model and its scores must agree with the
+    CPU's two-rank run and with the unmeshed fit within 1e-9 (a rank's
+    random-effect lane batch is smaller than the whole bucket, so the sums
+    round in another order: ROADMAP C7)."""
+    import pickle
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    data, coords = two_rank_data(seed)
+    est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float64, seed=seed,
+                        windows=True)
+    base, launches = launches_since_zero(lambda: est.fit(data)[0])
+    if launches <= 0:
+        fail("mesh_two_rank: the card's unmeshed fit never launched the windowed Xᵀr kernel")
+    want = keyed_arrays(base.model)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        procs = {}
+        for device in ("cuda", "cpu"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            procs[device] = mp.start_processes(
+                mesh_rank, args=(2, f"127.0.0.1:{port}", device, f"{tmp}/{device}.pkl", seed),
+                nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            for device, ctx in procs.items():
+                while not ctx.join(timeout=1.0):
+                    if time.monotonic() > deadline:
+                        fail(f"mesh_two_rank: the {device} ranks outlasted 600 s")
+        except Exception as e:  # a rank's failure, with its traceback
+            fail(f"mesh_two_rank: a rank failed: {e}")
+        finally:
+            for ctx in procs.values():
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+        for device in procs:
+            with open(f"{tmp}/{device}.pkl", "rb") as f:
+                runs[device] = pickle.load(f)
+    errs = {}
+    for d, e in TWO_RANK_MESHES:
+        key = f"{d}x{e}"
+        card, cpu = runs["cuda"][key], runs["cpu"][key]
+        for ref_name, ref, ref_scores in (("cpu", cpu["arrays"], cpu["scores"]),
+                                          ("unmeshed", want, base.scores)):
+            if card["arrays"].keys() != ref.keys():
+                fail(f"mesh_two_rank[{key}]: the models hold other entities than {ref_name}'s")
+            err = max(float(np.abs(card["arrays"][k] - ref[k]).max()) for k in ref)
+            err = max(err, float(np.abs(card["scores"] - ref_scores).max()))
+            errs[f"{key}_vs_{ref_name}"] = err
+            if not err <= 1e-9:
+                fail(f"mesh_two_rank[{key}]: card vs {ref_name} max_abs_err={err}")
+    log(json.dumps({
+        "phase": "mesh_two_rank", "rows": data.num_samples, "fe_dim": FE_DIM,
+        "dtype": "float64", "backend": "gloo", "wall_s": time.perf_counter() - t0,
+        "unmeshed_fit_wall_s": est.last_fit_stats["wall_s"], "kernel_launches_unmeshed": launches,
+        "gloo_on_cuda": runs["cuda"]["probe"], "gloo_on_cpu": runs["cpu"]["probe"],
+        "meshes": {f"{d}x{e}": {dev: {k: runs[dev][f"{d}x{e}"][k] for k in (
+            "wall_s", "fit_wall_s", "sweep_s", "collectives", "census")}
+            for dev in runs} for d, e in TWO_RANK_MESHES},
+        "max_abs_err": errs, "tolerance": 1e-9,
     }))
 
 
@@ -4942,7 +5291,8 @@ CLI_LIVE_SLO = "p99<=250ms@60s"  # scripts/live_probe.py's spec: the training dr
 def cli_game_live(ctx):
     """The live endpoints of a real training run: ``python -m
     photon_tpu_torch.cli.game_training`` as a subprocess on the card with
-    ``cli_game``'s command line (``--output-mode BEST``: one model saved),
+    ``cli_game``'s command line cut to grid 0 (``grid0_args``; ``--output-mode
+    BEST``: one model saved),
     ``PHOTON_OBS_HTTP_PORT`` on a free loopback port, ``PHOTON_OBS_FLUSH_S=1``
     and ``PHOTON_SLO_SPEC``. While it runs, ``/metrics``, ``/healthz`` and
     ``/slo`` are checked as scripts/live_probe.py checks them (parsed
@@ -4952,7 +5302,7 @@ def cli_game_live(ctx):
     must count finished sweeps. After it exits 0: ``obs/series.jsonl``
     rows parse, ``obs/trace.json`` holds the ``descent.sweep`` spans with
     their ``dispatches``, and the saved best model equals ``cli_game``'s
-    bit for bit."""
+    grid-0 model bit for bit."""
     import os
     import socket
     import subprocess
@@ -5008,7 +5358,7 @@ def cli_game_live(ctx):
     with open(log_path, "w") as log_f:
         proc = subprocess.Popen(
             [sys.executable, "-m", "photon_tpu_torch.cli.game_training",
-             *cli_args(ctx, "live", "--output-mode", "BEST")],
+             *grid0_args(ctx, "live", "--output-mode", "BEST")],
             env=env, stdout=log_f, stderr=subprocess.STDOUT)
     scrapes = {"/metrics": 0, "/healthz": 0, "/slo": 0}
     first_s = None
@@ -5055,16 +5405,16 @@ def cli_game_live(ctx):
         events = json.load(f)["traceEvents"]
     sweep_dispatches = [e["args"]["dispatches"] for e in events
                         if e.get("name") == "descent.sweep" and "dispatches" in e.get("args", {})]
-    want_sweeps = sum(1 for r in ctx["res"]["results"] for t in r.tracker
-                      if "sweep_seconds" in t)
+    want_sweeps = sum(1 for t in ctx["res"]["results"][0].tracker if "sweep_seconds" in t)
     if len(sweep_dispatches) != want_sweeps or min(sweep_dispatches) < 3:
         fail(f"cli_game_live: obs/trace.json sweep spans' dispatches {sweep_dispatches}")
     t1 = time.perf_counter()
     loaded = load_game_model(f"{out}/best", ctx["res"]["index_maps"])
     load_s = time.perf_counter() - t1
-    differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, loaded)
+    differs = model_mismatch(ctx["res"]["results"][0].model, loaded)
     if differs:
-        fail(f"cli_game_live: {differs} of the saved best model differs from cli_game's")
+        fail(f"cli_game_live: {differs} of the saved best model differs from cli_game's "
+             "grid-0 model")
     log(json.dumps({
         "phase": "cli_game_live", "driver_wall_s": wall, "endpoints_up_after_s": first_s,
         "scrapes_while_running": scrapes, "sweeps_seen_mid_run": mid_fit_sweeps,
@@ -5116,10 +5466,10 @@ with open(sys.argv[1], "w") as f:
 
 def cli_game_precompile(ctx, live):
     """The training driver with and without ``--precompile``: two fresh
-    subprocesses on the card with ``cli_game``'s parts and command line,
-    ``--output-mode BEST``, first without the warm-up, then with it; no
-    scrapes in either. Both must exit 0 with their best model bit for bit
-    ``cli_game``'s. The unwarmed run must count its one-time costs in its
+    subprocesses on the card with ``cli_game``'s parts and command line cut
+    to grid 0 (``grid0_args``), ``--output-mode BEST``, first without the
+    warm-up, then with it; no scrapes in either. Both must exit 0 with
+    their best model bit for bit ``cli_game``'s grid-0 model. The unwarmed run must count its one-time costs in its
     first sweep's ``compiles`` and none after; the warmed run must read 0
     in every sweep row of every grid point, report as many warmed
     programs (``fit.precompile``'s ``n_programs``) as program keys the fit
@@ -5145,7 +5495,7 @@ def cli_game_precompile(ctx, live):
         with open(log_path, "w") as log_f:
             rc = subprocess.run(
                 [sys.executable, "-c", PRECOMPILE_DRIVER, report_path,
-                 *cli_args(ctx, name, "--output-mode", "BEST", *flags)],
+                 *grid0_args(ctx, name, "--output-mode", "BEST", *flags)],
                 env=env, stdout=log_f, stderr=subprocess.STDOUT, timeout=900).returncode
         wall = time.perf_counter() - t0
         if rc != 0:
@@ -5155,10 +5505,10 @@ def cli_game_precompile(ctx, live):
         with open(report_path) as f:
             got = json.load(f)
         loaded = load_game_model(f"{out}/best", ctx["res"]["index_maps"])
-        differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, loaded)
+        differs = model_mismatch(ctx["res"]["results"][0].model, loaded)
         if differs:
             fail(f"cli_game_precompile[{name}]: {differs} of the saved best model differs "
-                 f"from cli_game's")
+                 f"from cli_game's grid-0 model")
         compiles = [[s["compiles"] for s in grid] for grid in got["sweeps"]]
         return got, compiles, {
             "driver_wall_s": wall, "fit_wall_s": got["fit_wall_s"],
@@ -5193,10 +5543,162 @@ def cli_game_precompile(ctx, live):
     return got["fit_launches"]
 
 
+MESH_DRIVER = r"""
+import json, pickle, sys
+import torch.distributed
+from photon_tpu_torch.cli import game_training
+from photon_tpu_torch.game import coordinate, estimator
+from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+from photon_tpu_torch.util import EventEmitter
+
+seen = {"sweep_collectives": [], "in_steps": 0}
+step = coordinate.Coordinate.sweep_step
+
+def counted_step(self, *a, **kw):
+    n0 = sum(self.mesh.collectives.values())
+    out = step(self, *a, **kw)
+    seen["in_steps"] += sum(self.mesh.collectives.values()) - n0
+    return out
+
+fit = estimator.GameEstimator.fit
+
+def spied_fit(self, data, **kw):
+    res = fit(self, data, **kw)
+    seen["fingerprint"] = self._fingerprint(data)
+    seen["backend"] = torch.distributed.get_backend()
+    seen["collectives"] = self.mesh.collectives
+    return res
+
+def on_event(event):
+    if event.name == "sweep_complete":
+        seen["sweep_collectives"].append(seen["in_steps"])
+        seen["in_steps"] = 0
+
+coordinate.Coordinate.sweep_step = counted_step
+estimator.GameEstimator.fit = spied_fit
+emitter = EventEmitter()
+emitter.register(on_event)
+res = game_training.run(sys.argv[2:], device="cuda", events=emitter)
+stats = res["fit_stats"]
+with open(sys.argv[1] + ".model", "wb") as f:
+    pickle.dump(res["results"][res["best"]].model, f)
+with open(sys.argv[1], "w") as f:
+    json.dump({
+        "mesh": stats["mesh"], "fingerprint": seen["fingerprint"], "backend": seen["backend"],
+        "fit_launches": windowed_rmatvec.launches, "fit_wall_s": stats["wall_s"],
+        "walls": res["walls"], "collectives": seen["collectives"],
+        "sweep_collectives": seen["sweep_collectives"],
+        "sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
+                    for r in res["results"]],
+    }, f)
+"""
+
+
+def cli_game_mesh(ctx, seed):
+    """The training driver with ``--mesh 1x1`` (NCCL over a world of one:
+    rows, window instances and entities all on the one rank) as a fresh
+    subprocess on ``cli_game``'s parts and command line, ``--output-mode
+    NONE``: its best model (handed back pickled: ``cli_game`` already holds
+    a saved model to the trained one) must equal ``cli_game``'s bit for
+    bit, the kernel must launch as many times as in ``cli_game`` (every
+    fixed-effect gradient), and its checkpoint fingerprint must carry the
+    topology ``(("data", "entity"), (1, 1))``. Prints the collectives in
+    each sweep's coordinate steps and the walls beside ``cli_game``'s. Then
+    ``mesh_sync_sweep``. Returns the kernel's launches."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    report_path = f"{ctx['tmp']}/mesh.json"
+    log_path = f"{ctx['tmp']}/mesh.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_f:
+        rc = subprocess.run(
+            [sys.executable, "-c", MESH_DRIVER, report_path,
+             *cli_args(ctx, "mesh", "--output-mode", "NONE", "--mesh", "1x1")],
+            env=env, stdout=log_f, stderr=subprocess.STDOUT, timeout=900).returncode
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"cli_game_mesh: the training driver exited {rc}: {tail}")
+    with open(report_path) as f:
+        got = json.load(f)
+    with open(report_path + ".model", "rb") as f:
+        best = pickle.load(f)  # written by the subprocess above
+    differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, best)
+    if differs:
+        fail(f"cli_game_mesh: {differs} of the meshed best model differs from cli_game's")
+    if got["fit_launches"] != ctx["launches"]:
+        fail(f"cli_game_mesh: {got['fit_launches']} kernel launches, cli_game "
+             f"{ctx['launches']}")
+    topology = [["data", "entity"], [1, 1]]
+    if got["mesh"] != topology or "(('data', 'entity'), (1, 1))" not in got["fingerprint"]:
+        fail(f"cli_game_mesh: mesh {got['mesh']}, fingerprint {got['fingerprint']!r}")
+    base = ctx["res"]
+    log(json.dumps({
+        "phase": "cli_game_mesh", "mesh": "1x1", "backend": got["backend"], "driver_wall_s": wall,
+        "fit_wall_s": got["fit_wall_s"], "cli_game_fit_wall_s": base["fit_stats"]["wall_s"],
+        "read_s": got["walls"]["read training data"], "cli_game_read_s": ctx["read_s"],
+        "sweep_s": got["sweep_s"],
+        "cli_game_sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
+                             for r in base["results"]],
+        "collectives_per_sweep": got["sweep_collectives"], "collectives": got["collectives"],
+        "kernel_launches": got["fit_launches"], "best_model_bit_equal": True,
+        "fingerprint_topology": topology,
+    }))
+    mesh_sync_sweep(seed)
+    return got["fit_launches"]
+
+
+def mesh_sync_sweep(seed):
+    """One sweep of ``sync_sites``' small fit on a world-of-one NCCL mesh
+    under ``torch.cuda.set_sync_debug_mode("warn")``, the coordinates
+    built first: every hot-path sync the card reports must be an
+    annotated PHL002 finding (``gate_sync_sites``)."""
+    import os
+
+    import torch
+
+    from photon_tpu_torch.game import GameEstimator
+    from photon_tpu_torch.game.descent import run_coordinate_descent
+    from photon_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    from photon_tpu_torch.types import TaskType
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    data = make_ctr_data(seed + 21, 1 << 14, 1 << 11, 8, [("user", 512, 8, 64),
+                                                         ("item", 64, 8, 256)])
+    fixed, user, mf = sync_site_configs()
+    mesh = make_mesh(1, 1, device="cuda")
+    try:
+        est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION,
+                            coordinate_configs={"fixed": fixed, "user": user, "mf": mf},
+                            update_sequence=["fixed", "user", "mf"], seed=seed, mesh=mesh,
+                            device=mesh.device)
+        coords = est._build_coordinates(data)
+        torch.cuda.synchronize()
+        sites, outside, watched = sync_watch(root)
+        n0 = dict(mesh.collectives)
+        watched(lambda: run_coordinate_descent(coords, est.update_sequence, 1))
+        swept = {k: mesh.collectives[k] - n0[k] for k in n0}
+        del coords
+    finally:
+        destroy_mesh(mesh)
+    if not sum(swept.values()):
+        fail("mesh_sync_sweep: the meshed sweep made no collective")
+    gate_sync_sites("mesh_sync_sweep", root, sites, outside, t0)
+    log(json.dumps({"phase": "mesh_sync_sweep[collectives]", "collectives": swept}))
+
+
 def cli_game_stream(seed, tmp, train_dir=None):
     """The training driver with ``--stream-chunk-rows 8192`` on
     ``cli_game``'s Avro parts (written here when ``train_dir`` is None),
-    its two random effects only: once with ``--model-checkpoint-directory``,
+    its two random effects only, one sweep (a depth cut: the streamed
+    sweeps after the first are ``daily_retrain``'s to check): once with
+    ``--model-checkpoint-directory``,
     once with ``--warm-start-input-directory`` on the first part alone.
     Each run's saved best model equals ``GameEstimator(...).fit(data,
     stream=8192)`` on the data the driver read, bit for bit, and each run
@@ -5214,7 +5716,7 @@ def cli_game_stream(seed, tmp, train_dir=None):
         coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
         data = make_ctr_data(seed + 5, CLI_N, FE_DIM, FE_NNZ, coords)
         train_dir = f"{tmp}/train"
-        write_ctr_avro(data, train_dir, CLI_PARTS)
+        write_ctr_avro((data, train_dir, CLI_PARTS, 0))
         del data
     first = f"{tmp}/stream-first-part"
     os.makedirs(first)
@@ -5238,7 +5740,7 @@ def cli_game_stream(seed, tmp, train_dir=None):
             "--coordinate-configurations",
             f"name=item,random.effect.type=itemId,feature.shard=per_item,max.iter=5,"
             f"regularization=L2,reg.weights=1,active.data.upper.bound={ITEM_UB}",
-            "--coordinate-update-sequence", "user,item", "--coordinate-descent-iterations", "2",
+            "--coordinate-update-sequence", "user,item", "--coordinate-descent-iterations", "1",
             "--model-sparsity-threshold", "0", "--stream-chunk-rows", str(DR_CHUNK), *extra,
         ]
 
@@ -5371,7 +5873,7 @@ def main() -> None:
         fe = data.feature_shards["global"]
         kernel_case("config5_fe", *fe.to_ell(dtype=np.float32), fe.num_cols)
         return
-    kmain = kernel_phase(data)
+    kmain, shards5 = kernel_phase(data)
     small_parity(torch.float32, 1e-3)
     small_parity(torch.float64, 1e-9)
     launches, sweeps_s = main_path(data, args.seed)
@@ -5387,7 +5889,8 @@ def main() -> None:
     glm_a1a(args.seed)
     glm_tron(args.seed)
     idx3, vals3, ds3, fit3, owlqn_launches = glm_owlqn(args.seed)
-    k3 = config3_kernel_rows(idx3, vals3)[torch.float32]
+    k3, shards3 = config3_kernel_rows(idx3, vals3)
+    k3 = k3[torch.float32]
     del idx3, vals3
     diagnose_launches = glm_owlqn_diagnose(args.seed, ds3, fit3)
     del ds3, fit3
@@ -5408,11 +5911,13 @@ def main() -> None:
         cache_launches = cli_game_cache(ctx)
         live = cli_game_live(ctx)
         precompile_launches = cli_game_precompile(ctx, live)
+        mesh_launches = cli_game_mesh(ctx, args.seed)
         cli_game_stream(args.seed, tmp, ctx["train"])
         serve_requests, serve_reference = cli_serving(ctx)
         cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
         del ctx, serve_requests, serve_reference
     cli_game_parity(args.seed)
+    mesh_two_rank(args.seed)
     cli_legacy(args.seed)
     cli_legacy_diagnose(args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
@@ -5446,6 +5951,7 @@ def main() -> None:
             **{path: n for path, n in game_launches.items() if n > 0},
             "cli_game": cli_launches,
             "cli_game_precompile": precompile_launches,
+            "cli_game_mesh": mesh_launches,
             **recovery_launches,
             "cli_game_cache": cache_launches,
             "small_game_parity.windowed_variance": variance_launches,
@@ -5455,6 +5961,12 @@ def main() -> None:
             "config3_fe": {"launches": owlqn_launches, **timings(k3)},
             "cli_game_fe": {"launches": cli_launches, **timings(kcli)},
             "small_game_variance": {"launches": variance_launches, **timings(kvar)},
+        },
+        "mesh_shards": {
+            layout: {n: {key: row[key] for key in (
+                "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for n, row in rows.items()}
+            for layout, rows in (("config5_fe", shards5), ("config3_fe", shards3))
         },
     }]}))
     log(json.dumps({"ok": True, "device": {

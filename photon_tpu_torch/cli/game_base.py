@@ -75,19 +75,6 @@ def add_common_arguments(p: argparse.ArgumentParser) -> None:
     p.add_argument("--application-name", default="photon-tpu")
 
 
-def refuse_unported(args, parser: argparse.ArgumentParser, table: dict) -> None:
-    """Raise NotImplementedError for a flag of ``table`` set away from its
-    default (or from the values listed as accepted)."""
-    for dest, (accepted, item) in table.items():
-        value = getattr(args, dest)
-        if value == parser.get_default(dest) or value in accepted:
-            continue
-        flag = "--" + dest.replace("_", "-")
-        raise NotImplementedError(
-            f"{flag}={value!r} is not ported to photon_tpu_torch yet ({item})"
-        )
-
-
 def parse_shard_configs(args) -> dict[str, FeatureShardConfig]:
     configs = {}
     for s in args.feature_shard_configurations:

@@ -14,9 +14,14 @@ and validation reads go through ``cache.resolve_reader``) and the
 out-of-core streaming training (``--stream-chunk-rows``, game/
 streaming.py; a fit it does not support is refused before any output is
 written), and so does ``--precompile`` (every sweep and score program
-warmed before the first sweep, game/descent.precompile_coordinates). The
-mesh, whose module is not ported yet, raises NotImplementedError when
-set away from its default.
+warmed before the first sweep, game/descent.precompile_coordinates), and
+so does ``--mesh`` / ``PHOTON_MESH`` (parallel/mesh.py): ``--mesh 1x1``
+fits on a world of one with no launcher, and under ``torchrun
+--nproc-per-node N`` every rank runs this driver with ``--mesh DxE``
+(D×E = N), reads the same input, fits its part and returns the same
+models, while only rank 0 writes the output directory's models,
+summary, checkpoints and ``obs/`` (each other rank keeps its own
+``driver-rank<r>.log``). The process group ends on every exit path.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -27,6 +32,9 @@ Usage:
       --coordinate-configurations name=global,feature.shard=global,optimizer=LBFGS,regularization=L2,reg.weights=1|10 \
       --coordinate-update-sequence global \
       --coordinate-descent-iterations 1
+
+    torchrun --nproc-per-node 4 -m photon_tpu_torch.cli.game_training \
+      ... --mesh 2x2
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from photon_tpu_torch.io.model_io import load_game_model, save_game_model
 from photon_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT_AVRO
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.problem import VarianceComputationType
+from photon_tpu_torch.parallel.mesh import destroy_mesh, on_rank0, resolve_mesh
 from photon_tpu_torch.types import NormalizationType, TaskType, resolve_device
 from photon_tpu_torch.util import EventEmitter, PhotonLogger, faults, prepare_output_dir
 
@@ -79,12 +88,6 @@ class HyperparameterTuningMode(enum.Enum):
     NONE = "NONE"
     RANDOM = "RANDOM"
     BAYESIAN = "BAYESIAN"
-
-
-#: argparse dest → (accepted values besides the default, ROADMAP item)
-UNPORTED_FLAGS = {
-    "mesh": ((), "ROADMAP A7: mesh over NCCL"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -149,7 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--hyper-parameter-save-observations", default=None,
         help="write every evaluated (weights, metric) pair as prior JSON",
     )
-    p.add_argument("--mesh", default=None, metavar="DxE|N|auto", help="not ported yet")
+    p.add_argument(
+        "--mesh", default=None, metavar="DxE|N|auto",
+        help="span the fit over a mesh of ranks: 'DxE' (data x entity, e.g. 1x8), 'N' (N "
+        "ranks on the data axis) or 'auto' (every rank on the data axis); D x E must equal "
+        "the world size (1 without a launcher, torchrun's --nproc-per-node under it). "
+        "Fixed-effect rows shard over every rank, random-effect entities over the entity "
+        "axis; checkpoints fingerprint the topology. env PHOTON_MESH overrides; default off",
+    )
     p.add_argument(
         "--precompile", action="store_true",
         help="warm every sweep and score program of the fit before its first sweep (each "
@@ -300,11 +310,20 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
     device = resolve_device(device)
-    game_base.refuse_unported(args, parser, UNPORTED_FLAGS)
     # (re)install the PHOTON_FAULTS plan per run; an unset variable
     # clears any plan left over from an earlier run in this process
     faults.install_from_env()
+    # before any output: a mesh that does not cover the world raises here
+    mesh = resolve_mesh(args.mesh, device=device)
+    try:
+        return _run(args, mesh.device if mesh.distributed else device, events, mesh)
+    finally:
+        destroy_mesh(mesh)
 
+
+def _run(args, device, events, mesh) -> dict:
+    #: whether this process writes the output directory (rank 0 of a mesh)
+    primary = mesh.rank == 0
     task = TaskType[args.training_task]
     shard_configs = game_base.parse_shard_configs(args)
     coordinate_configs = {}
@@ -371,18 +390,18 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         and os.path.exists(os.path.join(ckpt_dir, CKPT_MANIFEST))
         and not args.override_output_directory  # override = wipe + fresh run
     )
-    if resuming:
-        # a resume reuses the existing output tree by definition
-        out_root = args.root_output_directory
-    else:
-        out_root = prepare_output_dir(
-            args.root_output_directory, override=args.override_output_directory
-        )
+    # a resume reuses the existing output tree by definition; otherwise rank
+    # 0 makes it, and every rank learns whether it could
+    out_root = str(args.root_output_directory)
+    if not resuming:
+        on_rank0(mesh, lambda: prepare_output_dir(
+            out_root, override=args.override_output_directory))
     emitter = events if events is not None else EventEmitter()
     decoders = {}
     walls: dict[str, float] = {}
-    with game_base.run_profile(out_root), PhotonLogger(
-        os.path.join(out_root, "driver.log"), level=args.log_level
+    log_name = "driver.log" if primary else f"driver-rank{mesh.rank}.log"
+    with game_base.run_profile(out_root if primary else None), PhotonLogger(
+        os.path.join(out_root, log_name), level=args.log_level
     ) as log:
         # driver-level boundary; the estimator adds the per-fit events
         emitter.emit("setup", application=args.application_name)
@@ -435,11 +454,15 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             with game_base.phase(walls, "load initial model"):
                 initial_model = load_game_model(args.model_input_directory, index_maps)
 
+        if mesh.distributed:
+            log.info("training spans a %s mesh of ranks (axes %s)",
+                     "x".join(str(n) for n in mesh.dims), mesh.axis_names)
         estimator = GameEstimator(
             task=task,
             coordinate_configs=coordinate_configs,
             update_sequence=update_sequence,
             descent_iterations=args.coordinate_descent_iterations,
+            mesh=mesh,
             normalization_contexts=contexts,
             ignore_threshold_for_new_models=args.ignore_threshold_for_new_models,
             locked_coordinates=locked,
@@ -453,6 +476,8 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         emitter.emit("training_start", task=task.name)
 
         def save(directory, result):
+            if not primary:
+                return
             with game_base.phase(walls, "save models"):
                 save_game_model(
                     os.path.join(out_root, directory),
@@ -470,16 +495,20 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
         def grid_callback(gi, result):
             # under --checkpoint-sweeps each grid point's model and its
             # sidecar line go to disk as the point finishes, because a
-            # resume reloads them from there
-            save(os.path.join(MODELS_DIR, str(gi)), result)
+            # resume reloads them from there; mid-fit, so every rank of a
+            # mesh learns whether rank 0 could write them
+            def write():
+                save(os.path.join(MODELS_DIR, str(gi)), result)
+                with open(grid_results_path, "a") as f:
+                    f.write(json.dumps({
+                        "grid_index": gi,
+                        "regularization_weights": result.regularization_weights,
+                        "evaluation": result.evaluation,
+                        "wall_time_s": result.wall_time_s,
+                    }) + "\n")
+
+            on_rank0(mesh, write)
             flushed.add(gi)
-            with open(grid_results_path, "a") as f:
-                f.write(json.dumps({
-                    "grid_index": gi,
-                    "regularization_weights": result.regularization_weights,
-                    "evaluation": result.evaluation,
-                    "wall_time_s": result.wall_time_s,
-                }) + "\n")
 
         with game_base.phase(walls, "train"):
             results = estimator.fit(
@@ -522,7 +551,7 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
                     shrink_radius=args.hyper_parameter_shrink_radius,
                 )
             results = results + tuned
-        if args.hyper_parameter_save_observations:
+        if args.hyper_parameter_save_observations and primary:
             # written for the plain λ grid too (mode NONE): every model
             # with a validation evaluation is a usable prior
             observations = [
@@ -561,9 +590,10 @@ def run(argv=None, *, device="cuda", events=None) -> dict:
             "best": best,
             "task": task.name,
         }
-        with open(os.path.join(out_root, SUMMARY_FILE), "w") as f:
-            json.dump(summary, f, indent=2)
-        game_base.export_run_profile(out_root, log, meta={"driver": "game_training"})
+        if primary:
+            with open(os.path.join(out_root, SUMMARY_FILE), "w") as f:
+                json.dump(summary, f, indent=2)
+            game_base.export_run_profile(out_root, log, meta={"driver": "game_training"})
         emitter.emit("driver_finish", num_models=len(results))
     return {
         "results": results,

@@ -355,6 +355,12 @@ windowed_partials(const int* __restrict__ rows, const int* __restrict__ lcols,
     // columns past the layout's last window (dim beyond its windows)
     for (long long c = (last_win + 1ll) * w + tid; c < dim; c += block) out[c] = T(0);
   }
+  if (blockIdx.x == 0) {
+    // columns before the layout's first window: an instance shard of a
+    // larger layout (parallel/sparse.py) starts past window 0
+    const long long c0 = static_cast<long long>(first_win) * w;
+    for (long long c = tid; c < c0 && c < dim; c += block) out[c] = T(0);
+  }
 }
 
 // CTA b mirrors partials CTA b: if b is the first CTA of a window split

@@ -29,6 +29,12 @@ Layout under ``<dir>/``:
     descent-state-<seq>.npz         flattened per-coordinate arrays
     descent-best-<seq>.npz          best-by-validation snapshot (optional)
 
+A meshed fit (game/estimator.py) hands the checkpointer whole states,
+which every rank gathers from the entity shards; rank 0 writes, and a
+resume cuts each state back to its rank's shard
+(``Coordinate.place_state``). So a snapshot on disk does not depend on
+the topology; the estimator's fingerprint holds it.
+
 States are torch tensors on the fit's device. A save copies all of them
 to the host in one device-to-host copy; a load gives them back on the
 device the caller names. Writes are atomic (tmp file + ``os.replace``),

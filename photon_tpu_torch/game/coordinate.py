@@ -1,6 +1,6 @@
 """GAME coordinates: device-resident training and scoring units.
 
-Counterpart of photon_tpu/game/coordinate.py, single device, no mesh.
+Counterpart of photon_tpu/game/coordinate.py.
 
 - ``FixedEffectCoordinate`` keeps the shard on the device as a dense
   block or a padded-ELL batch (with the column-window layout on the card);
@@ -15,6 +15,21 @@ Counterpart of photon_tpu/game/coordinate.py, single device, no mesh.
 
 ``sweep_step`` is the coordinate-descent step: residual = total − own
 score, train on it, rescore, fold the new score back into the total.
+
+Mesh (``mesh=``, parallel/mesh.py; one process per rank, all running the
+same fit; ``LOCAL`` by default, a mesh of one rank whose collectives hand
+back their input, so a fit off the mesh takes the same path): a fixed effect keeps this rank's rows of the batch (and its
+instance shard of a window layout) and its solve reduces over every
+rank; a random effect keeps its entity shard's lanes of every bucket and
+solves them with no collective at all, then its score sums the disjoint
+entity pieces over the entity axis; matrix factorization keeps this
+rank's rows with the factor tables replicated. Scores, totals and the
+states of fixed effects and factor tables are the same on every rank.
+A random effect's state is this rank's lanes: ``global_state`` gathers
+the whole entity axis (export, checkpoint, validation) and
+``place_state`` takes a whole one back to this rank's lanes. Health rows
+of a random effect are computed off the mesh only, as in JAX: on it they
+would describe this rank's entities alone.
 
 Work counter (``obs.record_dispatch``): a ``sweep_step`` is one launch
 site, as JAX's fused step is one compiled program (the port has no
@@ -46,6 +61,7 @@ touches no state, score, work counter or fault point of the fit.
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import numpy as np
 import torch
@@ -75,9 +91,21 @@ from photon_tpu_torch.obs.health import sweep_health
 from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD, loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import matvec
-from photon_tpu_torch.ops.sparse_windows import maybe_build_windows
+from photon_tpu_torch.ops.sparse_windows import maybe_build_windows, windows_wanted
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
+from photon_tpu_torch.parallel.distributed import fetch_global
+from photon_tpu_torch.parallel.mesh import (
+    LOCAL,
+    all_reduce_sum,
+    entity_range,
+    gather_entities,
+    gather_rows,
+    pad_rows_to_multiple,
+    row_range,
+    shard_batch,
+)
+from photon_tpu_torch.parallel.sparse import shard_windows
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype
 from photon_tpu_torch.util import compile_watch, faults
 from photon_tpu_torch.util.retry import RetryPolicy, is_transient, retry_call
@@ -205,12 +233,22 @@ class Coordinate:
             new_score = self.score(new_state)
         return new_state, new_score, residual + new_score, info
 
+    @property
+    def has_health(self) -> bool:
+        """Whether a sweep step's result gives this coordinate's health row."""
+        return True
+
     def place_state(self, state):
         """A state loaded on the host (checkpoint resume, warm start)
         where this coordinate keeps its state: on the fit's device."""
         if isinstance(state, Tensor):
             return state.to(self.device)
         return type(state)(self.place_state(s) for s in state)
+
+    def global_state(self, state):
+        """The whole state (every entity shard's lanes), on every rank; a
+        state that is the same on every rank is already whole."""
+        return state
 
     def precompile_specs(self, include_sweep: bool = True) -> list:
         """``(key, label, warm_fn)`` for every program a fit dispatches on
@@ -257,6 +295,8 @@ class FixedEffectCoordinate(Coordinate):
     dtype: torch.dtype
     device: torch.device
     num_features: int
+    #: the mesh whose rank holds the batch's rows (LOCAL: every row)
+    mesh: object = LOCAL
 
     @property
     def feature_shard(self) -> str:
@@ -271,33 +311,42 @@ class FixedEffectCoordinate(Coordinate):
         dtype: torch.dtype,
         device: torch.device,
         seed: int = 0,
+        mesh=LOCAL,
     ) -> "FixedEffectCoordinate":
+        """On a ``mesh``: keep this rank's rows (``data`` is padded to the
+        mesh size) and this rank's instance shard of the window layout,
+        both cut on the host so no device holds the whole block."""
         shard = data.feature_shards[config.feature_shard]
         opt = config.optimization
         weights = down_sampled_weights(
             data, opt.down_sampling_rate, opt.task.is_classification, seed
         )
+        # the tensors are built where they stay, or on the host to be cut
+        # to this rank's part
+        fit_device, device = device, (torch.device("cpu") if mesh.distributed else device)
 
         def col(a):
             return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
         feat_dtype = torch.bfloat16 if config.bf16_features else dtype
+        windows = None
         if _use_sparse(config.representation, shard, dtype, config.bf16_features):
             ell_idx, ell_val = shard.to_ell(dtype=numpy_dtype(dtype))
             values = torch.as_tensor(ell_val).to(device=device, dtype=feat_dtype)
             if config.bf16_features:
                 # the window layout holds the same (rounded) values
                 ell_val = values.to("cpu", dtype).numpy()
+            windows = maybe_build_windows(
+                ell_idx, ell_val, shard.num_cols, device=device, dtype=dtype,
+                force=config.column_windows or windows_wanted(fit_device, shard.num_cols),
+            )
             batch = SparseBatch(
                 indices=torch.as_tensor(ell_idx).to(device=device, dtype=torch.int64),
                 values=values,
                 labels=col(data.labels),
                 offsets=col(data.offsets),
                 weights=col(weights),
-                windows=maybe_build_windows(
-                    ell_idx, ell_val, shard.num_cols,
-                    device=device, dtype=dtype, force=config.column_windows,
-                ),
+                windows=windows,
             )
         else:
             batch = LabeledBatch(
@@ -308,39 +357,54 @@ class FixedEffectCoordinate(Coordinate):
                 offsets=col(data.offsets),
                 weights=col(weights),
             )
-        normalization = normalization.to(device=device, dtype=dtype)
+        if mesh.distributed:
+            batch = shard_batch(batch, mesh)
+            if windows is not None:
+                batch = batch._replace(windows=shard_windows(windows, mesh, shard.num_cols))
+        normalization = normalization.to(device=fit_device, dtype=dtype)
         problem = GLMProblem.build(
-            opt.with_regularization_weight(config.regularization_weights[0]), normalization
+            opt.with_regularization_weight(config.regularization_weights[0]), normalization,
+            mesh=mesh,
         )
         return FixedEffectCoordinate(
             config=config, batch=batch, normalization=normalization,
-            problem=problem, dtype=dtype, device=device,
-            num_features=shard.num_cols,
+            problem=problem, dtype=dtype, device=fit_device,
+            num_features=shard.num_cols, mesh=mesh,
         )
 
     def with_regularization_weight(self, w: float) -> "FixedEffectCoordinate":
         self.problem = GLMProblem.build(
-            self.config.optimization.with_regularization_weight(w), self.normalization
+            self.config.optimization.with_regularization_weight(w), self.normalization,
+            mesh=self.mesh,
         )
         return self
 
     @property
     def num_samples(self) -> int:
-        return self.batch.labels.shape[0]
+        return self.batch.labels.shape[0] * self.mesh.size
+
+    def _local_rows(self, v: Tensor) -> Tensor:
+        """This rank's slice of a replicated [N] vector."""
+        lo, hi = row_range(self.mesh, v.shape[0])
+        return v[lo:hi]
 
     def initial_state(self) -> Tensor:
         return torch.zeros(self.num_features, dtype=self.dtype, device=self.device)
 
     def train(self, residual_scores: Tensor, state: Tensor):
         obs.record_dispatch()
-        res = self.problem.solve(self.batch, state, extra_offsets=residual_scores)
+        res = self.problem.solve(
+            self.batch, state, extra_offsets=self._local_rows(residual_scores)
+        )
         return res.x, res
 
     def _train_warm(self, residual_scores: Tensor, state: Tensor):
         """``train`` capped at one iteration (through the window kernel
         when the batch has a window layout)."""
-        problem = GLMProblem.build(one_iteration(self.problem.config), self.normalization)
-        res = problem.solve(self.batch, state, extra_offsets=residual_scores)
+        problem = GLMProblem.build(
+            one_iteration(self.problem.config), self.normalization, mesh=self.mesh
+        )
+        res = problem.solve(self.batch, state, extra_offsets=self._local_rows(residual_scores))
         return res.x, res
 
     def score(self, state: Tensor) -> Tensor:
@@ -350,7 +414,7 @@ class FixedEffectCoordinate(Coordinate):
         return self._score(state)
 
     def _score(self, state: Tensor) -> Tensor:
-        return self.score_batch(self.batch, state)
+        return gather_rows(self.score_batch(self.batch, state), self.mesh)
 
     def score_batch(self, batch, state: Tensor) -> Tensor:
         """The score of the rows of ``batch`` (the resident batch, or a
@@ -385,6 +449,33 @@ class _DeviceBucket:
     score_pos: Tensor  # [M] global sample position (unique)
 
 
+def _entity_shard(b, mesh, num_samples: int):
+    """A host bucket (data.REBucket) as this rank places it: the bucket's
+    lanes padded to a multiple of the entity shard count (zero blocks,
+    sample position ``num_samples``) and cut to this rank's shard, and the
+    score rows of its entities with their slots made local; with one
+    entity shard that is the bucket itself."""
+    if mesh.entity_shards == 1:
+        return b
+    e = b.features.shape[0]
+    e_pad = pad_rows_to_multiple(e, mesh.entity_shards)
+    lo, hi = entity_range(mesh, e_pad)
+
+    def lanes(x, fill=0):
+        if e_pad > e:
+            x = np.pad(x, [(0, e_pad - e)] + [(0, 0)] * (x.ndim - 1), constant_values=fill)
+        return x[lo:hi]
+
+    mine = (b.score_slot >= lo) & (b.score_slot < hi)
+    return types.SimpleNamespace(
+        features=lanes(b.features), labels=lanes(b.labels),
+        offsets=lanes(b.offsets), weights=lanes(b.weights),
+        sample_pos=lanes(b.sample_pos, fill=num_samples),
+        score_feats=b.score_feats[mine], score_slot=b.score_slot[mine] - lo,
+        score_pos=b.score_pos[mine],
+    )
+
+
 @dataclasses.dataclass(eq=False)
 class RandomEffectCoordinate(Coordinate):
     config: RandomEffectCoordinateConfig
@@ -394,6 +485,9 @@ class RandomEffectCoordinate(Coordinate):
     num_samples: int
     dtype: torch.dtype
     device: torch.device
+    #: the mesh whose entity shard of the lanes the buckets hold (LOCAL:
+    #: every lane)
+    mesh: object = LOCAL
 
     @staticmethod
     def build(
@@ -402,11 +496,18 @@ class RandomEffectCoordinate(Coordinate):
         *,
         dtype: torch.dtype,
         device: torch.device,
+        mesh=LOCAL,
     ) -> "RandomEffectCoordinate":
+        """On a ``mesh`` each bucket's entity axis is padded to a multiple of
+        the entity shard count (padding lanes carry zero weights and the
+        out-of-range sample position, so they train to zero at once), and
+        this rank keeps its shard's lanes and the score rows of its
+        entities (``dataset`` was built with ``entity_shards``)."""
         def place(b) -> _DeviceBucket:
             # inside the retried thunk: an injected transient fault takes
             # the real retry path (each retry counts an occurrence)
             faults.fault_point("coordinate.placement")
+            b = _entity_shard(b, mesh, dataset.num_samples)
             placed = {}
             try:
                 for name in ("features", "labels", "offsets", "weights", "score_feats"):
@@ -435,7 +536,29 @@ class RandomEffectCoordinate(Coordinate):
             num_samples=dataset.num_samples,
             dtype=dtype,
             device=device,
+            mesh=mesh,
         )
+
+    @property
+    def has_health(self) -> bool:
+        return not self.mesh.distributed
+
+    def place_state(self, state: list) -> list:
+        """Whole bucket states (checkpoint resume, warm start) → this
+        rank's lanes on the device: each is padded to the bucket's padded
+        entity count and cut to this rank's entity shard."""
+        out = []
+        for db, w in zip(self.device_buckets, state):
+            w = torch.as_tensor(w)
+            e_pad = db.features.shape[0] * self.mesh.entity_shards
+            if w.shape[0] < e_pad:
+                w = torch.cat([w, w.new_zeros((e_pad - w.shape[0],) + tuple(w.shape[1:]))])
+            lo, hi = entity_range(self.mesh, e_pad)
+            out.append(w[lo:hi].to(device=self.device, dtype=self.dtype))
+        return out
+
+    def global_state(self, state: list) -> list:
+        return [gather_entities(w, self.mesh) for w in state]
 
     def with_regularization_weight(self, w: float) -> "RandomEffectCoordinate":
         self.problem_config = self.config.optimization.with_regularization_weight(w)
@@ -488,23 +611,29 @@ class RandomEffectCoordinate(Coordinate):
         out = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
         for db, coefs in zip(self.device_buckets, state):
             out[db.score_pos] = score_rows(db.score_feats, coefs[db.score_slot])
-        return out
+        # each entity shard wrote its own rows and zeros elsewhere: the sum
+        # over the entity axis is exact
+        return all_reduce_sum(out, self.mesh, self.mesh.entity_group)
 
     def to_model(self, state: list[Tensor]) -> RandomEffectModel:
         """Per-bucket coefficients and, when configured, the variances of
-        each entity's problem on its active rows and data offsets."""
+        each entity's problem on its active rows and data offsets. On a
+        mesh every rank gathers the whole entity axis (a collective every
+        rank calls) and drops the padding lanes."""
         problem = GLMProblem.build(self.problem_config)
         buckets = []
         for db, coefs, hb in zip(self.device_buckets, state, self.dataset.buckets):
             variances = problem.variances(
                 LabeledBatch(db.features, db.labels, db.offsets, db.weights), coefs
             )
+            e_real = len(hb.entity_ids)
             buckets.append(
                 BucketCoefficients(
                     entity_ids=hb.entity_ids,
                     col_index=hb.col_index,
-                    coefficients=_to_host(coefs),
-                    variances=None if variances is None else _to_host(variances),
+                    coefficients=fetch_global(coefs, self.mesh)[:e_real],
+                    variances=(None if variances is None
+                               else fetch_global(variances, self.mesh)[:e_real]),
                 )
             )
         return RandomEffectModel(
@@ -523,8 +652,11 @@ class MatrixFactorizationCoordinate(Coordinate):
     """score = ⟨u_row, v_col⟩ on rows of positive weight. State is the pair
     (U [R, k], V [C, k]); a training step is one L-BFGS over x = [U; V]
     flattened, with the value Σ w·loss(offset + residual + ⟨u, v⟩) +
-    λ/2·‖x‖² and its gradient by autograd (the row gathers' backward is an
-    index_add, so on the card two runs may differ in the last bits)."""
+    λ/2·‖x‖²: the data term and its gradient by autograd (the row
+    gathers' backward is an index_add, so on the card two runs may differ
+    in the last bits), then λ/2·‖x‖² and λx added. On a mesh the rows are
+    this rank's and the data term and its gradient are summed over every
+    rank before the regularization is added, once."""
 
     config: MatrixFactorizationCoordinateConfig
     row_vocab: np.ndarray
@@ -538,6 +670,9 @@ class MatrixFactorizationCoordinate(Coordinate):
     dtype: torch.dtype
     device: torch.device
     seed: int
+    #: the mesh whose rank holds the per-sample columns' rows (LOCAL: every
+    #: row)
+    mesh: object = LOCAL
 
     @staticmethod
     def build(
@@ -547,6 +682,7 @@ class MatrixFactorizationCoordinate(Coordinate):
         dtype: torch.dtype,
         device: torch.device,
         seed: int = 0,
+        mesh=LOCAL,
     ) -> "MatrixFactorizationCoordinate":
         r_keys = np.asarray(data.id_tags[config.row_entity_type])
         c_keys = np.asarray(data.id_tags[config.col_entity_type])
@@ -555,6 +691,10 @@ class MatrixFactorizationCoordinate(Coordinate):
         # padding rows point at factor row 0 and carry weight 0
         row_idx = entity_row_indices({k: i for i, k in enumerate(row_vocab)}, r_keys, 0)
         col_idx = entity_row_indices({k: i for i, k in enumerate(col_vocab)}, c_keys, 0)
+
+        # this rank's rows
+        lo, hi = row_range(mesh, data.num_samples)
+        row_idx, col_idx = row_idx[lo:hi], col_idx[lo:hi]
 
         def f(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=device, dtype=dtype)
@@ -565,13 +705,14 @@ class MatrixFactorizationCoordinate(Coordinate):
             col_vocab=col_vocab,
             row_idx=torch.as_tensor(row_idx).to(device),
             col_idx=torch.as_tensor(col_idx).to(device),
-            labels=f(data.labels),
-            offsets=f(data.offsets),
-            weights=f(data.weights),
+            labels=f(data.labels[lo:hi]),
+            offsets=f(data.offsets[lo:hi]),
+            weights=f(data.weights[lo:hi]),
             l2_weight=float(config.regularization_weights[0]),
             dtype=dtype,
             device=device,
             seed=seed,
+            mesh=mesh,
         )
 
     def with_regularization_weight(self, w: float) -> "MatrixFactorizationCoordinate":
@@ -580,7 +721,7 @@ class MatrixFactorizationCoordinate(Coordinate):
 
     @property
     def num_samples(self) -> int:
-        return self.labels.shape[0]
+        return self.labels.shape[0] * self.mesh.size
 
     def initial_state(self) -> tuple[Tensor, Tensor]:
         k = self.config.num_factors
@@ -598,21 +739,23 @@ class MatrixFactorizationCoordinate(Coordinate):
     def value_and_grad_fn(self, residual_scores: Tensor, shapes):
         """x ↦ (f(x), ∇f(x)) of the joint factor problem on the residual."""
         loss = loss_for_task(self.config.optimization.task)
-        offsets = self.offsets + residual_scores
+        lo, hi = row_range(self.mesh, residual_scores.shape[0])
+        offsets = self.offsets + residual_scores[lo:hi]
         (r, k), (c, _) = shapes
         l2 = self.l2_weight
 
         def value_and_grad(x: Tensor):
             with torch.enable_grad():
-                x = x.detach().requires_grad_(True)
-                u = x[: r * k].reshape(r, k)
-                v = x[r * k :].reshape(c, k)
+                xg = x.detach().requires_grad_(True)
+                u = xg[: r * k].reshape(r, k)
+                v = xg[r * k :].reshape(c, k)
                 margin = offsets + (u[self.row_idx] * v[self.col_idx]).sum(-1)
-                value = (self.weights * loss.loss(margin, self.labels)).sum() + (
-                    0.5 * l2 * (x * x).sum()
-                )
-                (grad,) = torch.autograd.grad(value, x)
-            return value.detach(), grad
+                data = (self.weights * loss.loss(margin, self.labels)).sum()
+                (grad,) = torch.autograd.grad(data, xg)
+            data = all_reduce_sum(data.detach(), self.mesh)
+            grad = all_reduce_sum(grad, self.mesh)
+            x = x.detach()
+            return data + 0.5 * l2 * (x * x).sum(), grad + l2 * x
 
         return value_and_grad
 
@@ -645,7 +788,8 @@ class MatrixFactorizationCoordinate(Coordinate):
     def _score(self, state) -> Tensor:
         u, v = state
         s = (u[self.row_idx] * v[self.col_idx]).sum(-1)
-        return torch.where(self.weights > 0, s, torch.zeros_like(s))
+        s = torch.where(self.weights > 0, s, torch.zeros_like(s))
+        return gather_rows(s, self.mesh)
 
     def to_model(self, state) -> MatrixFactorizationModel:
         return MatrixFactorizationModel(
@@ -667,18 +811,23 @@ def build_coordinate(
     dtype: torch.dtype,
     device: torch.device,
     seed: int = 0,
+    mesh=LOCAL,
 ) -> Coordinate:
-    """Config → coordinate."""
+    """Config → coordinate (``mesh``: this rank's part of a meshed fit;
+    a random effect's ``re_dataset`` is then built with the mesh's
+    ``entity_shards``)."""
     if isinstance(config, FixedEffectCoordinateConfig):
         return FixedEffectCoordinate.build(
-            data, config, normalization, dtype=dtype, device=device, seed=seed
+            data, config, normalization, dtype=dtype, device=device, seed=seed, mesh=mesh
         )
     if isinstance(config, RandomEffectCoordinateConfig):
         if re_dataset is None:
             raise ValueError("random-effect coordinate needs a built dataset")
-        return RandomEffectCoordinate.build(re_dataset, config, dtype=dtype, device=device)
+        return RandomEffectCoordinate.build(
+            re_dataset, config, dtype=dtype, device=device, mesh=mesh
+        )
     if isinstance(config, MatrixFactorizationCoordinateConfig):
         return MatrixFactorizationCoordinate.build(
-            data, config, dtype=dtype, device=device, seed=seed
+            data, config, dtype=dtype, device=device, seed=seed, mesh=mesh
         )
     raise TypeError(f"unknown coordinate config {type(config)}")

@@ -613,12 +613,39 @@ def _concat_ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return np.cumsum(out)
 
 
+def _shard_major_entity_order(loads: np.ndarray, entity_shards: int) -> np.ndarray:
+    """A bucket's entity slots ordered shard-major with a balanced load per
+    shard (photon_tpu/game/data.py:586). The entity axis is split into
+    ``entity_shards`` contiguous chunks after padding, so the chunks'
+    capacities are fixed; entities are dealt heaviest first, snake-wise
+    (forward, then back) over the shards that still have room. The last
+    chunks keep the slack for the padding lanes. Returns a permutation of
+    the slots: shard-major, ascending original index within a shard."""
+    e = len(loads)
+    e_pad = ((e + entity_shards - 1) // entity_shards) * entity_shards
+    chunk = e_pad // entity_shards
+    # real capacity of chunk s: its slots [s·chunk, (s+1)·chunk) below e;
+    # non-increasing in s
+    caps = np.clip(e - chunk * np.arange(entity_shards, dtype=np.int64), 0, chunk)
+    order = np.argsort(-loads, kind="stable")  # heaviest first
+    # round r visits the k_r shards with capacity > r: a prefix [0, k_r)
+    ks = np.searchsorted(-caps, -np.arange(chunk, dtype=np.int64), side="left")
+    starts = np.concatenate(([0], np.cumsum(ks)))
+    rr = np.repeat(np.arange(chunk, dtype=np.int64), ks)
+    pos = np.arange(e, dtype=np.int64) - starts[rr]
+    shard_seq = np.where(rr % 2 == 0, pos, ks[rr] - 1 - pos)
+    shard_of = np.empty(e, dtype=np.int64)
+    shard_of[order] = shard_seq
+    return np.argsort(shard_of, kind="stable").astype(np.int64)
+
+
 def build_random_effect_dataset(
     data: GameData,
     config: RandomEffectCoordinateConfig,
     *,
     seed: int = 0,
     intercept_col: int | None = None,
+    entity_shards: int = 1,
     existing_model_keys=None,
     shape_pool: ShapePool | None = None,
 ) -> RandomEffectDataset:
@@ -630,7 +657,10 @@ def build_random_effect_dataset(
 
     ``existing_model_keys`` (a warm start that ignores the threshold for
     new models): entities WITHOUT a prior model bypass the active lower
-    bound. ``intercept_col`` always survives the Pearson cap."""
+    bound. ``intercept_col`` always survives the Pearson cap.
+    ``entity_shards`` > 1 orders each bucket's entities shard-major with a
+    balanced load per shard (:func:`_shard_major_entity_order`), so the
+    split of a bucket over the mesh's entity axis is balanced."""
     rng = np.random.default_rng(seed)
     shard = data.feature_shards[config.feature_shard]
     keys = np.asarray(data.id_tags[config.random_effect_type])
@@ -809,8 +839,12 @@ def build_random_effect_dataset(
     slot_of_entity = np.full(num_v, -1, dtype=np.int64)
     bucket_of_entity = np.full(num_v, -1, dtype=np.int64)
     flat_start_of_entity = np.zeros(num_v, dtype=np.int64)
-    for bi, (_, _, ents) in enumerate(bucket_specs):
+    for bi, (n_max, d_max, ents) in enumerate(bucket_specs):
         ents = np.asarray(ents, dtype=np.int64)
+        if entity_shards > 1 and len(ents) > 1:
+            # load = active rows, the per-sweep training cost
+            ents = ents[_shard_major_entity_order(n_act[ents].astype(np.float64), entity_shards)]
+        bucket_specs[bi] = (n_max, d_max, ents)
         slot_of_entity[ents] = np.arange(len(ents))
         bucket_of_entity[ents] = bi
         flat_start_of_entity[ents] = np.concatenate(([0], np.cumsum(n_k[ents])[:-1]))

@@ -296,7 +296,9 @@ def run_coordinate_descent(
                     states[cid], scores[cid], total, info = coordinates[cid].sweep_step(
                         total, scores[cid], states[cid]
                     )
-                    if info is not None:  # a coordinate with no optimizer result has no row
+                    # a coordinate with no optimizer result has no row, nor
+                    # has a random effect on a mesh (Coordinate.has_health)
+                    if info is not None and coordinates[cid].has_health:
                         health_dev[cid] = sweep_health(states[cid], info)
                     if per_coordinate:
                         _barrier(scores[cid])

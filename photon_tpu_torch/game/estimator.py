@@ -1,7 +1,7 @@
 """GameEstimator: train a GAME model by block coordinate descent.
 
-Counterpart of photon_tpu/game/estimator.GameEstimator.fit on one device:
-one model per λ-grid point with warm starts across the grid, the pooled
+Counterpart of photon_tpu/game/estimator.GameEstimator.fit: one model
+per λ-grid point with warm starts across the grid, the pooled
 RE bucket shapes (``ShapePool``), normalization contexts per feature
 shard, locked coordinates, an initial model (warm start, with
 ``ignore_threshold_for_new_models`` and the carry-over of prior entities
@@ -12,11 +12,16 @@ divergence policies of the health check, mid-descent checkpoints with
 resume, supervised restarts and model snapshots for warm starts,
 out-of-core streaming (``fit(stream=...)``, game/streaming.py) and the
 warm-up of every sweep and score program before the first sweep
-(``precompile``, game/descent.precompile_coordinates). No mesh; its
-telemetry is the descent's, the recovery loop's and the stream's
-counters and the ``fit.*`` spans.
+(``precompile``, game/descent.precompile_coordinates), and a fit spanned
+over a (data, entity) mesh of ranks (``fit(mesh=...)``,
+parallel/mesh.py): every rank runs the same fit on the same global data,
+padded to the mesh size; fixed-effect and MF rows shard over every rank
+and random-effect entities over the entity axis (game/coordinate.py);
+every rank returns the same models, and only rank 0 writes checkpoints
+and model snapshots. Its telemetry is the descent's, the recovery loop's
+and the stream's counters and the ``fit.*`` spans.
 ``device`` defaults to "cuda" and raises without a card unless "cpu" is
-asked for.
+asked for; on a mesh the mesh's device is the fit's.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from photon_tpu_torch.game.data import (
     GameData,
     ShapePool,
     build_random_effect_dataset,
+    pad_game_data,
     profile_random_effect_shapes,
     re_bucket_entity_cap,
     re_shape_budget,
@@ -59,6 +65,7 @@ from photon_tpu_torch.game.streaming import (
     RESIDENCY_SLACK_BYTES,
     StreamConfig,
     StreamingFixedEffectCoordinate,
+    StreamingModeError,
     StreamingRandomEffectCoordinate,
     StreamTelemetry,
     validate_streaming,
@@ -67,10 +74,39 @@ from photon_tpu_torch.game.validation import DeviceValidationScorer
 from photon_tpu_torch.obs import memory as obs_memory
 from photon_tpu_torch.obs.health import resolve_policy
 from photon_tpu_torch.ops.normalization import NormalizationContext
+from photon_tpu_torch.parallel.mesh import LOCAL, mesh_fingerprint, on_rank0
 from photon_tpu_torch.types import TaskType, resolve_device
 from photon_tpu_torch.util import compile_watch
 
 logger = logging.getLogger(__name__)
+
+
+def shard_shape_census(coordinates, mesh) -> dict:
+    """Per-coordinate census of the meshed random-effect block layout
+    (photon_tpu/game/estimator.py:64): every bucket's padded entity axis
+    divides the entity shard count, so every shard holds an identical
+    ``(E/shards, rows, d)`` block (a rank holds only its own, so JAX's
+    divisibility check has nothing to test here: ``_entity_shard`` pads
+    every bucket's lanes to a multiple of the shard count); returns
+    ``{cid: {"entity_shards", "per_shard_blocks", "levels"}}`` with the
+    shared ``(rows, d)`` level set per coordinate."""
+    shards = mesh.entity_shards
+    census = {}
+    for cid, coord in coordinates.items():
+        if not isinstance(coord, RandomEffectCoordinate):
+            continue
+        blocks = []
+        levels = set()
+        for db in coord.device_buckets:
+            e_local, rows, d = (int(x) for x in db.features.shape)
+            blocks.append([e_local, rows, d])
+            levels.add((rows, d))
+        census[cid] = {
+            "entity_shards": shards,
+            "per_shard_blocks": blocks,
+            "levels": sorted(levels),
+        }
+    return census
 
 
 def _carry_over_prior_models(model: GameModel, initial: GameModel) -> GameModel:
@@ -124,7 +160,13 @@ class GameEstimator:
     JAX's grid-0 result does. ``keep_coordinates`` keeps the fit's built
     coordinates in ``last_coordinates`` for audit tools (the lint's
     ``--programs``), as JAX's does; otherwise their device memory goes
-    back when the fit returns."""
+    back when the fit returns.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``, or ``fit(mesh=...)``) spans the fit
+    over the ranks of a process group: every rank calls ``fit`` with the
+    same arguments and gets the same results. Streaming refuses a mesh,
+    as in JAX, and so does ``max_restarts`` > 0: a restart would be one
+    rank's alone, and the ranks' collectives would stop pairing up."""
 
     task: TaskType
     coordinate_configs: Mapping[str, object]
@@ -142,8 +184,12 @@ class GameEstimator:
     max_restarts: int | None = None
     precompile: bool = False
     keep_coordinates: bool = False
+    #: (data, entity) mesh of ranks; fixed-effect and MF rows shard over
+    #: every rank, random-effect entities over the entity axis (None: LOCAL)
+    mesh: object = LOCAL
 
     def __post_init__(self):
+        self.mesh = self.mesh or LOCAL
         self.device = resolve_device(self.device)
         self.on_divergence = resolve_policy(self.on_divergence)
         self.max_restarts = max_restarts_from_env(self.max_restarts)
@@ -195,11 +241,12 @@ class GameEstimator:
         norm = self.normalization_contexts or {}
         coords = {}
         telemetry = StreamTelemetry() if stream_cfg is not None else None
+        entity_shards = self.mesh.entity_shards
         for cid, cfg in self.coordinate_configs.items():
             ds = None
             if isinstance(cfg, RandomEffectCoordinateConfig):
                 ds = build_random_effect_dataset(
-                    data, cfg, seed=self.seed,
+                    data, cfg, seed=self.seed, entity_shards=entity_shards,
                     existing_model_keys=self._existing_model_keys(cid, initial_model),
                     shape_pool=shape_pool,
                 )
@@ -224,7 +271,7 @@ class GameEstimator:
                 continue
             coords[cid] = build_coordinate(
                 data, cfg, normalization=fe_norm, re_dataset=ds,
-                dtype=self.dtype, device=self.device, seed=self.seed,
+                dtype=self.dtype, device=self.device, seed=self.seed, mesh=self.mesh,
             )
         return coords
 
@@ -243,6 +290,7 @@ class GameEstimator:
         warm_start: str | None = None,
         model_checkpoint_dir: str | None = None,
         stream=None,
+        mesh=None,
     ) -> list[GameTrainingResult]:
         """One GameModel per λ-grid point, warm-starting across the grid.
         ``grid_callback(grid_index, result)`` fires as each point ends.
@@ -263,8 +311,30 @@ class GameEstimator:
         two-deep pipeline of game/streaming.py, with the same
         coefficients, bounded device residency (an armed residency
         guard) and no one-time cost after sweep 0.
-        ``last_fit_stats["stream"]`` then holds the pipeline's report."""
+        ``last_fit_stats["stream"]`` then holds the pipeline's report.
+
+        ``mesh`` spans this fit over a mesh of ranks (overriding the
+        constructor's ``mesh`` for this call and onward; the mesh's
+        device becomes the fit's). Checkpoints fingerprint the mesh
+        topology, so a checkpoint written under one topology is refused
+        as stale under another."""
+        if mesh is not None:
+            self.mesh = mesh
         stream_cfg = None
+        if self.mesh.distributed:
+            self.device = self.mesh.device
+            if stream is not None:
+                raise StreamingModeError(
+                    "streaming fits are per-process (mesh=None): a meshed fit keeps the "
+                    "materialized path; multi-process streaming is not ported yet "
+                    "(ROADMAP A7)"
+                )
+            if self.max_restarts:
+                raise ValueError(
+                    f"max_restarts={self.max_restarts} with a mesh: a restart would be "
+                    "one rank's alone and the ranks' collectives would stop pairing up; "
+                    "restart the whole job from its checkpoint instead"
+                )
         if stream is not None:
             stream_cfg = StreamConfig.resolve(stream)
             validate_streaming(
@@ -345,8 +415,11 @@ class GameEstimator:
         if model_checkpoint_dir is not None:
             final = [r for r in results if r is not None]
             if final:
-                seq = ModelCheckpointStore(model_checkpoint_dir).save(final[-1].model)
-                logger.info("saved model snapshot seq %d to %s", seq, model_checkpoint_dir)
+                def snapshot():
+                    seq = ModelCheckpointStore(model_checkpoint_dir).save(final[-1].model)
+                    logger.info("saved model snapshot seq %d to %s", seq, model_checkpoint_dir)
+
+                on_rank0(self.mesh, snapshot)
         if emitter is not None:
             evals = [r.evaluation for r in results if r is not None and r.evaluation is not None]
             ev = self.validation_evaluator
@@ -362,8 +435,8 @@ class GameEstimator:
 
     def _fingerprint(self, data: GameData) -> str:
         """What a checkpoint's states depend on: resuming under anything
-        else is a hard error, not silent reuse (the JAX fingerprint less
-        its mesh term)."""
+        else is a hard error, not silent reuse (the JAX fingerprint's
+        terms)."""
         return repr((
             self.task,
             sorted((cid, repr(cfg)) for cid, cfg in self.coordinate_configs.items()),
@@ -372,6 +445,9 @@ class GameEstimator:
             sorted(self.locked_coordinates),
             self.seed,
             data.num_samples,
+            # the mesh topology: a checkpoint's entity tables are padded
+            # for one entity shard count
+            mesh_fingerprint(self.mesh),
             # layout knobs: they change the per-bucket state shapes
             re_bucket_entity_cap(),
             sorted(
@@ -386,8 +462,20 @@ class GameEstimator:
         if self.ignore_threshold_for_new_models and initial_model is None:
             raise ValueError("ignore_threshold_for_new_models requires an initial model")
         t0 = time.perf_counter()
+        n_rows = data.num_samples
+        mesh = self.mesh
         with obs.span("fit.data_build", num_samples=int(data.num_samples)):
+            data = pad_game_data(data, mesh.size)
             coordinates = self._build_coordinates(data, initial_model, shape_pool, stream_cfg)
+        census = None
+        if mesh.distributed:
+            # every entity shard holds the same block shapes
+            census = shard_shape_census(coordinates, mesh)
+            for cid, row in census.items():
+                logger.info(
+                    "coordinate %s: %d entity shards x per-shard blocks %s (shared level set %s)",
+                    cid, row["entity_shards"], row["per_shard_blocks"], row["levels"],
+                )
         telemetry = (
             self._arm_stream_guard(coordinates, stream_cfg) if stream_cfg is not None else None
         )
@@ -411,9 +499,13 @@ class GameEstimator:
         t_val = time.perf_counter()
         if validation_data is not None and self.validation_evaluator is not None:
             with obs.span("fit.validation_build"):
-                validation_fn = DeviceValidationScorer.build(
+                evaluate = DeviceValidationScorer.build(
                     validation_data, coordinates, self.validation_evaluator
                 ).evaluate
+            # the whole states (every entity shard's lanes) on a mesh
+            validation_fn = lambda states: evaluate(  # noqa: E731
+                self._global_states(states, coordinates)
+            )
         validation_build_s = time.perf_counter() - t_val
         larger = (
             self.validation_evaluator.larger_is_better if self.validation_evaluator else True
@@ -454,8 +546,10 @@ class GameEstimator:
                     initial_best = (ckpt.best_states, ckpt.best_metric)
             sweep_callback = None
             if checkpointer is not None:
-                sweep_callback = lambda it, st, bs, bm, _gi=gi: checkpointer.on_sweep(  # noqa: E731
-                    _gi, it, st, bs, bm, fingerprint=fingerprint
+                sweep_callback = lambda it, st, bs, bm, _gi=gi: self._checkpoint(  # noqa: E731
+                    checkpointer.on_sweep, _gi, it, self._global_states(st, coordinates),
+                    None if bs is None else self._global_states(bs, coordinates), bm,
+                    fingerprint=fingerprint,
                 )
             cd = run_coordinate_descent(
                 coordinates,
@@ -484,7 +578,8 @@ class GameEstimator:
                 regularization_weights=reg_weights,
                 tracker=cd.tracker,
                 wall_time_s=time.perf_counter() - t_grid,
-                scores=total.detach().to("cpu", torch.float64).numpy(),
+                # the caller's rows (a mesh's padding rows dropped)
+                scores=total.detach().to("cpu", torch.float64).numpy()[:n_rows],
             )
             results.append(result)
             grid_s.append(result.wall_time_s)
@@ -492,7 +587,8 @@ class GameEstimator:
                 grid_callback(gi, result)
             states = cd.states  # warm start the next grid point
             if checkpointer is not None:
-                checkpointer.mark_grid_done(gi, states, fingerprint)
+                self._checkpoint(checkpointer.mark_grid_done, gi,
+                                 self._global_states(states, coordinates), fingerprint)
         self.last_fit_stats = {
             "build_s": build_s,
             "validation_build_s": validation_build_s,
@@ -502,6 +598,9 @@ class GameEstimator:
             "resumed_from": None if ckpt is None else (ckpt.grid_index, ckpt.iteration),
             # the warm-up's report, paid once before grid 0 (None when off)
             "precompile": precompile_report,
+            # the mesh topology and its random-effect block census (None off it)
+            "mesh": mesh_fingerprint(mesh),
+            "shard_census": census,
         }
         if telemetry is not None:
             self.last_fit_stats["stream"] = {
@@ -513,6 +612,19 @@ class GameEstimator:
                 },
             }
         return results
+
+    @staticmethod
+    def _global_states(states: dict, coordinates) -> dict:
+        """The whole states on every rank (``Coordinate.global_state``: a
+        collective for an entity-sharded random effect); as they are off
+        the mesh."""
+        return {cid: coordinates[cid].global_state(st) for cid, st in states.items()}
+
+    def _checkpoint(self, write, *args, **kw) -> None:
+        """A checkpointer write of whole states (gathered by every rank):
+        rank 0 writes, and every rank learns its outcome
+        (``parallel.mesh.on_rank0``)."""
+        on_rank0(self.mesh, lambda: write(*args, **kw))
 
     @staticmethod
     def _place_states(states: dict, coordinates) -> dict:

@@ -28,6 +28,7 @@ from photon_tpu_torch.game.coordinate import (
     _use_sparse,
 )
 from photon_tpu_torch.game.data import GameData, entity_row_indices
+from photon_tpu_torch.parallel.mesh import LOCAL
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype
 
 Tensor = torch.Tensor
@@ -190,7 +191,10 @@ class DeviceValidationScorer:
                         features=torch.as_tensor(shard.to_dense(np_dtype)).to(dev),
                         labels=zeros, offsets=zeros, weights=ones,
                     )
-                scorers[cid] = _FixedEffectValScorer(dataclasses.replace(coord, batch=batch))
+                # the whole validation batch on every rank of a mesh
+                scorers[cid] = _FixedEffectValScorer(
+                    dataclasses.replace(coord, batch=batch, mesh=LOCAL)
+                )
             elif isinstance(coord, RandomEffectCoordinate):
                 scorers[cid] = _build_re_scorer(coord, validation_data)
             elif isinstance(coord, MatrixFactorizationCoordinate):

@@ -11,6 +11,15 @@ takes coefficients [D]. Reductions are weighted sums:
 with margins zᵢ = x·(w .* factor) + margin_shift + offsetᵢ under a
 NormalizationContext. The sparse backward pass runs through the windowed
 Xᵀr (ops/sparse_windows.py) when the batch carries a window layout.
+
+Every sum over rows goes through the objective's ``mesh``
+(parallel/mesh.py): off a mesh (``LOCAL``) it is the sum itself; on one
+the batch holds this rank's rows and the sum is an ``all_reduce`` over
+the ranks: the loss sums,
+the line-search derivative and Xᵀr (a windowed Xᵀr gathers the [N]
+row vector and runs on this rank's instance shard,
+parallel/sparse.sharded_windowed_rmatvec). Each reduced value is the
+same bits on every rank, so every rank's solver takes the same steps.
 """
 from __future__ import annotations
 
@@ -21,8 +30,9 @@ import torch
 from photon_tpu_torch.ops.gather import take_1d
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
-from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 from photon_tpu_torch.optimize.common import DirectionalOracle, SmoothMarginOracle
+from photon_tpu_torch.parallel.mesh import LOCAL, all_reduce_sum, gather_rows
+from photon_tpu_torch.parallel.sparse import sharded_windowed_rmatvec
 from photon_tpu_torch.types import SparseBatch
 
 Tensor = torch.Tensor
@@ -65,13 +75,20 @@ def _use_windows(batch, per_row: Tensor) -> bool:
     return getattr(batch, "windows", None) is not None and per_row.dim() == 1
 
 
-def rmatvec(batch, per_row: Tensor, dim: int) -> Tensor:
-    """Xᵀ·per_row. Sparse with windows: the windowed kernel; sparse
-    without: a flat scatter-add; dense: a batched matrix-vector product
-    (:func:`bf16_product` for a bfloat16 block)."""
+def rmatvec(batch, per_row: Tensor, dim: int, mesh=LOCAL) -> Tensor:
+    """Xᵀ·per_row. Sparse with windows: the windowed kernel over this
+    rank's instance shard (the whole layout off a mesh) on the whole [N]
+    row vector; sparse without: a flat scatter-add; dense: a batched
+    matrix-vector product (:func:`bf16_product` for a bfloat16 block).
+    Under a ``mesh`` the batch is this rank's rows and the result is
+    summed over the ranks."""
+    if _use_windows(batch, per_row):
+        return sharded_windowed_rmatvec(batch.windows, gather_rows(per_row, mesh), dim, mesh)
+    return all_reduce_sum(_rmatvec_local(batch, per_row, dim), mesh)
+
+
+def _rmatvec_local(batch, per_row: Tensor, dim: int) -> Tensor:
     if isinstance(batch, SparseBatch):
-        if _use_windows(batch, per_row):
-            return windowed_rmatvec(batch.windows, per_row, dim)
         flat = (batch.values.to(per_row.dtype) * per_row[:, None]).reshape(-1)
         out = torch.zeros(dim, dtype=flat.dtype, device=flat.device)
         return out.index_add_(0, batch.indices.reshape(-1).long(), flat)
@@ -90,6 +107,13 @@ class GLMObjective:
     l2_weight: float = 0.0
     l1_weight: float = 0.0
     normalization: NormalizationContext = NormalizationContext()
+    #: a mesh for a fixed-effect solve over row-sharded batches: every sum
+    #: over rows is then an all_reduce over the mesh's ranks
+    mesh: object = LOCAL
+
+    def _rows(self, x: Tensor, keepdim: bool = False) -> Tensor:
+        """Σ over the rows (the last axis), over every rank under a mesh."""
+        return all_reduce_sum(x.sum(-1, keepdim=keepdim), self.mesh)
 
     def margins(self, coef: Tensor, batch) -> Tensor:
         eff = self.normalization.effective_coefficients(coef)
@@ -100,16 +124,16 @@ class GLMObjective:
 
     def _back(self, per_row: Tensor, batch, dim: int) -> Tensor:
         """Xᵀ·per_row mapped back through the normalization transform."""
-        g = rmatvec(batch, per_row, dim)
+        g = rmatvec(batch, per_row, dim, mesh=self.mesh)
         if self.normalization.shifts is not None:
-            g = g - per_row.sum(-1, keepdim=True) * self.normalization.shifts
+            g = g - self._rows(per_row, keepdim=True) * self.normalization.shifts
         if self.normalization.factors is not None:
             g = g * self.normalization.factors
         return g
 
     def value(self, coef: Tensor, batch) -> Tensor:
         z = self.margins(coef, batch)
-        raw = (batch.weights * self.loss.loss(z, batch.labels)).sum(-1)
+        raw = self._rows(batch.weights * self.loss.loss(z, batch.labels))
         return raw + 0.5 * self.l2_weight * _dot(coef, coef)
 
     def gradient(self, coef: Tensor, batch) -> Tensor:
@@ -123,7 +147,7 @@ class GLMObjective:
         directional oracle."""
         z = self.margins(coef, batch)
         losses, d1 = self.loss.loss_and_d1(z, batch.labels)
-        value = (batch.weights * losses).sum(-1) + 0.5 * self.l2_weight * _dot(
+        value = self._rows(batch.weights * losses) + 0.5 * self.l2_weight * _dot(
             coef, coef
         )
         grad = (
@@ -153,8 +177,8 @@ class GLMObjective:
                 reg = 0.5 * self.l2_weight * (
                     xx + 2.0 * alpha * xd + alpha * alpha * dd
                 )
-                f = (batch.weights * losses).sum(-1) + reg
-                dphi = (batch.weights * d1 * z_d).sum(-1) + self.l2_weight * (
+                f = self._rows(batch.weights * losses) + reg
+                dphi = self._rows(batch.weights * d1 * z_d) + self.l2_weight * (
                     xd + alpha * dd
                 )
                 return f, dphi, ()
@@ -178,7 +202,7 @@ class GLMObjective:
 
         def value_margins(x: Tensor):
             z = self.margins(x, batch)
-            f = (batch.weights * self.loss.loss(z, batch.labels)).sum(-1)
+            f = self._rows(batch.weights * self.loss.loss(z, batch.labels))
             return f + 0.5 * self.l2_weight * _dot(x, x), z
 
         def grad_from_margins(x: Tensor, z: Tensor):
@@ -217,7 +241,7 @@ class GLMObjective:
         z = self.margins(coef, batch)
         d2 = batch.weights * self.loss.d2(z, batch.labels)
         x = self._transformed_features(batch, coef.shape[-1]).to(coef.dtype)
-        h = torch.matmul(x.transpose(-1, -2), d2.unsqueeze(-1) * x)
+        h = all_reduce_sum(torch.matmul(x.transpose(-1, -2), d2.unsqueeze(-1) * x), self.mesh)
         eye = torch.eye(coef.shape[-1], dtype=h.dtype, device=h.device)
         return h + self.l2_weight * eye
 
@@ -254,9 +278,10 @@ class GLMObjective:
                 sq_windows = batch.windows._replace(
                     vals=torch.square(batch.windows.vals)
                 )
-                sq = windowed_rmatvec(sq_windows, d2, dim)
+                r = gather_rows(d2, self.mesh)
+                sq = sharded_windowed_rmatvec(sq_windows, r, dim, self.mesh)
                 lin = (
-                    windowed_rmatvec(batch.windows, d2, dim)
+                    sharded_windowed_rmatvec(batch.windows, r, dim, self.mesh)
                     if norm.shifts is not None
                     else None
                 )
@@ -268,15 +293,17 @@ class GLMObjective:
                     return out.index_add_(0, flat_idx, (v * d2[:, None]).reshape(-1))
 
                 vals = batch.values.to(d2.dtype)
-                sq = seg(torch.square(vals))
-                lin = seg(vals) if norm.shifts is not None else None
+                sq = all_reduce_sum(seg(torch.square(vals)), self.mesh)
+                lin = (all_reduce_sum(seg(vals), self.mesh)
+                       if norm.shifts is not None else None)
             if norm.shifts is not None:
-                sq = sq - 2.0 * norm.shifts * lin + torch.square(norm.shifts) * d2.sum()
+                sq = sq - 2.0 * norm.shifts * lin + torch.square(norm.shifts) * self._rows(d2)
             if norm.factors is not None:
                 sq = sq * torch.square(norm.factors)
             return sq + self.l2_weight
         x = self._transformed_features(batch, dim)
-        return (d2.unsqueeze(-1) * torch.square(x)).sum(-2) + self.l2_weight
+        diag = all_reduce_sum((d2.unsqueeze(-1) * torch.square(x)).sum(-2), self.mesh)
+        return diag + self.l2_weight
 
     def with_l2(self, l2_weight: float) -> "GLMObjective":
         return dataclasses.replace(self, l2_weight=l2_weight)

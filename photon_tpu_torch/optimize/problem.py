@@ -25,6 +25,7 @@ from photon_tpu_torch.optimize.common import OptimizeResult, OptimizerConfig
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.owlqn import minimize_owlqn
 from photon_tpu_torch.optimize.tron import minimize_tron
+from photon_tpu_torch.parallel.mesh import LOCAL
 from photon_tpu_torch.types import OptimizerType, TaskType
 
 
@@ -111,10 +112,12 @@ class GLMProblem:
     def build(
         config: GLMProblemConfig,
         normalization: NormalizationContext = NormalizationContext(),
+        mesh=LOCAL,
     ) -> "GLMProblem":
         """Raises ``ValueError`` where the reference refuses the pair: TRON
         with a loss that is not twice differentiable, and L1 with an
-        optimizer other than L-BFGS or OWL-QN."""
+        optimizer other than L-BFGS or OWL-QN. ``mesh``: the batch is this
+        rank's rows of a row-sharded fixed effect (ops/objective.py)."""
         loss = loss_for_task(config.task)
         if config.optimizer == OptimizerType.TRON and not loss.twice_diff:
             raise ValueError(
@@ -126,7 +129,7 @@ class GLMProblem:
         if l1 > 0 and config.optimizer not in (OptimizerType.LBFGS, OptimizerType.OWLQN):
             raise ValueError("L1/elastic-net requires OWLQN")
         objective = GLMObjective(
-            loss=loss, l2_weight=l2, l1_weight=l1, normalization=normalization
+            loss=loss, l2_weight=l2, l1_weight=l1, normalization=normalization, mesh=mesh
         )
         return GLMProblem(config=config, objective=objective)
 

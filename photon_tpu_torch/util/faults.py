@@ -19,7 +19,10 @@ planned fault when ``(point, occurrence)`` matches.
 
 Fault points of the port: ``descent.sweep`` (start of each sweep),
 ``descent.coordinate`` (before each coordinate step; ``nan`` poisons the
-coordinate's state on its device), ``checkpoint.write`` (before a
+coordinate's state on its device), the placements ``coordinate.placement``
+(each random-effect bucket) and ``sparse.placement`` (each rank's window
+shard of a meshed fixed effect), both inside their retry,
+``checkpoint.write`` (before a
 snapshot is written) and ``checkpoint.replace`` (after a snapshot's
 temporary file is written, before its rename); the I/O points
 ``io.decode`` (each Avro read, inside its retry), ``io.native_decode``

@@ -1261,20 +1261,33 @@ _SCORE = ["--input-data-directories", "x", "--root-output-directory", "{out}",
 _INDEX = ["--input-data-directories", "x", "--root-output-directory", "{out}",
           "--feature-shard-configurations", SHARD_ARG]
 
+#: the flags the port refused until they were ported: (module, argv, the
+#: flag and its value, JAX's error for a value this run cannot take or
+#: None where the run fits)
 UNPORTED = [
-    (t_gt, _TRAIN, ["--mesh", "1x8"], "--mesh"),
+    (t_gt, _TRAIN, ["--mesh", "1x8"], "mesh 1x8 does not cover 1 devices"),
+    (t_gt, _TRAIN, ["--mesh", "1x1"], None),
 ]
 
 
-@pytest.mark.parametrize("mod,base,extra,flag", UNPORTED,
+@pytest.mark.parametrize("mod,base,extra,error", UNPORTED,
                          ids=[f"{m.__name__.rsplit('.', 1)[1]}{e[0]}={e[-1]}"
                               for m, _, e, _ in UNPORTED])
-def test_unported_flag_raises(tmp_path, mod, base, extra, flag):
-    argv = [str(tmp_path / "o") if a == "{out}" else a for a in base] + extra
-    kw = {} if mod is t_fi else {"device": "cpu"}
-    with pytest.raises(NotImplementedError, match=flag):
-        mod.run(argv, **kw)
-    assert not (tmp_path / "o").exists()
+def test_unported_flag_raises(tmp_path, avro_dirs, trained, mod, base, extra, error):
+    """``--mesh``, once refused, is ported: on a world of one (no launcher)
+    ``1x8`` raises JAX's ValueError before any output is written, and
+    ``1x1`` fits the models of the run without a mesh, bit for bit."""
+    if error is not None:
+        argv = [str(tmp_path / "o") if a == "{out}" else a for a in base] + extra
+        with pytest.raises(ValueError, match=error):
+            mod.run(argv, device="cpu")
+        assert not (tmp_path / "o").exists()
+        return
+    with float64_drivers():
+        res = mod.run(_train_argv(avro_dirs, tmp_path / "port", *extra), device="cpu")
+    assert res["fit_stats"]["mesh"] == (("data", "entity"), (1, 1))
+    assert not torch.distributed.is_initialized()  # the driver ended its group
+    _assert_uninterrupted(trained, tmp_path)
 
 
 def test_precompile_trains_the_models_of_the_run_without_it(avro_dirs, trained, tmp_path):
@@ -1291,18 +1304,21 @@ def test_precompile_trains_the_models_of_the_run_without_it(avro_dirs, trained, 
     assert len(rows) == 4 and all(t["compiles"] == 0 for t in rows)
 
 
-def test_accepted_defaults_do_not_raise(tmp_path):
-    """The values equal to the defaults pass the refusal: --feature-cache
-    off, --max-restarts 0, PHOTON_SCORE_DEGRADE=0."""
-    import argparse
+def test_accepted_defaults_do_not_raise(tmp_path, monkeypatch):
+    """The values equal to the defaults are the defaults: --feature-cache
+    off, --max-restarts 0 and --mesh off parse to them, and the mesh they
+    resolve to is the fit off the mesh, with no process group."""
+    from photon_tpu_torch.parallel import mesh as tmesh
 
-    from photon_tpu_torch.cli import game_base
-
+    monkeypatch.delenv("PHOTON_MESH", raising=False)
     parser = t_gt.build_parser()
     argv = [str(tmp_path / "o") if a == "{out}" else a for a in _TRAIN]
-    args = parser.parse_args(argv + ["--feature-cache", "off", "--max-restarts", "0"])
-    game_base.refuse_unported(args, parser, t_gt.UNPORTED_FLAGS)
-    assert isinstance(args, argparse.Namespace)
+    args = parser.parse_args(argv + ["--feature-cache", "off", "--max-restarts", "0",
+                                     "--mesh", "off"])
+    assert (args.feature_cache, args.max_restarts) == ("off", 0)
+    assert tmesh.resolve_mesh(args.mesh, device="cpu") is tmesh.LOCAL
+    assert tmesh.resolve_mesh(parser.get_default("mesh"), device="cpu") is tmesh.LOCAL
+    assert not torch.distributed.is_initialized()
 
 
 def test_score_degrade_env_raises(tmp_path, monkeypatch, avro_dirs, trained):

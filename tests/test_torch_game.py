@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,6 +46,17 @@ from photon_tpu_torch.types import OptimizerType as TOpt
 from photon_tpu_torch.types import TaskType as TTask
 
 N, FE_DIM, FE_NNZ = 1 << 11, 1 << 10, 8
+
+
+@pytest.fixture(autouse=True)
+def _release_jax_executables():
+    """Drop JAX's compiled programs before each test: a test worker keeps
+    every executable its earlier tests compiled (the JAX package's jitted
+    methods hold their coordinates as static arguments), and at ~21,000 of
+    them a worker reaches the kernel's 65,530 memory maps, where the next
+    compile segfaults."""
+    jax.clear_caches()
+    yield
 COORDS = [("user", 64, 4, 32), ("item", 16, 4, 128)]
 FE_ITERS, RE_ITERS = 10, 5
 

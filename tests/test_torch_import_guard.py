@@ -85,3 +85,14 @@ def test_port_file_names_no_jax_module(path):
             ):
                 bad.append(arg.value)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_mesh_package_and_rank_worker_are_covered():
+    """``photon_tpu_torch/parallel/`` is in both checks above (the
+    subprocess walk imports every module of the package; the per-file
+    check holds each file), and the rank processes of the mesh tests
+    (tests/torch_mesh_worker.py) import no JAX module either."""
+    parallel = sorted((PORT / "parallel").glob("*.py"))
+    assert {p.stem for p in parallel} >= {"__init__", "mesh", "sparse", "distributed"}
+    assert all(p in PORT_FILES for p in parallel)
+    test_port_file_names_no_jax_module(ROOT / "tests" / "torch_mesh_worker.py")
