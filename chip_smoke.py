@@ -60,7 +60,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a 3-point λ grid and SIMPLE variances, with the best sweep's model
    returned; then a partial retrain with the fixed effect locked, which
    must come back within rtol 1e-6) and ``game_ctr_mf`` (bench config 6's
-   model trained and scored at full width: 2^20 rows, fixed, per-user,
+   model trained and scored at full width, depth cut to 2^19 rows: fixed, per-user,
    per-item and user × item MF coordinates; the scorer within 1e-4 of the
    fit, within config 6's 1e-3 of the host float64 path, and equal to the
    sequential batches bit for bit); the windowed-variance layout is held
@@ -109,7 +109,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    scoring driver with ``--feature-cache require`` gives ``cli_game``'s
    scores bit for bit);
 9. ``scoring_stream``: bench config 6's model and traffic at full widths,
-   depth cut to 2^18 rows in 16 Avro parts, through ``GameScorer.stream``
+   depth cut to 2^17 rows in 16 Avro parts, through ``GameScorer.stream``
    in 16,384-row batches to 8 output partitions: the Avro stream, the
    monolithic host path, a cold (``rebuild``) and a warm (``require``)
    cache stream; stream vs monolithic within 1e-3, warm cache vs Avro
@@ -155,7 +155,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    share of host-to-device copy time under a running kernel and the
    card's busy share over the same run unprofiled; steady sweep walls, examples/s, the
    warm speedup, peak allocated bytes streamed vs materialized, beside
-   bench's bands), ``daily_retrain_parity`` (the cold and warm fits at
+   bench's bands; the second cold fit, which only compares an answer,
+   runs in a subprocess beside ``cli_game_parity`` and is joined at its
+   end, before ``mesh_two_rank``),
+   ``daily_retrain_parity`` (the cold and warm fits at
    2^15 rows / 1,280 users, float64, card vs CPU within 1e-9),
    ``game_glmix_stream`` (config 4 at full scale: its fixed effect
    trained, then locked while the per-user effect is refitted streaming
@@ -167,12 +170,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    effects only, one sweep, with ``--model-checkpoint-directory`` and then
    ``--warm-start-input-directory`` on the first part: each saved model
    equals a direct ``fit(..., stream=8192)`` bit for bit, and each run
-   profile holds the ``train.stream.*`` stage histograms);
+   profile holds the ``train.stream.*`` stage histograms) and
+   ``ingest_two_rank`` (per-process ingest shards on ``cli_game``'s 4
+   parts: two training-driver subprocesses at once with
+   ``PHOTON_INGEST_SHARD=0/2`` and ``1/2`` on ``cli_game_stream``'s command
+   line; they read disjoint part files whose rows add up to ``cli_game``'s,
+   each shard's saved model equals a direct ``fit(stream=8192)`` on its two
+   parts bit for bit, and ``cache_tool build`` per shard gives two distinct
+   cache directories whose ``--feature-cache require`` runs give the Avro
+   runs' models bit for bit);
 12. the causal trace plane and the live endpoints, which launch no
    hand-written kernel: ``serve_trace`` (after ``serve_slo``, on its
    registry and requests: the paced leg with its hot swap run disarmed,
    then armed with ``causal.install(sample_n=1)`` and a ``TelemetryServer``
-   on 127.0.0.1:0 scraped in turns during traffic, the armed p99 within
+   on 127.0.0.1:0 scraped in turns during traffic from a process of its
+   own, the armed p99 within
    bench's trace-overhead band of the disarmed p99; then armed again under
    a fault plan (a 50 ms ``serve.dispatch`` stall) that breaks the SLO
    of every leg: an exemplar kept, the fault inside a request's chain;
@@ -215,20 +227,55 @@ Phases, in order; any failure exits non-zero and prints no result line:
    range, the partials summed within the kernel's Higham bound against
    the float64 plain version, one shard bit for bit the unsharded layout,
    each shard's ``kernel_ms`` beside its plain version's, ``torch.mv`` on
-   the shard's CSR Xᵀ and its bound), ``cli_game_mesh`` (in the cli block: the
+   the shard's CSR Xᵀ and its bound), ``cli_game_mesh`` (in the cli block,
+   beside ``cli_game_live``: the
    training driver with ``--mesh 1x1`` as a fresh subprocess on
-   ``cli_game``'s parts and command line, NCCL over a world of one: its
-   best model (handed back pickled) bit for bit ``cli_game``'s, as many
-   kernel launches, the topology in its checkpoint fingerprint, its
-   collectives per sweep and walls beside ``cli_game``'s; then one sweep of ``sync_sites``' small fit
+   ``cli_game``'s parts and command line cut to grid 0, NCCL over a world
+   of one: its best model (handed back pickled) bit for bit ``cli_game``'s
+   grid-0 model, as many kernel launches as the unmeshed grid-0 run of
+   ``cli_game_precompile``, the topology in its checkpoint fingerprint, its
+   collective census within every coordinate's ``spmd_contract()``, its
+   collectives and bytes per collective kind per sweep and walls beside
+   ``cli_game``'s; then one sweep of ``sync_sites``' small fit
    on a world-of-one mesh under ``torch.cuda.set_sync_debug_mode("warn")``,
-   every hot-path site an annotated PHL002 finding) and ``mesh_two_rank``
+   every hot-path site an annotated PHL002 finding), ``mesh_two_rank``
    (after ``cli_game_parity``: two processes on the one card in a Gloo
    group with CUDA tensors, at ``cli_game_parity``'s size at float64, on
    meshes 2x1 and 1x2, against the same two ranks on the CPU and the
    card's unmeshed fit, within 1e-9; the collectives Gloo takes on CUDA
-   tensors are printed);
+   tensors are printed) and ``fleet_two_rank`` (one more leg of
+   ``mesh_two_rank``'s card ranks: the 2x1 fit with the warm-up on inside
+   a driver's telemetry session on a shared root, the fleet plane on by
+   itself in the world of two, rank 0 serving the endpoints, rank 1's
+   second sweep stalled 4 s by the fault plan. Scraped during the run:
+   both processes' ``photon_proc_*`` families, each fleet counter the sum
+   of its per-process samples, ``/healthz`` flagging rank 1 a straggler;
+   rank 1 stopped with SIGSTOP while rank 0 waits for it in a collective
+   goes stale within ``stale_after_s`` plus a heartbeat and is ok again
+   after SIGCONT. After both exit 0: the fleet report's per-sweep skew rows
+   with rank 1 a straggler, ``breakdown.json`` with a measured
+   ``barrier_frac`` and the census bytes, the model within 1e-9 of the
+   unmeshed fit); the lint's ``--programs`` run in ``sync_sites`` prints
+   its census;
 15. print one ``{"kernels": [...]}`` line and, last, the ok line.
+
+Room for the phases of the mesh's second half (the script must finish in
+1200 s): subprocess legs that compare answers and not walls run at the
+same time as other work. ``cli_game`` scores its validation rows in a
+scoring-driver subprocess while it scores the training rows;
+``cli_game`` loads its saved best model back in another subprocess;
+``cli_game_cache``'s scoring driver runs beside its training driver;
+``ingest_two_rank``'s four driver runs go at once;
+``cli_serving_kill`` runs beside ``cli_serving``, whose swap target's
+fingerprint is computed by a subprocess during its first half;
+``cli_game_mesh``'s driver runs beside ``cli_game_live``'s;
+``daily_retrain``'s second cold fit runs beside ``cli_game_parity``
+and is joined at its end, so no phase after it shares the card with it.
+Their walls are printed as measured under that contention. Depth:
+``game_ctr_mf`` trains on 2^19 rows (was 2^20), ``scoring_stream``
+streams 2^17 (was 2^18), ``cli_game_precompile``'s two driver runs save
+no model (``--output-mode NONE``, the best model handed back pickled) and
+``cli_game_mesh`` fits grid 0 alone.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -770,11 +817,18 @@ def sync_sites(seed):
     from photon_tpu_torch.analysis.cli import main as lint_main
 
     t1 = time.perf_counter()
-    rc = lint_main(["--root", root, "--programs"])
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lint-") as tmp:
+        rc = lint_main(["--root", root, "--programs", "--jsonl", f"{tmp}/lint.jsonl"])
+        with open(f"{tmp}/lint.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+    census = [{k: r[k] for k in ("program", "calls", "bytes", "comm_bytes")}
+              for r in rows if r.get("kind") == "comm-census"]
     log(json.dumps({"phase": "sync_sites[programs]", "rc": rc, "device": "cuda",
-                    "wall_s": time.perf_counter() - t1}))
+                    "wall_s": time.perf_counter() - t1, "census": census}))
     if rc != 0:
         fail(f"sync_sites: python -m photon_tpu_torch.analysis --programs exited {rc} on the card")
+    if not census:
+        fail("sync_sites: the lint's --programs run on the card reported no census")
 
 
 def sync_site_configs():
@@ -1812,7 +1866,7 @@ def mesh_kernel_shards(label, idx, val, dim, layout, seed=0):
 
 GLMIX_N, GLMIX_FE_D, GLMIX_USERS, GLMIX_RE_D, GLMIX_UB = 1 << 17, 128, 8192, 16, 1024
 GLMIX_VALID_N = 1 << 14
-MF_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K = 1 << 20, 64, 24, 1 << 16, 4096, 8
+MF_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K = 1 << 19, 64, 24, 1 << 16, 4096, 8
 SCORE_PARITY_REL_MAX = 1e-3  # bench.py QUALITY_BANDS game_scoring_stream
 
 
@@ -2071,7 +2125,7 @@ def mf_configs(fe_iter, re_iter, mf_iter, k, variance="NONE", **re_kw):
 
 def game_ctr_mf(seed):
     """The model of bench config 6 (game_scoring_stream), trained and
-    scored at its full widths: 2^20 rows, a fixed effect on 64 columns
+    scored at its full widths, depth cut to 2^19 rows: a fixed effect on 64 columns
     with 24 nonzeros per row, per-user (2^16) and per-item (4096) random
     effects on the same columns and a user × item MF coordinate with k=8;
     GameEstimator 2 sweeps (FE 10, RE 5, MF 10 L-BFGS iterations), then
@@ -2137,7 +2191,7 @@ def game_ctr_mf(seed):
 
 # --- the streaming scorer and the feature cache at bench config 6 ----------------
 
-SS_N, SS_FULL_N = 1 << 18, 1 << 20  # depth cut: the pure-Python Avro write
+SS_N, SS_FULL_N = 1 << 17, 1 << 20  # depth cut: the pure-Python Avro write
 SS_BATCH, SS_PARTS_IN, SS_PARTS_OUT = 16384, 16, 8
 # stages that wait rather than work: a chunk waiting for the consumer, and
 # batch i held while batch i+1 is assembled and copied (counted there)
@@ -2356,7 +2410,7 @@ def chunk_traces(phase, doc, stats, name, chunks, streams):
 
 def scoring_stream(seed, tmp):
     """Bench config 6 (``game_scoring_stream``): its model and traffic at
-    full widths, 16 Avro parts of 2^18 rows (the depth cut from 2^20), in
+    full widths, 16 Avro parts of 2^17 rows (the depth cut from 2^20), in
     16,384-row batches to 8 output partitions, through ``GameScorer.stream``
     on the card, four legs in turns: the Avro stream, the monolithic host
     path (read everything, ``GameTransformer.score``), a ``rebuild`` cache
@@ -2857,13 +2911,16 @@ def cli_train_argv(train, valid, out):
 
 def read_fe_shard(train_dir, index_maps):
     """The fixed-effect shard as the training driver read it: the same
-    reader, the same feature index map."""
+    reader, shards, id tags and feature index maps (a read of one shard
+    alone falls outside the native decoder's subset and decodes in
+    Python, ~7× slower)."""
     from photon_tpu_torch.cli.parsing import parse_feature_shard_config
     from photon_tpu_torch.io.data_reader import AvroDataReader
 
-    name, cfg = parse_feature_shard_config(CLI_SHARDS[1])
-    reader = AvroDataReader(index_maps={name: index_maps[name]})
-    return reader.read([train_dir], {name: cfg}).feature_shards[name]
+    shards = dict(parse_feature_shard_config(CLI_SHARDS[i]) for i in (1, 3, 5))
+    reader = AvroDataReader(index_maps=index_maps)
+    data = reader.read([train_dir], shards, id_tags=("itemId", "userId"))
+    return data.feature_shards["global"]
 
 
 def model_mismatch(want, got, rtol=0.0):
@@ -2929,13 +2986,14 @@ def cli_game(seed, tmp):
     ``tmp``. Returns the kernel's launches, the ``cli_game_fe`` kernel row
     and what the later cli phases reuse: the part files' directories and
     the uninterrupted fit's results."""
+    import pickle
+
     import numpy as np
     import torch
 
     from photon_tpu_torch.cli import game_scoring, game_training
     from photon_tpu_torch.game.data import slice_game_data
     from photon_tpu_torch.io.avro import read_avro_dir
-    from photon_tpu_torch.io.model_io import load_game_model
     from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
@@ -2963,32 +3021,55 @@ def cli_game(seed, tmp):
     if summary["best"] != res["best"]:
         fail("cli_game: training-summary.json names another best model")
 
+    def scoring_argv(name):
+        return ["--input-data-directories", f"{tmp}/{name}",
+                "--root-output-directory", f"{tmp}/scoring-{name}", *CLI_SHARDS,
+                "--model-input-directory", f"{tmp}/training/best",
+                "--evaluators", "AUC:userId,AUC",
+                "--num-output-partitions", "3", "--score-batch-rows", "16384"]
+
+    # the validation rows are scored by a driver subprocess, and the saved
+    # best model is loaded back by another, at the same time as the
+    # training rows are scored here: their answers are compared, never
+    # their walls
+    valid_proc = start_driver(SCORING_DRIVER, f"{tmp}/scoring-valid.json",
+                              scoring_argv("valid"), f"{tmp}/scoring-valid.log")
+    with open(f"{tmp}/index-maps.pkl", "wb") as f:
+        pickle.dump(res["index_maps"], f)
+    load_proc = start_driver(LOAD_DRIVER, f"{tmp}/load-best.json",
+                             [f"{tmp}/training/best", f"{tmp}/index-maps.pkl"],
+                             f"{tmp}/load-best.log")
     scored = {}
-    for name in ("train", "valid"):
-        t0 = time.perf_counter()
-        out = game_scoring.run([
-            "--input-data-directories", f"{tmp}/{name}",
-            "--root-output-directory", f"{tmp}/scoring-{name}", *CLI_SHARDS,
-            "--model-input-directory", f"{tmp}/training/best",
-            "--evaluators", "AUC:userId,AUC",
-            "--num-output-partitions", "3", "--score-batch-rows", "16384",
-        ], device="cuda")
-        out["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scored["train"] = game_scoring.run(scoring_argv("train"), device="cuda")
+    scored["train"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scored["valid"] = finish_driver("cli_game", valid_proc, f"{tmp}/scoring-valid.json",
+                                    f"{tmp}/scoring-valid.log")
+    scored["valid"]["scores"] = np.load(f"{tmp}/scoring-valid.json.npy")
+    valid_wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, out in scored.items():
         out["records"] = {r["uid"]: r["predictionScore"]
                           for r in read_avro_dir(f"{tmp}/scoring-{name}/scores")}
         if out["scoring"]["mode"] != "streaming":
             fail(f"cli_game: the scoring driver ran {out['scoring']['mode']!r}, not 'streaming'")
-        scored[name] = out
+    read_scores_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    loaded = load_game_model(f"{tmp}/training/best", res["index_maps"])
-    load_check_s = time.perf_counter() - t0
+    load_check_s = finish_driver("cli_game", load_proc, f"{tmp}/load-best.json",
+                                 f"{tmp}/load-best.log")["wall_s"]
+    with open(f"{tmp}/load-best.json.model", "rb") as f:
+        loaded = pickle.load(f)  # written by the subprocess above
+    load_wait_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     # the kernel held against its plain version on the layout this
     # path gave it (its launches above are the driver's alone)
+    t0 = time.perf_counter()
     fe_shard = read_fe_shard(f"{tmp}/train", res["index_maps"])
     krow = kernel_case("cli_game_fe", *fe_shard.to_ell(dtype=np.float32), fe_shard.num_cols)
     del fe_shard
+    fe_kernel_s = time.perf_counter() - t0
 
     model = best.model
     fe = model["fixed"].coefficients.means
@@ -3012,7 +3093,9 @@ def cli_game(seed, tmp):
     fit_err = float(np.abs(scores - best.scores[rows]).max())
     if not np.allclose(scores, best.scores[rows], rtol=1e-4, atol=1e-4):
         fail(f"cli_game: scoring driver vs fit scores max_abs_err={fit_err}")
+    t0 = time.perf_counter()
     auc = grouped_auc(scores, train.labels[rows], np.asarray(train.id_tags["user"])[rows])
+    auc_s = time.perf_counter() - t0
     if not auc >= 0.8:
         fail(f"cli_game: per-user grouped AUC on the training rows {auc} < 0.8")
     summary_auc = summary["models"][res["best"]]["evaluation"]
@@ -3048,7 +3131,9 @@ def cli_game(seed, tmp):
         "evaluate_s": sw["evaluate"], "scoring_driver_s": scored["train"]["wall_s"],
         "scoring_rows_per_s": CLI_N / scored["train"]["wall_s"],
         "score_stream_rows_per_s": CLI_N / sw["stream scores"],
-        "load_check_s": load_check_s, "best": res["best"],
+        "load_check_s": load_check_s, "load_wait_s": load_wait_s,
+        "valid_scoring_wait_s": valid_wait_s, "read_scores_s": read_scores_s,
+        "fe_kernel_case_s": fe_kernel_s, "grouped_auc_s": auc_s, "best": res["best"],
         "kernel_launches_fit": launches, "scorer_vs_fit_max_abs_err": fit_err,
         "grouped_auc_user_train": auc, "auc_user_valid_summary": summary_auc,
         "auc_user_valid_scoring": valid_auc,
@@ -3060,6 +3145,66 @@ def cli_game(seed, tmp):
         "train_scores": train_scores, "scoring_stream_s": sw["stream scores"],
         "valid_scores": scored["valid"]["records"],
     }
+
+
+#: ``game_scoring.run`` in a subprocess: its result (without the scores)
+#: as JSON at argv[1], the scores beside it as ``.npy``
+SCORING_DRIVER = r"""
+import json, sys
+import numpy as np
+from photon_tpu_torch.cli import game_scoring
+out = game_scoring.run(sys.argv[2:], device="cuda")
+np.save(sys.argv[1] + ".npy", np.asarray(out.pop("scores")))
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f, default=str)
+"""
+
+
+#: a saved GAME model (argv[2]) loaded with pickled index maps (argv[3]) in
+#: a subprocess, handed back pickled beside the JSON report at argv[1]
+LOAD_DRIVER = r"""
+import json, pickle, sys, time
+from photon_tpu_torch.io.model_io import load_game_model
+t0 = time.perf_counter()
+with open(sys.argv[3], "rb") as f:
+    maps = pickle.load(f)
+model = load_game_model(sys.argv[2], maps)
+wall = time.perf_counter() - t0
+with open(sys.argv[1] + ".model", "wb") as f:
+    pickle.dump(model, f)
+with open(sys.argv[1], "w") as f:
+    json.dump({"wall_s": wall}, f)
+"""
+
+
+def start_driver(code, report, argv, log_path, env=None):
+    """``python -c code report *argv`` as a subprocess on the card, its
+    output to ``log_path``; ``env`` is added to this environment less its
+    ``PHOTON_*`` variables."""
+    import os
+
+    full = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    full.update(env or {})
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen([sys.executable, "-c", code, report, *argv], env=full,
+                                stdout=log_f, stderr=subprocess.STDOUT)
+
+
+def finish_driver(phase, proc, report, log_path, timeout=900):
+    """Wait for a ``start_driver`` subprocess; its JSON report (fails the
+    phase with the log's tail on a non-zero exit)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        fail(f"{phase}: a driver subprocess exited {rc}: {tail}")
+    with open(report) as f:
+        return json.load(f)
 
 
 def cli_args(ctx, out, *extra):
@@ -3377,16 +3522,17 @@ def cli_game_cache(ctx):
     ones). Then the training driver with ``--feature-cache require`` and
     ``cli_game``'s command line (no model files): both reads replay the
     cache, the fit launches the kernel as often as ``cli_game``'s, and every
-    model equals ``cli_game``'s bit for bit. Then the scoring driver with
-    ``--feature-cache require`` and 16,384-row batches: a cache hit, and
-    its scores, joined on uid, equal ``cli_game``'s scoring driver bit for
-    bit. Returns the kernel's launches."""
+    model equals ``cli_game``'s bit for bit. Beside it, in a subprocess,
+    the scoring driver with ``--feature-cache require`` and 16,384-row
+    batches: a cache hit, and its scores, joined on uid, equal
+    ``cli_game``'s scoring driver bit for bit. Returns the kernel's
+    launches."""
     import os
 
     import numpy as np
 
     from photon_tpu_torch.cache import CachedDataReader, resolve_reader
-    from photon_tpu_torch.cli import cache_tool, game_base, game_scoring, game_training
+    from photon_tpu_torch.cli import cache_tool, game_base, game_training
     from photon_tpu_torch.io.avro import read_avro_dir
 
     train_args = game_training.build_parser().parse_args(cli_args(ctx, "unused"))
@@ -3397,6 +3543,16 @@ def cli_game_cache(ctx):
                        "--id-tags", ",".join(tags), "--chunk-rows", "16384"]) != 0:
         fail("cli_game_cache: cache_tool build failed")
     build_s = time.perf_counter() - t0
+    # the scoring driver's replay runs in a subprocess beside the training
+    # driver's (both compare answers, bit for bit, not walls)
+    t_score = time.perf_counter()
+    scoring_proc = start_driver(SCORING_DRIVER, f"{ctx['tmp']}/cache-scoring.json", [
+        "--input-data-directories", ctx["train"],
+        "--root-output-directory", f"{ctx['tmp']}/cache-scoring", *CLI_SHARDS,
+        "--model-input-directory", f"{ctx['tmp']}/training/best",
+        "--evaluators", "AUC:userId,AUC", "--num-output-partitions", "3",
+        "--score-batch-rows", "16384", "--feature-cache", "require",
+    ], f"{ctx['tmp']}/cache-scoring.log")
     t0 = time.perf_counter()
     valid = resolve_reader([ctx["valid"]], shards, index_maps=ctx["res"]["index_maps"],
                            id_tags=tags, mode="rebuild")
@@ -3428,15 +3584,9 @@ def cli_game_cache(ctx):
             fail(f"cli_game_cache: grid point {i}: {differs or 'the evaluation'} differs "
                  "from cli_game's")
 
-    t0 = time.perf_counter()
-    out = game_scoring.run([
-        "--input-data-directories", ctx["train"],
-        "--root-output-directory", f"{ctx['tmp']}/cache-scoring", *CLI_SHARDS,
-        "--model-input-directory", f"{ctx['tmp']}/training/best",
-        "--evaluators", "AUC:userId,AUC", "--num-output-partitions", "3",
-        "--score-batch-rows", "16384", "--feature-cache", "require",
-    ], device="cuda")
-    score_s = time.perf_counter() - t0
+    out = finish_driver("cli_game_cache", scoring_proc, f"{ctx['tmp']}/cache-scoring.json",
+                        f"{ctx['tmp']}/cache-scoring.log")
+    score_s = time.perf_counter() - t_score
     scoring = out["scoring"]
     if scoring["mode"] != "streaming" or scoring["featureCache"]["state"] != "hit" or (
             scoring["decoder"] != "cache"):
@@ -3456,6 +3606,7 @@ def cli_game_cache(ctx):
         "avro_read_s": ctx["read_s"], "training_driver_s": train_s,
         "fit_wall_s": res["fit_stats"]["wall_s"], "kernel_launches_fit": launches,
         "models_bit_equal": True, "scoring_driver_s": score_s,
+        "scoring_concurrent_with": "the training driver",
         "scoring_stream_s": out["walls"]["stream scores"],
         "avro_scoring_stream_s": ctx["scoring_stream_s"],
         "scoring_stage_s": scoring["stageSeconds"], "feature_cache": scoring["featureCache"],
@@ -3584,12 +3735,66 @@ def gloo_probe(device):
     return out
 
 
-def mesh_rank(rank, world, address, device, out, seed):
+#: fleet_two_rank's heartbeat (stale after 3 missed: 0.75 s) and the
+#: stall of rank 1's second sweep (a straggler: it starts that sweep late
+#: by many unobstructed sweeps)
+FLEET_HEARTBEAT_S, FLEET_STALL_S = 0.25, 4.0
+
+
+def fleet_rank(rank, fleet, seed, data, coords):
+    """``fleet_two_rank``'s leg on one rank: the 2x1 fit again with the
+    warm-up on, inside a driver's telemetry session on the shared root
+    ``fleet["root"]`` (the fleet plane is on by itself in a world of two:
+    this rank's artifacts under ``obs/p<rank>``), rank 0 serving the
+    endpoints on ``fleet["port"]``, rank 1's second sweep stalled by the
+    fault plan. After the fit rank 1 waits for the parent (which stops and
+    continues it meanwhile) while rank 0 waits for it in a collective;
+    then each exports its artifacts and rank 0 the fleet report."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from photon_tpu_torch.cli import game_base
+    from photon_tpu_torch.parallel.mesh import make_mesh
+    from photon_tpu_torch.util import faults
+
+    root = fleet["root"]
+    os.environ["PHOTON_OBS_HEARTBEAT_S"] = str(FLEET_HEARTBEAT_S)
+    if rank == 0:
+        os.environ["PHOTON_OBS_HTTP_PORT"] = str(fleet["port"])
+    mesh = make_mesh(2, 1, device="cuda")
+    est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float64, seed=seed,
+                        windows=True)
+    est.precompile = True
+    with game_base.run_profile(root):
+        if rank == 1:
+            faults.install(f"descent.sweep@2=stall:{FLEET_STALL_S}")
+        try:
+            fit = est.fit(data, mesh=mesh)[0]
+        finally:
+            faults.clear()
+        with open(f"{root}/ready-{rank}", "w") as f:
+            f.write(str(os.getpid()))
+        if rank == 1:
+            while not os.path.exists(f"{root}/go-1"):
+                time.sleep(0.05)
+        dist.barrier()
+        paths = game_base.export_run_profile(root, meta={"phase": "fleet_two_rank"})
+    return {"arrays": keyed_arrays(fit.model), "scores": fit.scores,
+            "paths": {k: v for k, v in (paths or {}).items()},
+            "sweep_s": [t["sweep_seconds"] for t in fit.tracker if "sweep_seconds" in t],
+            "sweep_rows": [{k: t[k] for k in ("sweep_seconds", "barrier_seconds")}
+                           for t in fit.tracker
+                           if "sweep_seconds" in t and "coordinate" not in t]}
+
+
+def mesh_rank(rank, world, address, device, out, seed, fleet=None):
     """One rank of ``mesh_two_rank``: joins a Gloo group at ``address``
     (``parallel.distributed.initialize``; NCCL refuses two ranks on one
     card, so Gloo is asked for by name), then fits ``two_rank_data`` on
-    each of ``TWO_RANK_MESHES`` over ``device``; rank 0 writes the models
-    to ``out``."""
+    each of ``TWO_RANK_MESHES`` over ``device`` and, given ``fleet``, runs
+    ``fleet_rank``; rank 0 writes the models to ``out``."""
     import pickle
 
     import torch
@@ -3617,6 +3822,8 @@ def mesh_rank(rank, world, address, device, out, seed):
                 "collectives": mesh.collectives,
                 "census": est.last_fit_stats["shard_census"],
             }
+        if fleet is not None:
+            res["fleet"] = fleet_rank(rank, fleet, seed, data, coords)
         if rank == 0:
             with open(out, "wb") as f:
                 pickle.dump(res, f)
@@ -3632,8 +3839,8 @@ def mesh_two_rank(seed):
     CPU's two-rank run and with the unmeshed fit within 1e-9 (a rank's
     random-effect lane batch is smaller than the whole bucket, so the sums
     round in another order: ROADMAP C7)."""
+    import os
     import pickle
-    import socket
 
     import numpy as np
     import torch
@@ -3650,22 +3857,26 @@ def mesh_two_rank(seed):
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
         procs = {}
+        fleet = {"root": f"{tmp}/fleet", "port": free_port()}
+        os.makedirs(fleet["root"])
+        watch = FleetWatch(fleet)
         for device in ("cuda", "cpu"):
-            with socket.socket() as sock:
-                sock.bind(("127.0.0.1", 0))
-                port = sock.getsockname()[1]
             procs[device] = mp.start_processes(
-                mesh_rank, args=(2, f"127.0.0.1:{port}", device, f"{tmp}/{device}.pkl", seed),
+                mesh_rank, args=(2, f"127.0.0.1:{free_port()}", device, f"{tmp}/{device}.pkl",
+                                 seed, fleet if device == "cuda" else None),
                 nprocs=2, join=False, start_method="spawn")
         deadline = time.monotonic() + 600
         try:
             for device, ctx in procs.items():
-                while not ctx.join(timeout=1.0):
+                while not ctx.join(timeout=0.1):
+                    if device == "cuda":
+                        watch.step()
                     if time.monotonic() > deadline:
                         fail(f"mesh_two_rank: the {device} ranks outlasted 600 s")
         except Exception as e:  # a rank's failure, with its traceback
             fail(f"mesh_two_rank: a rank failed: {e}")
         finally:
+            watch.resume()
             for ctx in procs.values():
                 for p in ctx.processes:
                     if p.is_alive():
@@ -3673,6 +3884,7 @@ def mesh_two_rank(seed):
         for device in procs:
             with open(f"{tmp}/{device}.pkl", "rb") as f:
                 runs[device] = pickle.load(f)
+        fleet_two_rank(fleet, watch, runs["cuda"]["fleet"], want, base.scores)
     errs = {}
     for d, e in TWO_RANK_MESHES:
         key = f"{d}x{e}"
@@ -3695,6 +3907,178 @@ def mesh_two_rank(seed):
             "wall_s", "fit_wall_s", "sweep_s", "collectives", "census")}
             for dev in runs} for d, e in TWO_RANK_MESHES},
         "max_abs_err": errs, "tolerance": 1e-9,
+    }))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class FleetWatch:
+    """The parent's side of ``fleet_two_rank``, stepped while the card's
+    ranks run: scrapes rank 0's ``/metrics`` and ``/healthz``; once both
+    ranks have fitted, requires rank 1 flagged a straggler, stops rank 1
+    (SIGSTOP) while rank 0 waits for it in a collective, requires
+    ``/healthz`` to call it stale within ``stale_after_s`` plus a heartbeat,
+    continues it (SIGCONT) and requires it back to ok, then lets it go on."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.base = f"http://127.0.0.1:{fleet['port']}"
+        self.state = "scrape"
+        self.scrapes = {"metrics": 0, "metrics_both": 0, "healthz": 0}
+        self.sums_checked = 0
+        self.pid = None
+        self.straggler_healthz = None
+        self.t_stop = self.stale_after = self.recovered_after = None
+        self.stale_doc = None
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=5) as resp:
+            return resp.read().decode()
+
+    def check_metrics(self, text):
+        from photon_tpu_torch.obs.http import parse_prometheus_text
+
+        fams = parse_prometheus_text(text)
+        self.scrapes["metrics"] += 1
+        proc = {n: f for n, f in fams.items() if n.startswith("photon_proc_")}
+        procs = {lbl.get("process") for f in proc.values() for _n, lbl, _v in f["samples"]}
+        if procs != {"0", "1"}:
+            return
+        self.scrapes["metrics_both"] += 1
+        # every per-process counter family has its aggregate (the process's
+        # own "fleet.*" counters also render as photon_fleet_*, so the
+        # pairs are found from the per-process side)
+        for name, per in proc.items():
+            if per["type"] != "counter":
+                continue
+            agg = fams.get(name.replace("photon_proc_", "photon_fleet_", 1))
+            if agg is None:
+                fail(f"fleet_two_rank: {name} on /metrics without its fleet family")
+            got = agg["samples"][0][2]
+            want = sum(v for _n, _l, v in per["samples"])
+            if got != want:
+                fail(f"fleet_two_rank: {name} fleet {got} != Σ per-process samples {want}")
+            self.sums_checked += 1
+
+    def healthz(self):
+        doc = json.loads(self.get("/healthz"))
+        self.scrapes["healthz"] += 1
+        return doc.get("fleet") or {}
+
+    def step(self):
+        import os
+        import signal
+        import urllib.error
+
+        root = self.fleet["root"]
+        try:
+            if self.state == "scrape":
+                self.check_metrics(self.get("/metrics"))
+                if os.path.exists(f"{root}/ready-0") and os.path.exists(f"{root}/ready-1"):
+                    fl = self.healthz()
+                    if 1 not in fl.get("stragglers", []):
+                        fail(f"fleet_two_rank: /healthz did not flag rank 1 a straggler: {fl}")
+                    self.straggler_healthz = {k: fl.get(k) for k in (
+                        "stragglers", "max_skew_ratio", "sweeps_joined", "stale_after_s")}
+                    with open(f"{root}/ready-1") as f:
+                        self.pid = int(f.read())
+                    os.kill(self.pid, signal.SIGSTOP)
+                    self.t_stop = time.perf_counter()
+                    self.state = "stopped"
+            elif self.state == "stopped":
+                fl = self.healthz()
+                if 1 in fl.get("stale", []) + fl.get("dead", []):
+                    self.stale_after = time.perf_counter() - self.t_stop
+                    self.stale_doc = fl.get("workers")
+                    limit = fl["stale_after_s"] + FLEET_HEARTBEAT_S + 1.0
+                    if self.stale_after > limit:
+                        fail(f"fleet_two_rank: rank 1 stale only after {self.stale_after:.2f} s "
+                             f"(limit {limit:.2f} s)")
+                    os.kill(self.pid, signal.SIGCONT)
+                    self.t_stop = time.perf_counter()
+                    self.state = "continued"
+                elif time.perf_counter() - self.t_stop > 30:
+                    fail("fleet_two_rank: rank 1 never went stale on /healthz while stopped")
+            elif self.state == "continued":
+                fl = self.healthz()
+                if 1 not in fl.get("stale", []) + fl.get("dead", []):
+                    self.recovered_after = time.perf_counter() - self.t_stop
+                    open(f"{root}/go-1", "w").close()
+                    self.state = "done"
+                elif time.perf_counter() - self.t_stop > 30:
+                    fail("fleet_two_rank: rank 1 stayed stale after SIGCONT")
+        except (urllib.error.URLError, ConnectionError, OSError, ValueError):
+            pass  # the endpoints are not up yet, or are shutting down
+
+    def resume(self):
+        """Never leave rank 1 stopped (a failure mid-watch)."""
+        import os
+        import signal
+
+        if self.pid is not None and self.state in ("stopped", "continued"):
+            try:
+                os.kill(self.pid, signal.SIGCONT)
+            except OSError:
+                pass
+
+
+def fleet_two_rank(fleet, watch, got, want, want_scores):
+    """Checks of ``fleet_two_rank`` after both card ranks exited 0: the
+    watch saw both processes' families with each fleet counter the sum of
+    its per-process samples, the straggler, the stop and the recovery; the
+    fleet report holds the per-sweep skew rows with rank 1 a straggler;
+    rank 0's ``breakdown.json`` the census bytes and a ``barrier_frac``
+    measured from rank 0's own tracker (its mean barrier wait over its mean
+    sweep wall, on the steady sweeps, as ``fleet.breakdown_from_prices``
+    takes them, to the file's rounding); the warmed meshed model within
+    1e-9 of the unmeshed fit."""
+    import numpy as np
+
+    if watch.state != "done" or not watch.sums_checked:
+        fail(f"fleet_two_rank: the watch ended in {watch.state!r}, scrapes {watch.scrapes}, "
+             f"{watch.sums_checked} fleet counters checked")
+    root = f"{fleet['root']}/obs"
+    with open(f"{root}/fleet_report.json") as f:
+        report = json.load(f)
+    skew = report["skew"]
+    if len(skew) < 2 or not any(s["process_index"] == 1 for s in report["stragglers"]):
+        fail(f"fleet_two_rank: fleet report skew rows {skew}, stragglers {report['stragglers']}")
+    with open(f"{root}/p0/breakdown.json") as f:
+        bd = json.load(f)["breakdown"]
+    rows = got["sweep_rows"]
+    steady = rows[1:] or rows
+    sweep_mean = sum(r["sweep_seconds"] for r in steady) / len(steady)
+    barrier_mean = sum(r["barrier_seconds"] for r in steady) / len(steady)
+    measured = {"sweep_seconds_mean": sweep_mean, "barrier_seconds_mean": barrier_mean,
+                "barrier_frac": barrier_mean / sweep_mean}
+    if (not barrier_mean > 0.0
+            or any(abs(bd[k] - v) > 1e-6 for k, v in measured.items())
+            or not bd["coordinates"]["fixed"]["comm_bytes"]):
+        fail(f"fleet_two_rank: breakdown {bd} vs rank 0's tracker {measured}")
+    err = max(float(np.abs(got["arrays"][k] - want[k]).max()) for k in want)
+    err = max(err, float(np.abs(got["scores"] - want_scores).max()))
+    if not err <= 1e-9:
+        fail(f"fleet_two_rank: the warmed 2x1 fit vs the unmeshed fit max_abs_err={err}")
+    log(json.dumps({
+        "phase": "fleet_two_rank", "scrapes": watch.scrapes,
+        "fleet_counters_equal_sum": watch.sums_checked,
+        "straggler_on_healthz": watch.straggler_healthz, "stale_after_stop_s": watch.stale_after,
+        "ok_after_continue_s": watch.recovered_after,
+        "skew": [{k: r[k] for k in ("iteration", "warmup", "start_skew_s", "skew_ratio",
+                                    "stragglers")} for r in skew],
+        "max_skew_ratio": report["max_skew_ratio"],
+        "breakdown": {k: bd[k] for k in ("sweep_seconds_mean", "barrier_seconds_mean",
+                                         "barrier_frac", "compute_frac", "comm_frac")}
+        | {"coordinates": bd["coordinates"]},
+        "sweep_s": got["sweep_s"], "vs_unmeshed_max_abs_err": err,
     }))
 
 
@@ -4148,26 +4532,46 @@ TRACE_OVERHEAD_P99_FRAC_MAX = 1.0  # bench.py QUALITY_BANDS game_scoring_tail
 TRACE_SCRAPE_PATHS = ("/metrics", "/healthz", "/slo", "/trace")
 
 
+#: ``Scraper``'s process: GETs the live endpoints at 127.0.0.1:argv[2] in
+#: turns every argv[3] seconds, checking each body as it comes, until the
+#: file ``argv[1] + ".stop"`` appears; then its walls, failures and counter
+#: names to the JSON report at argv[1]
+SCRAPER_DRIVER = """
+import json, os, sys
+import chip_smoke as smoke
+from photon_tpu_torch.obs import causal, http  # loaded before the first scrape
+scraper = smoke.Scraper(int(sys.argv[2]), float(sys.argv[3]))
+open(sys.argv[1] + ".ready", "w").close()
+scraper.scrape(lambda: os.path.exists(sys.argv[1] + ".stop"))
+with open(sys.argv[1], "w") as f:
+    json.dump({"walls": scraper.walls, "failures": scraper.failures,
+               "counters": sorted(scraper.counters)}, f)
+"""
+
+
 class Scraper:
-    """A thread that GETs the live endpoints in turn every ``interval_s``
-    while traffic runs: it parses ``/metrics`` with the port's
-    ``parse_prometheus_text`` (and holds every counter, and every summary's
-    ``_count`` and ``_sum``, never to decrease), loads the JSON documents
-    and holds every ``/trace`` to ``validate_chrome_trace``. ``stop()``
-    joins it and returns the failures it saw."""
+    """The live endpoints scraped from a process of its own, as a real
+    scraper does: ``start()`` runs SCRAPER_DRIVER, which GETs them in turns
+    every ``interval_s`` while traffic runs and checks each body as it
+    comes; it parses ``/metrics`` with the port's ``parse_prometheus_text``
+    (and holds every counter, and every summary's ``_count`` and ``_sum``,
+    never to decrease), loads the JSON documents and holds every ``/trace``
+    to ``validate_chrome_trace``. ``stop()`` ends it and returns the
+    failures it saw, its walls and counters kept here. The scraper's own
+    parsing (a ``/trace`` document grows with the leg) never holds the
+    interpreter of the serving process it measures; the server's rendering
+    of each scrape does, as under any scraper. ``get`` fetches and checks
+    in this process."""
 
     def __init__(self, port, interval_s=0.2):
-        import threading
-
+        self.port = port
         self.base = f"http://127.0.0.1:{port}"
         self.interval_s = interval_s
         self.walls = {p: [] for p in TRACE_SCRAPE_PATHS}
         self.failures: list[str] = []
         self.last: dict = {}
         self.counters: dict = {}
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, name="chip-smoke-scraper",
-                                        daemon=True)
+        self._proc = None
 
     def get(self, path):
         import urllib.request
@@ -4198,24 +4602,43 @@ class Scraper:
         self.last[path] = doc
         return doc
 
-    def _run(self):
+    def scrape(self, stopped):
+        """The scraping loop (in SCRAPER_DRIVER's process) until ``stopped()``."""
         i = 0
-        while not self._stop.is_set():
+        while not stopped():
             path = TRACE_SCRAPE_PATHS[i % len(TRACE_SCRAPE_PATHS)]
             try:
                 self.get(path)
             except Exception as e:  # noqa: BLE001 - a failed scrape is a finding
                 self.failures.append(f"{path}: {type(e).__name__}: {e}")
             i += 1
-            self._stop.wait(self.interval_s)
+            time.sleep(self.interval_s)
 
     def start(self):
-        self._thread.start()
+        import os
+        import tempfile
+
+        self._dir = tempfile.mkdtemp(prefix="chip-smoke-scraper-")
+        self._report, self._log = f"{self._dir}/scraper.json", f"{self._dir}/scraper.log"
+        self._proc = start_driver(SCRAPER_DRIVER, self._report,
+                                  [str(self.port), str(self.interval_s)], self._log)
+        wait_for(lambda: os.path.exists(self._report + ".ready"), "serve_trace: the scraper",
+                 timeout=120, alive=lambda: self._proc.poll() is None)
         return self
 
     def stop(self):
-        self._stop.set()
-        self._thread.join(timeout=30)
+        import shutil
+
+        if self._proc is None:
+            return self.failures
+        proc, self._proc = self._proc, None
+        open(self._report + ".stop", "w").close()
+        report = finish_driver("serve_trace", proc, self._report, self._log, timeout=120)
+        shutil.rmtree(self._dir, ignore_errors=True)
+        for path, walls in report["walls"].items():
+            self.walls[path].extend(walls)
+        self.failures.extend(report["failures"])
+        self.counters.update(dict.fromkeys(report["counters"]))
         return self.failures
 
 
@@ -4229,7 +4652,7 @@ def serve_trace(seed, registry, requests, models):
     - ``disarmed``: no trace plane, no fault;
     - ``armed``: ``causal.install(sample_n=1)`` and a ``TelemetryServer``
       on 127.0.0.1:0 scraped every 0.2 s in turns (``/metrics``,
-      ``/healthz``, ``/slo``, ``/trace``), no fault. This pair measures
+      ``/healthz``, ``/slo``, ``/trace``) by ``Scraper``'s process, no fault. This pair measures
       what tracing costs: the armed p99 must lie within
       TRACE_OVERHEAD_P99_FRAC_MAX of the disarmed p99;
     - ``faulted``: armed and scraped as above, with the fault plan
@@ -4416,28 +4839,29 @@ def cli_serving(ctx):
     scoring driver for the same uids (float32 on both sides), no one-time
     cost in the traffic window, ``serve-summary.json`` with the JAX
     driver's keys, and ``obs/`` with the trace, metrics, manifest and
-    series. Returns the requests and the pre-swap results for
-    ``cli_serving_kill``."""
+    series. The swap target's fingerprint is computed by a subprocess
+    during the first half, and ``cli_serving_kill`` runs beside the whole
+    phase and is checked against its pre-swap answers at its end (both
+    compare answers, never walls)."""
     import os
     import threading
 
     import numpy as np
 
     from photon_tpu_torch.cli import game_serving
-    from photon_tpu_torch.cli.parsing import parse_feature_shard_config
-    from photon_tpu_torch.io.model_io import load_game_model, read_model_feature_keys
-    from photon_tpu_torch.serve import model_fingerprint, spool
+    from photon_tpu_torch.serve import spool
 
     root, spool_dir = f"{ctx['tmp']}/serving", f"{ctx['tmp']}/serving-spool"
     best, other = f"{ctx['tmp']}/training/best", f"{ctx['tmp']}/training/models/0"
     t0 = time.perf_counter()
     requests = cli_serve_requests(ctx)
     read_s = time.perf_counter() - t0
-    shards = dict(parse_feature_shard_config(CLI_SHARDS[i]) for i in (1, 3, 5))
-    t0 = time.perf_counter()
-    fp_other = model_fingerprint(load_game_model(other, read_model_feature_keys(other, shards)))
-    fingerprint_s = time.perf_counter() - t0
     half = CLI_SERVE_REQUESTS // 2
+    # the swap target's fingerprint and the kill leg, both answer-only,
+    # run in subprocesses beside this phase's driver
+    fp_proc = start_driver(FINGERPRINT_DRIVER, f"{ctx['tmp']}/fingerprint.json",
+                           [other, *CLI_SHARDS], f"{ctx['tmp']}/fingerprint.log")
+    kill_leg = cli_serving_kill_start(ctx, requests[:half])
 
     def write(seqs):
         for s in seqs:
@@ -4466,6 +4890,9 @@ def cli_serving(ctx):
 
     wait_for(lambda: answered(range(1, half + 1)), "cli_serving: the first half", alive=alive)
     first_half_s = time.perf_counter() - t0
+    fp = finish_driver("cli_serving", fp_proc, f"{ctx['tmp']}/fingerprint.json",
+                       f"{ctx['tmp']}/fingerprint.log")
+    fp_other, fingerprint_s = fp["fingerprint"], fp["wall_s"]
     outcomes = []
     for fp in ("0" * 64, fp_other):
         done = f"{spool_dir}/swap-default.done.json"
@@ -4510,8 +4937,10 @@ def cli_serving(ctx):
         os.listdir(f"{root}/obs"))
     if missing:
         fail(f"cli_serving: obs/ lacks {sorted(missing)}")
+    cli_serving_kill_check(ctx, kill_leg, results[:half])
     log(json.dumps({
         "phase": "cli_serving", "requests": CLI_SERVE_REQUESTS, "rows_per_request": CLI_SERVE_ROWS,
+        "concurrent_with": ["cli_serving_kill", "the swap target's fingerprint"],
         "batch_rows": CLI_SERVE_BATCH, "read_requests_s": read_s,
         "fingerprint_load_s": fingerprint_s, "first_half_s": first_half_s,
         "second_half_s": second_half_s, "swaps": outcomes,
@@ -4519,30 +4948,78 @@ def cli_serving(ctx):
             k: summary[k] for k in ("answered", "batches", "shed", "compiles", "e2e", "stages",
                                     "last_swap", "registry", "swap_build_compiles")},
     }))
-    return requests, results[:half]
 
 
-def cli_serving_kill(ctx, requests, reference):
-    """The crash leg of ``scripts/serve_chaos.py``: the port's driver as a
-    subprocess on the card serving ``best/``, requests written one by one;
-    SIGKILL once CLI_SERVE_KILL_AFTER are answered; the rest written to
-    the spool while it is dead; relaunched with ``--resume`` into the same
-    root.
-    Checks: every request has exactly one result file, each score equals
-    ``cli_serving``'s uninterrupted answer bit for bit, and the relaunch
-    recovered a blackbox from the dead process's flight ring."""
-    import glob
-    import os
-    import signal
-    import subprocess
-    import sys
+#: the fingerprint of a saved model (loaded in a subprocess), as JSON at argv[1]
+FINGERPRINT_DRIVER = r"""
+import json, sys, time
+from photon_tpu_torch.cli.parsing import parse_feature_shard_config
+from photon_tpu_torch.io.model_io import load_game_model, read_model_feature_keys
+from photon_tpu_torch.serve import model_fingerprint
+t0 = time.perf_counter()
+path, shards = sys.argv[2], sys.argv[3:]
+shards = dict(parse_feature_shard_config(shards[i]) for i in range(1, len(shards), 2))
+fp = model_fingerprint(load_game_model(path, read_model_feature_keys(path, shards)))
+with open(sys.argv[1], "w") as f:
+    json.dump({"fingerprint": fp, "wall_s": time.perf_counter() - t0}, f)
+"""
 
+
+def cli_serving_kill_start(ctx, requests):
+    """Start ``cli_serving_kill``'s leg on a thread of its own; returns
+    what ``cli_serving_kill_check`` joins."""
+    import threading
+
+    state = {"errors": []}
+
+    def leg():
+        try:
+            state.update(cli_serving_kill(ctx, requests))
+        except BaseException as e:  # SystemExit from fail() too: reported by the checker
+            state["errors"].append(e)
+
+    thread = threading.Thread(target=leg, name="cli-serving-kill", daemon=True)
+    thread.start()
+    return thread, state
+
+
+def cli_serving_kill_check(ctx, started, reference):
+    """Join the kill leg; each answer must equal ``cli_serving``'s
+    uninterrupted answer bit for bit."""
     import numpy as np
 
     from photon_tpu_torch.serve import spool
 
+    thread, state = started
+    thread.join(900)
+    if thread.is_alive() or state["errors"]:
+        fail(f"cli_serving_kill: the leg did not finish: {state['errors']!r}")
+    spool_dir = state.pop("spool_dir")
+    for s in range(1, len(reference) + 1):
+        got = spool.read_result(spool.result_path(spool_dir, s))
+        if "scores" not in got or not np.array_equal(got["scores"], reference[s - 1]["scores"]):
+            fail(f"cli_serving_kill: request {s} differs from the uninterrupted run")
+    log(json.dumps({"phase": "cli_serving_kill", **state, "concurrent_with": "cli_serving",
+                    "bit_equal_to_uninterrupted": True}))
+
+
+def cli_serving_kill(ctx, requests):
+    """The crash leg of ``scripts/serve_chaos.py``: the port's driver as a
+    subprocess on the card serving ``best/``, requests written one by one;
+    SIGKILL once CLI_SERVE_KILL_AFTER are answered; the rest written to
+    the spool while it is dead; relaunched with ``--resume`` into the same
+    root. Checks here: every request has exactly one result file and the
+    relaunch recovered a blackbox from the dead process's flight ring;
+    ``cli_serving_kill_check`` holds each score to ``cli_serving``'s
+    uninterrupted answer bit for bit."""
+    import glob
+    import os
+    import signal
+
+    from photon_tpu_torch.serve import spool
+
     root, spool_dir = f"{ctx['tmp']}/serving-kill", f"{ctx['tmp']}/serving-kill-spool"
-    n = len(reference)
+    n = len(requests)
     os.makedirs(spool_dir)
     env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
     env["PHOTON_OBS_FLUSH_S"] = "1"
@@ -4606,10 +5083,6 @@ def cli_serving_kill(ctx, requests, reference):
     names = sorted(os.path.basename(p) for p in glob.glob(f"{spool_dir}/res-*.npz"))
     if names != [f"res-{s:06d}.npz" for s in range(1, n + 1)]:
         fail(f"cli_serving_kill: result files {names}")
-    for s in range(1, n + 1):
-        got = spool.read_result(spool.result_path(spool_dir, s))
-        if "scores" not in got or not np.array_equal(got["scores"], reference[s - 1]["scores"]):
-            fail(f"cli_serving_kill: request {s} differs from the uninterrupted run")
     dumps = []
     for path in glob.glob(f"{root}/obs/blackbox-*.json"):
         with open(path) as f:
@@ -4620,11 +5093,9 @@ def cli_serving_kill(ctx, requests, reference):
                           "last_record": (doc["records"] or [{}])[-1].get("k")})
     if not dumps:
         fail("cli_serving_kill: the relaunch recovered no blackbox from the dead ring")
-    log(json.dumps({
-        "phase": "cli_serving_kill", "requests": n, "answered_before_kill": before_kill,
-        "written_before_kill": written, "first_run_s": first_s, "resume_run_s": resume_s,
-        "blackboxes": dumps, "bit_equal_to_uninterrupted": True,
-    }))
+    return {"requests": n, "answered_before_kill": before_kill, "written_before_kill": written,
+            "first_run_s": first_s, "resume_run_s": resume_s, "blackboxes": dumps,
+            "spool_dir": spool_dir}
 
 
 # -- out-of-core streaming training (game/streaming.py) -----------------------
@@ -4959,13 +5430,53 @@ def overlap_us(spans, cover):
     return total
 
 
-def daily_retrain(seed, profile=False):
+#: ``daily_retrain``'s second cold streaming fit of day 0 in a subprocess:
+#: its per-user model pickled beside the JSON report at argv[1]
+DR_AGAIN_DRIVER = r"""
+import json, pickle, sys, time
+import chip_smoke as smoke
+day0, _ = smoke.daily_retrain_days(int(sys.argv[2]), smoke.DR_N, smoke.DR_USERS)
+est = smoke.daily_retrain_estimator(device="cuda")
+t0 = time.perf_counter()
+res = est.fit(day0, stream=smoke.DR_CHUNK)[0]
+wall = time.perf_counter() - t0
+with open(sys.argv[1] + ".model", "wb") as f:
+    pickle.dump(res.model["per-user"], f)
+with open(sys.argv[1], "w") as f:
+    json.dump({"wall_s": wall}, f)
+"""
+
+
+def daily_retrain_again_start(seed, tmp):
+    """Start ``daily_retrain``'s second cold fit, which only compares an
+    answer (the two cold fits equal bit for bit), in a subprocess beside
+    answer-only phases."""
+    report, log_path = f"{tmp}/daily-again.json", f"{tmp}/daily-again.log"
+    return start_driver(DR_AGAIN_DRIVER, report, [str(seed)], log_path), report, log_path
+
+
+def daily_retrain_again_finish(started):
+    """Wait for ``daily_retrain_again_start``'s fit: ``{"wall_s": its fit
+    wall, "join_wait_s": how long this call waited, "model": its per-user
+    model}``."""
+    import pickle
+
+    t0 = time.perf_counter()
+    again = finish_driver("daily_retrain", *started)
+    again["join_wait_s"] = time.perf_counter() - t0
+    with open(started[1] + ".model", "rb") as f:
+        again["model"] = pickle.load(f)  # written by the subprocess
+    return again
+
+
+def daily_retrain(seed, again, profile=False):
     """bench glmix_daily_retrain at full scale on the card (module
     docstring, phase 11): the cold streaming fit with a model snapshot,
-    the warm delta day from it, a second cold streaming fit, the
-    materialized fit of day 0, the replay of the cold fit's multi-chunk
-    buckets and its initial score and first sweep again, unprofiled and
-    profiled."""
+    the warm delta day from it, the materialized fit of day 0, the replay
+    of the cold fit's multi-chunk buckets and its initial score and first
+    sweep again, unprofiled and profiled; the cold fit is held bit for bit
+    to ``again``, a second cold fit of day 0 in a subprocess
+    (``daily_retrain_again_finish``)."""
     import tempfile
 
     import numpy as np
@@ -4995,9 +5506,8 @@ def daily_retrain(seed, profile=False):
     est1, warm, warm_wall, warm_peak = streamed(day1, warm_start=ckpt,
                                                 model_checkpoint_dir=ckpt)
     st1 = stream_checks("daily_retrain_warm", est1, warm)
-    _, again, again_wall, _ = streamed(day0)
-    m0, m_again = cold.model["per-user"], again.model["per-user"]
-    for a, b in zip(m0.buckets, m_again.buckets, strict=True):
+    m0 = cold.model["per-user"]
+    for a, b in zip(m0.buckets, again["model"].buckets, strict=True):
         if not np.array_equal(a.coefficients, b.coefficients):
             fail("daily_retrain: two streaming fits of day 0 differ")
 
@@ -5056,7 +5566,8 @@ def daily_retrain(seed, profile=False):
         "phase": "daily_retrain", "n": DR_N, "users": DR_USERS, "d_re": DR_D,
         "chunk_rows": DR_CHUNK, "sweeps": DR_SWEEPS, "lbfgs_iterations": DR_ITERS,
         "delta_rows": day1.num_samples, "touched_users": len(touched), "data_gen_s": gen_s,
-        "cold_fit_wall_s": cold_wall, "cold_again_wall_s": again_wall,
+        "cold_fit_wall_s": cold_wall, "cold_again_wall_s": again["wall_s"],
+        "cold_again_join_wait_s": again["join_wait_s"],
         "warm_fit_wall_s": warm_wall, "materialized_fit_wall_s": mat_wall,
         "cold_sweep_s": [r["sweep_seconds"] for r in cold.tracker if "sweep_seconds" in r],
         "warm_sweep_s": [r["sweep_seconds"] for r in warm.tracker if "sweep_seconds" in r],
@@ -5433,7 +5944,7 @@ def cli_game_live(ctx):
 #: (when ``--precompile`` asks for it) spied on: the kernel's launches
 #: inside it and the coordinates it warmed
 PRECOMPILE_DRIVER = r"""
-import json, sys
+import json, pickle, sys
 from photon_tpu_torch.cli import game_training
 from photon_tpu_torch.game import estimator
 from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
@@ -5451,6 +5962,8 @@ estimator.precompile_coordinates = spied
 res = game_training.run(sys.argv[2:], device="cuda")
 coords = seen.get("coordinates", {}).values()
 stats = res["fit_stats"]
+with open(sys.argv[1] + ".model", "wb") as f:
+    pickle.dump(res["results"][res["best"]].model, f)
 with open(sys.argv[1], "w") as f:
     json.dump({
         "precompile": stats["precompile"],
@@ -5467,9 +5980,11 @@ with open(sys.argv[1], "w") as f:
 def cli_game_precompile(ctx, live):
     """The training driver with and without ``--precompile``: two fresh
     subprocesses on the card with ``cli_game``'s parts and command line cut
-    to grid 0 (``grid0_args``), ``--output-mode BEST``, first without the
+    to grid 0 (``grid0_args``), ``--output-mode NONE``, first without the
     warm-up, then with it; no scrapes in either. Both must exit 0 with
-    their best model bit for bit ``cli_game``'s grid-0 model. The unwarmed run must count its one-time costs in its
+    their best model (handed back pickled: ``cli_game`` already holds a
+    saved model to the trained one) bit for bit ``cli_game``'s grid-0
+    model. The unwarmed run must count its one-time costs in its
     first sweep's ``compiles`` and none after; the warmed run must read 0
     in every sweep row of every grid point, report as many warmed
     programs (``fit.precompile``'s ``n_programs``) as program keys the fit
@@ -5479,39 +5994,27 @@ def cli_game_precompile(ctx, live):
     are printed, not gated: the warm-up wall, sweep 0's wall and the fit
     wall of each run, and ``cli_game_live``'s (the unwarmed command line
     again, with scrapes)."""
-    import os
-    import subprocess
-    import sys
-
-    from photon_tpu_torch.io.model_io import load_game_model
-
-    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    import pickle
 
     def drive(name, *flags):
-        out = f"{ctx['tmp']}/{name}"
         report_path = f"{ctx['tmp']}/{name}.json"
-        log_path = f"{ctx['tmp']}/{name}.log"
         t0 = time.perf_counter()
-        with open(log_path, "w") as log_f:
-            rc = subprocess.run(
-                [sys.executable, "-c", PRECOMPILE_DRIVER, report_path,
-                 *grid0_args(ctx, name, "--output-mode", "BEST", *flags)],
-                env=env, stdout=log_f, stderr=subprocess.STDOUT, timeout=900).returncode
+        proc = start_driver(PRECOMPILE_DRIVER, report_path,
+                            grid0_args(ctx, name, "--output-mode", "NONE", *flags),
+                            f"{ctx['tmp']}/{name}.log")
+        got = finish_driver(f"cli_game_precompile[{name}]", proc, report_path,
+                            f"{ctx['tmp']}/{name}.log")
         wall = time.perf_counter() - t0
-        if rc != 0:
-            with open(log_path) as f:
-                tail = f.read()[-3000:]
-            fail(f"cli_game_precompile[{name}]: the training driver exited {rc}: {tail}")
-        with open(report_path) as f:
-            got = json.load(f)
-        loaded = load_game_model(f"{out}/best", ctx["res"]["index_maps"])
-        differs = model_mismatch(ctx["res"]["results"][0].model, loaded)
+        with open(report_path + ".model", "rb") as f:
+            best = pickle.load(f)  # written by the subprocess above
+        differs = model_mismatch(ctx["res"]["results"][0].model, best)
         if differs:
-            fail(f"cli_game_precompile[{name}]: {differs} of the saved best model differs "
+            fail(f"cli_game_precompile[{name}]: {differs} of the best model differs "
                  f"from cli_game's grid-0 model")
         compiles = [[s["compiles"] for s in grid] for grid in got["sweeps"]]
         return got, compiles, {
             "driver_wall_s": wall, "fit_wall_s": got["fit_wall_s"],
+            "fit_launches": got["fit_launches"],
             "sweep0_s": got["sweeps"][0][0]["sweep_seconds"],
             "sweep_s": [[s["sweep_seconds"] for s in grid] for grid in got["sweeps"]],
             "compiles": compiles, "best_model_bit_equal": True,
@@ -5540,7 +6043,7 @@ def cli_game_precompile(ctx, live):
         "sweep0_warmed_over_unwarmed": warm["sweep0_s"] / cold["sweep0_s"],
         "unwarmed_scraped_run": live,
     }))
-    return got["fit_launches"]
+    return got["fit_launches"], cold["fit_launches"]
 
 
 MESH_DRIVER = r"""
@@ -5551,11 +6054,14 @@ from photon_tpu_torch.game import coordinate, estimator
 from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 from photon_tpu_torch.util import EventEmitter
 
-seen = {"sweep_collectives": [], "in_steps": 0}
+from photon_tpu_torch.analysis import spmd
+
+seen = {"sweep_collectives": [], "in_steps": 0, "sweep_bytes": [], "mesh": None}
 step = coordinate.Coordinate.sweep_step
 
 def counted_step(self, *a, **kw):
     n0 = sum(self.mesh.collectives.values())
+    seen["mesh"] = self.mesh
     out = step(self, *a, **kw)
     seen["in_steps"] += sum(self.mesh.collectives.values()) - n0
     return out
@@ -5563,16 +6069,26 @@ def counted_step(self, *a, **kw):
 fit = estimator.GameEstimator.fit
 
 def spied_fit(self, data, **kw):
+    self.keep_coordinates = True
     res = fit(self, data, **kw)
     seen["fingerprint"] = self._fingerprint(data)
     seen["backend"] = torch.distributed.get_backend()
     seen["collectives"] = self.mesh.collectives
+    seen["census"] = spmd.communication_census(self.mesh.census)
+    seen["findings"] = [f.render() for f in spmd.check_contracts(
+        self.last_coordinates, self.mesh.census)]
     return res
 
 def on_event(event):
     if event.name == "sweep_complete":
         seen["sweep_collectives"].append(seen["in_steps"])
         seen["in_steps"] = 0
+        # bytes moved per collective kind in this sweep (the census's delta)
+        total = spmd.census_by_op(seen["mesh"].census) if seen["mesh"] is not None else {}
+        last = seen.setdefault("last_total", {})
+        seen["sweep_bytes"].append({op: row["bytes"] - last.get(op, {}).get("bytes", 0)
+                                    for op, row in total.items()})
+        seen["last_total"] = total
 
 coordinate.Coordinate.sweep_step = counted_step
 estimator.GameEstimator.fit = spied_fit
@@ -5587,65 +6103,86 @@ with open(sys.argv[1], "w") as f:
         "mesh": stats["mesh"], "fingerprint": seen["fingerprint"], "backend": seen["backend"],
         "fit_launches": windowed_rmatvec.launches, "fit_wall_s": stats["wall_s"],
         "walls": res["walls"], "collectives": seen["collectives"],
-        "sweep_collectives": seen["sweep_collectives"],
+        "sweep_collectives": seen["sweep_collectives"], "sweep_bytes": seen["sweep_bytes"],
+        "census": seen["census"], "contract_findings": seen["findings"],
         "sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
                     for r in res["results"]],
     }, f)
 """
 
 
-def cli_game_mesh(ctx, seed):
+def cli_game_mesh_start(ctx):
+    """Launch ``cli_game_mesh``'s driver subprocess (it runs beside
+    ``cli_game_live``'s: both compare answers, not walls)."""
+    proc = start_driver(MESH_DRIVER, f"{ctx['tmp']}/mesh.json",
+                        grid0_args(ctx, "mesh", "--output-mode", "NONE", "--mesh", "1x1"),
+                        f"{ctx['tmp']}/mesh.log")
+    return proc, time.perf_counter()
+
+
+def cli_game_mesh_wait(ctx, started):
+    """Wait for ``cli_game_mesh``'s driver; its report and wall."""
+    proc, t0 = started
+    got = finish_driver("cli_game_mesh", proc, f"{ctx['tmp']}/mesh.json",
+                        f"{ctx['tmp']}/mesh.log")
+    return got, time.perf_counter() - t0
+
+
+def cli_game_mesh(ctx, seed, finished, want_launches):
     """The training driver with ``--mesh 1x1`` (NCCL over a world of one:
     rows, window instances and entities all on the one rank) as a fresh
-    subprocess on ``cli_game``'s parts and command line, ``--output-mode
-    NONE``: its best model (handed back pickled: ``cli_game`` already holds
-    a saved model to the trained one) must equal ``cli_game``'s bit for
-    bit, the kernel must launch as many times as in ``cli_game`` (every
-    fixed-effect gradient), and its checkpoint fingerprint must carry the
-    topology ``(("data", "entity"), (1, 1))``. Prints the collectives in
-    each sweep's coordinate steps and the walls beside ``cli_game``'s. Then
-    ``mesh_sync_sweep``. Returns the kernel's launches."""
-    import os
+    subprocess on ``cli_game``'s parts and command line cut to grid 0
+    (``grid0_args``), ``--output-mode NONE``, started by
+    ``cli_game_mesh_start``: its best model (handed back pickled:
+    ``cli_game`` already holds a saved model to the trained one) must equal
+    ``cli_game``'s grid-0 model bit for bit, the kernel must launch as many
+    times as in the same command line unmeshed (``want_launches``, the
+    unwarmed run of ``cli_game_precompile``: every fixed-effect gradient),
+    its checkpoint fingerprint must carry the topology
+    ``(("data", "entity"), (1, 1))``, and its collective census must pass
+    every coordinate's ``spmd_contract()`` (the fixed effect's d-vector
+    all-reduces and its two named [N] gathers, the random effects'
+    collective-free solves and their score folds). Prints the collectives
+    and the bytes per collective kind in each sweep, the census, and the
+    walls beside ``cli_game``'s. Then ``mesh_sync_sweep``. Returns the
+    kernel's launches."""
     import pickle
-    import subprocess
-    import sys
 
-    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    got, wall = finished
     report_path = f"{ctx['tmp']}/mesh.json"
-    log_path = f"{ctx['tmp']}/mesh.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log_f:
-        rc = subprocess.run(
-            [sys.executable, "-c", MESH_DRIVER, report_path,
-             *cli_args(ctx, "mesh", "--output-mode", "NONE", "--mesh", "1x1")],
-            env=env, stdout=log_f, stderr=subprocess.STDOUT, timeout=900).returncode
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        with open(log_path) as f:
-            tail = f.read()[-3000:]
-        fail(f"cli_game_mesh: the training driver exited {rc}: {tail}")
-    with open(report_path) as f:
-        got = json.load(f)
+    if got["contract_findings"]:
+        fail(f"cli_game_mesh: the census breaks the SPMD contracts: {got['contract_findings']}")
+    if not any(r["coordinate"] == "fixed" and r["kind"] == "train" for r in got["census"]):
+        fail(f"cli_game_mesh: the fixed effect's solve made no counted collective: "
+             f"{got['census']}")
+    if any(r["kind"] == "train" and r["coordinate"] in ("user", "item") for r in got["census"]):
+        fail("cli_game_mesh: a random effect's solve made a collective")
     with open(report_path + ".model", "rb") as f:
         best = pickle.load(f)  # written by the subprocess above
-    differs = model_mismatch(ctx["res"]["results"][ctx["res"]["best"]].model, best)
+    differs = model_mismatch(ctx["res"]["results"][0].model, best)
     if differs:
-        fail(f"cli_game_mesh: {differs} of the meshed best model differs from cli_game's")
-    if got["fit_launches"] != ctx["launches"]:
-        fail(f"cli_game_mesh: {got['fit_launches']} kernel launches, cli_game "
-             f"{ctx['launches']}")
+        fail(f"cli_game_mesh: {differs} of the meshed best model differs from cli_game's "
+             "grid-0 model")
+    if got["fit_launches"] != want_launches:
+        fail(f"cli_game_mesh: {got['fit_launches']} kernel launches, the unmeshed grid-0 run "
+             f"{want_launches}")
     topology = [["data", "entity"], [1, 1]]
     if got["mesh"] != topology or "(('data', 'entity'), (1, 1))" not in got["fingerprint"]:
         fail(f"cli_game_mesh: mesh {got['mesh']}, fingerprint {got['fingerprint']!r}")
     base = ctx["res"]
     log(json.dumps({
         "phase": "cli_game_mesh", "mesh": "1x1", "backend": got["backend"], "driver_wall_s": wall,
-        "fit_wall_s": got["fit_wall_s"], "cli_game_fit_wall_s": base["fit_stats"]["wall_s"],
+        "fit_wall_s": got["fit_wall_s"], "grid": 0,
         "read_s": got["walls"]["read training data"], "cli_game_read_s": ctx["read_s"],
         "sweep_s": got["sweep_s"],
-        "cli_game_sweep_s": [[t["sweep_seconds"] for t in r.tracker if "sweep_seconds" in t]
-                             for r in base["results"]],
+        "cli_game_sweep_s": [t["sweep_seconds"] for t in base["results"][0].tracker
+                             if "sweep_seconds" in t],
         "collectives_per_sweep": got["sweep_collectives"], "collectives": got["collectives"],
+        "bytes_per_sweep_by_kind": got["sweep_bytes"],
+        "census": [{k: r[k] for k in ("program", "calls", "bytes", "comm_bytes")}
+                   | {"sites": [(x["op"], x["site"], x["nbytes"]) for x in r["collective_sites"]]}
+                   for r in got["census"]],
+        "contracts_pass": True, "concurrent_with": "cli_game_live",
         "kernel_launches": got["fit_launches"], "best_model_bit_equal": True,
         "fingerprint_topology": topology,
     }))
@@ -5794,8 +6331,173 @@ def cli_game_stream(seed, tmp, train_dir=None):
                     "saved_equals_direct": True}))
 
 
-def streaming_phases(seed, profile=False) -> None:
-    daily_retrain(seed, profile)
+#: the training driver in a subprocess: the part files its reads kept
+#: (``ResolvedReader.paths``), the rows it fitted, and its best model as
+#: trained and as saved (loaded back) pickled beside the JSON report
+INGEST_DRIVER = r"""
+import json, pickle, sys
+from photon_tpu_torch.cli import game_base, game_training
+from photon_tpu_torch.io.model_io import load_game_model
+seen = {"paths": [], "modes": []}
+resolve = game_base.resolve_reader
+
+def spied(paths, *a, **kw):
+    r = resolve(paths, *a, **kw)
+    seen["paths"].append(list(r.paths))
+    seen["modes"].append([r.mode, r.state, r.cache_dir])
+    return r
+
+game_base.resolve_reader = spied
+res = game_training.run(sys.argv[2:], device="cuda")
+best = res["results"][res["best"]]
+saved = load_game_model(res["output"] + "/best", res["index_maps"])
+with open(sys.argv[1] + ".model", "wb") as f:
+    pickle.dump({"trained": best.model, "saved": saved}, f)
+with open(sys.argv[1], "w") as f:
+    json.dump({"paths": seen["paths"], "modes": seen["modes"],
+               "rows": int(best.scores.shape[0]), "fit_wall_s": res["fit_stats"]["wall_s"],
+               "stream": "stream" in res["fit_stats"], "walls": res["walls"],
+               "output": res["output"]}, f)
+"""
+
+
+def ingest_argv(train_dir, out, *extra):
+    """``cli_game_stream``'s command line (the two random effects, one
+    sweep, 8,192-row chunks) on ``train_dir``."""
+    return [
+        "--input-data-directories", train_dir, "--root-output-directory", out,
+        "--training-task", "LOGISTIC_REGRESSION", *CLI_SHARDS, *INGEST_COORDS,
+        "--coordinate-update-sequence", "user,item", "--coordinate-descent-iterations", "1",
+        "--model-sparsity-threshold", "0", "--output-mode", "BEST",
+        "--stream-chunk-rows", str(DR_CHUNK), *extra,
+    ]
+
+
+INGEST_COORDS = [
+    "--coordinate-configurations",
+    f"name=user,random.effect.type=userId,feature.shard=per_user,max.iter=5,"
+    f"regularization=L2,reg.weights=1,active.data.upper.bound={USER_UB}",
+    "--coordinate-configurations",
+    f"name=item,random.effect.type=itemId,feature.shard=per_item,max.iter=5,"
+    f"regularization=L2,reg.weights=1,active.data.upper.bound={ITEM_UB}",
+]
+
+
+def ingest_two_rank(ctx):
+    """Per-process ingest shards on ``cli_game``'s 4 Avro parts: two
+    training-driver subprocesses at once with ``PHOTON_INGEST_SHARD=0/2``
+    and ``1/2``, streaming (``cli_game_stream``'s command line). Checks:
+    the two read disjoint part files (round-robin) whose rows add up to
+    ``cli_game``'s; each shard's saved model equals, bit for bit, a direct
+    ``fit(stream=8192)`` here on the same two parts; ``cache_tool build``
+    run once per shard (two subprocesses) makes two distinct cache
+    directories, and each shard's driver with ``--feature-cache require``
+    replays its own and gives the Avro run's model bit for bit. The
+    subprocesses compare answers only, so the four driver runs go at once,
+    beside the direct fits."""
+    import os
+    import pickle
+
+    from photon_tpu_torch.cache import list_source_files
+    from photon_tpu_torch.cli import game_base, game_training
+    from photon_tpu_torch.cli.parsing import parse_coordinate_config
+    from photon_tpu_torch.game import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    tmp = ctx["tmp"]
+    t0 = time.perf_counter()
+
+    def launch(k, name, *extra):
+        out = f"{tmp}/ingest-{name}-{k}"
+        return start_driver(INGEST_DRIVER, f"{out}.json", ingest_argv(ctx["train"], out, *extra),
+                            f"{out}.log", env={"PHOTON_INGEST_SHARD": f"{k}/2"})
+
+    def finish(k, name, proc):
+        out = f"{tmp}/ingest-{name}-{k}"
+        got = finish_driver("ingest_two_rank", proc, f"{out}.json", f"{out}.log")
+        with open(f"{out}.json.model", "rb") as f:
+            got["model"] = pickle.load(f)  # written by the subprocess above
+        return got
+
+    # one cache per shard, built by the tool under the same variable in two
+    # subprocesses; then the four driver runs (Avro and cached, per shard)
+    # at once, beside the direct fits here
+    t1 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PHOTON_")}
+    builds = {}
+    for k in (0, 1):
+        with open(f"{tmp}/ingest-build-{k}.log", "w") as log_f:
+            builds[k] = subprocess.Popen(
+                [sys.executable, "-m", "photon_tpu_torch.cli.cache_tool", "build",
+                 "--input-data-directories", ctx["train"], *CLI_SHARDS,
+                 "--id-tags", "itemId,userId", "--chunk-rows", "16384"],
+                env={**env, "PHOTON_INGEST_SHARD": f"{k}/2"}, stdout=log_f,
+                stderr=subprocess.STDOUT)
+    for k, proc in builds.items():
+        if proc.wait(timeout=900) != 0:
+            with open(f"{tmp}/ingest-build-{k}.log") as f:
+                fail(f"ingest_two_rank: cache_tool build failed for shard {k}/2: "
+                     f"{f.read()[-2000:]}")
+    build_s = time.perf_counter() - t1
+    avro = {k: launch(k, "avro") for k in (0, 1)}
+    cached = {k: launch(k, "cache", "--feature-cache", "require") for k in (0, 1)}
+    all_parts = list_source_files([ctx["train"]])
+    parts = {k: all_parts[k::2] for k in (0, 1)}
+    coord_configs = dict(parse_coordinate_config(INGEST_COORDS[i], TaskType.LOGISTIC_REGRESSION)
+                         for i in (1, 3))
+    shard_configs = game_base.parse_shard_configs(
+        game_training.build_parser().parse_args(ingest_argv(ctx["train"], "unused")))
+    direct, direct_s = {}, {}
+    for k in (0, 1):
+        data, _, _ = game_base.read_game_data(parts[k], shard_configs, None,
+                                              ("itemId", "userId"), shard=(0, 1))
+        est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=coord_configs,
+                            update_sequence=["user", "item"], descent_iterations=1,
+                            device="cuda")
+        t1 = time.perf_counter()
+        direct[k] = est.fit(data, stream=DR_CHUNK)[-1].model
+        direct_s[k] = time.perf_counter() - t1
+        del data
+    avro = {k: finish(k, "avro", p) for k, p in avro.items()}
+    cached = {k: finish(k, "cache", p) for k, p in cached.items()}
+    read = {k: avro[k]["paths"][0] for k in (0, 1)}
+    if read != parts:
+        fail(f"ingest_two_rank: shards read {read}, not the round-robin halves of {all_parts}")
+    rows = {k: avro[k]["rows"] for k in (0, 1)}
+    if sum(rows.values()) != CLI_N or not all(avro[k]["stream"] for k in (0, 1)):
+        fail(f"ingest_two_rank: shard rows {rows} (cli_game {CLI_N}), streamed "
+             f"{[avro[k]['stream'] for k in (0, 1)]}")
+    for k in (0, 1):
+        for name, got in (("saved", avro[k]["model"]["saved"]),
+                          ("trained", avro[k]["model"]["trained"])):
+            differs = model_mismatch(direct[k], got)
+            if differs:
+                fail(f"ingest_two_rank: shard {k}/2's {name} model differs from the direct "
+                     f"streaming fit on its parts ({differs})")
+    dirs = {k: cached[k]["modes"][0][2] for k in (0, 1)}
+    if dirs[0] == dirs[1] or any(cached[k]["modes"][0][:2] != ["require", "hit"] for k in (0, 1)):
+        fail(f"ingest_two_rank: the require runs resolved {[cached[k]['modes'] for k in (0, 1)]}")
+    for k in (0, 1):
+        if cached[k]["paths"][0] != parts[k]:
+            fail(f"ingest_two_rank: shard {k}/2 replayed {cached[k]['paths'][0]}, not {parts[k]}")
+        differs = model_mismatch(avro[k]["model"]["trained"], cached[k]["model"]["trained"])
+        if differs:
+            fail(f"ingest_two_rank: shard {k}/2's cached run differs from its Avro run "
+                 f"({differs})")
+    log(json.dumps({
+        "phase": "ingest_two_rank", "parts": {k: [os.path.basename(p) for p in v]
+                                              for k, v in parts.items()},
+        "rows": rows, "cache_dirs": {k: os.path.basename(d) for k, d in dirs.items()},
+        "cache_build_s": build_s, "direct_fit_s": direct_s,
+        "driver_fit_wall_s": {k: avro[k]["fit_wall_s"] for k in (0, 1)},
+        "cached_fit_wall_s": {k: cached[k]["fit_wall_s"] for k in (0, 1)},
+        "wall_s": time.perf_counter() - t0, "saved_equals_direct": True,
+        "cached_equals_avro": True,
+    }))
+
+
+def streaming_phases(seed, again, profile=False) -> None:
+    daily_retrain(seed, again, profile)
     daily_retrain_parity(seed)
     game_glmix_stream(seed)
 
@@ -5828,6 +6530,7 @@ def main() -> None:
         "times that checkout's kernel by the same method",
     )
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     try:
         import torch
@@ -5858,8 +6561,9 @@ def main() -> None:
         sync_sites(args.seed)
         return
     if args.streaming_only:
-        streaming_phases(args.seed, args.profile)
         with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-stream-") as tmp:
+            again = daily_retrain_again_finish(daily_retrain_again_start(args.seed, tmp))
+            streaming_phases(args.seed, again, args.profile)
             cli_game_stream(args.seed, tmp)
         return
     t0 = time.perf_counter()
@@ -5873,10 +6577,20 @@ def main() -> None:
         fe = data.feature_shards["global"]
         kernel_case("config5_fe", *fe.to_ell(dtype=np.float32), fe.num_cols)
         return
-    kmain, shards5 = kernel_phase(data)
-    small_parity(torch.float32, 1e-3)
-    small_parity(torch.float64, 1e-9)
-    launches, sweeps_s = main_path(data, args.seed)
+    walls = {}
+
+    def timed(name, fn, *a, **kw):
+        """``fn(*a, **kw)``, its wall kept under ``name`` for the walls line."""
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+
+    kmain, shards5 = timed("kernel_phase", kernel_phase, data)
+    timed("small_parity", small_parity, torch.float32, 1e-3)
+    timed("small_parity", small_parity, torch.float64, 1e-9)
+    launches, sweeps_s = timed("main_path", main_path, data, args.seed)
     if args.profile:
         profile_sweeps(data, args.seed, sweeps_s)
         sync_census(data, args.seed)
@@ -5886,47 +6600,62 @@ def main() -> None:
         del est
     del data
 
-    glm_a1a(args.seed)
-    glm_tron(args.seed)
-    idx3, vals3, ds3, fit3, owlqn_launches = glm_owlqn(args.seed)
-    k3, shards3 = config3_kernel_rows(idx3, vals3)
+    timed("glm_a1a", glm_a1a, args.seed)
+    timed("glm_tron", glm_tron, args.seed)
+    idx3, vals3, ds3, fit3, owlqn_launches = timed("glm_owlqn", glm_owlqn, args.seed)
+    k3, shards3 = timed("config3_kernel_rows", config3_kernel_rows, idx3, vals3)
     k3 = k3[torch.float32]
     del idx3, vals3
-    diagnose_launches = glm_owlqn_diagnose(args.seed, ds3, fit3)
+    diagnose_launches = timed("glm_owlqn_diagnose", glm_owlqn_diagnose, args.seed, ds3, fit3)
     del ds3, fit3
-    segmented_launches = owlqn_segmented_and_full(args.seed)
+    segmented_launches = timed("owlqn_segmented_and_full", owlqn_segmented_and_full, args.seed)
 
-    variance_launches, kvar = small_game_parity(args.seed)
-    sync_sites(args.seed)
-    game_launches = {"game_glmix": game_glmix(args.seed, args.profile),
-                     "game_ctr_mf": game_ctr_mf(args.seed)}
+    variance_launches, kvar = timed("small_game_parity", small_game_parity, args.seed)
+    timed("sync_sites", sync_sites, args.seed)
+    game_launches = {"game_glmix": timed("game_glmix", game_glmix, args.seed, args.profile),
+                     "game_ctr_mf": timed("game_ctr_mf", game_ctr_mf, args.seed)}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
-        cli_launches, kcli, ctx = cli_game(args.seed, tmp)
-        recovery_launches = {"cli_game_resume": cli_game_resume(ctx)}
+        cli_launches, kcli, ctx = timed("cli_game", cli_game, args.seed, tmp)
+        recovery_launches = {"cli_game_resume": timed("cli_game_resume", cli_game_resume, ctx)}
         train, valid, settings = cli_driver_data(ctx)
-        recovery_launches["cli_game_restart"] = cli_game_restart(ctx, train, valid, settings)
-        recovery_launches["cli_game_warm"] = cli_game_warm(ctx, train)
+        recovery_launches["cli_game_restart"] = timed("cli_game_restart", cli_game_restart, ctx,
+                                                      train, valid, settings)
+        recovery_launches["cli_game_warm"] = timed("cli_game_warm", cli_game_warm, ctx, train)
         del train, valid, settings
-        recovery_launches["cli_game_tuning"] = cli_game_tuning(ctx)
-        cache_launches = cli_game_cache(ctx)
-        live = cli_game_live(ctx)
-        precompile_launches = cli_game_precompile(ctx, live)
-        mesh_launches = cli_game_mesh(ctx, args.seed)
-        cli_game_stream(args.seed, tmp, ctx["train"])
-        serve_requests, serve_reference = cli_serving(ctx)
-        cli_serving_kill(ctx, serve_requests[:len(serve_reference)], serve_reference)
-        del ctx, serve_requests, serve_reference
-    cli_game_parity(args.seed)
-    mesh_two_rank(args.seed)
-    cli_legacy(args.seed)
-    cli_legacy_diagnose(args.seed)
+        recovery_launches["cli_game_tuning"] = timed("cli_game_tuning", cli_game_tuning, ctx)
+        cache_launches = timed("cli_game_cache", cli_game_cache, ctx)
+        mesh_started = cli_game_mesh_start(ctx)
+        live = timed("cli_game_live+cli_game_mesh", cli_game_live, ctx)
+        mesh_finished = timed("cli_game_live+cli_game_mesh", cli_game_mesh_wait, ctx,
+                              mesh_started)
+        precompile_launches, grid0_launches = timed("cli_game_precompile", cli_game_precompile,
+                                                    ctx, live)
+        mesh_launches = timed("cli_game_mesh", cli_game_mesh, ctx, args.seed, mesh_finished,
+                              grid0_launches)
+        timed("cli_game_stream", cli_game_stream, args.seed, tmp, ctx["train"])
+        timed("ingest_two_rank", ingest_two_rank, ctx)
+        timed("cli_serving+cli_serving_kill", cli_serving, ctx)
+        del ctx
+    # daily_retrain's second cold fit compares an answer only: it runs in a
+    # subprocess beside cli_game_parity, an answer-only phase, and is joined
+    # at its end, before any phase whose checks or walls depend on timing
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-daily-again-") as again_dir:
+        again_started = daily_retrain_again_start(args.seed, again_dir)
+        timed("cli_game_parity+daily_retrain_again", cli_game_parity, args.seed)
+        again = timed("cli_game_parity+daily_retrain_again", daily_retrain_again_finish,
+                      again_started)
+    timed("mesh_two_rank+fleet_two_rank", mesh_two_rank, args.seed)
+    timed("cli_legacy", cli_legacy, args.seed)
+    timed("cli_legacy_diagnose", cli_legacy_diagnose, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
-        scoring_stream(args.seed, tmp)
-    registry, requests, models = serve_engine(args.seed)
-    serve_slo(args.seed, registry, requests, models["b"][2])
-    serve_trace(args.seed, registry, requests, models)
+        timed("scoring_stream", scoring_stream, args.seed, tmp)
+    registry, requests, models = timed("serve_engine", serve_engine, args.seed)
+    timed("serve_slo", serve_slo, args.seed, registry, requests, models["b"][2])
+    timed("serve_trace", serve_trace, args.seed, registry, requests, models)
     del registry, requests, models
-    streaming_phases(args.seed, args.profile)
+    timed("streaming_phases", streaming_phases, args.seed, again, args.profile)
+    log(json.dumps({"phase": "walls", "seconds": walls,
+                    "total_s": time.perf_counter() - t_start}))
 
     def timings(row):
         return {key: row[key] for key in (

@@ -8,14 +8,17 @@ and the allowlist have drifted apart. ``--jsonl`` writes every finding
 The flags are those of the JAX package's gate (photon_tpu/analysis/
 cli.py).
 
-``--programs`` adds the program checks the port has: a small fixed
-effect + random effect fit with the warm-up on
-(``GameEstimator(precompile=True)``) on ``--device`` (the card unless
-``--device cpu``), whose warm-up program table is
-printed (``--breakdown-jsonl`` writes its rows), and the fit's
-solve-shape census against the shape budget (analysis/shapes.py). The
-JAX gate's communication census and sharding contracts need the mesh,
-which the port does not have yet.
+``--programs`` adds the program checks: a small fixed effect + random
+effect fit with the warm-up on (``GameEstimator(precompile=True)``) on
+``--device`` (the card unless ``--device cpu``), on a mesh: the ranks of
+an initialized ``torch.distributed`` group with every rank on the entity
+axis, as JAX's gate puts its devices, else a world of one. Its warm-up
+program table is printed (``--breakdown-jsonl`` writes its rows), its
+solve-shape census is held to the shape budget (analysis/shapes.py), and
+the mesh's communication census is printed, held to each coordinate's
+``spmd_contract()`` and written into the ``--jsonl`` rows
+(``"engine": "spmd"``, ``"kind": "comm-census"``), with the placement
+check of the sharding contract (analysis/spmd.py).
 """
 from __future__ import annotations
 
@@ -48,11 +51,12 @@ def _find_root(start: Path) -> Path:
     return cur
 
 
-def build_estimator_fixture(device="cuda"):
+def build_estimator_fixture(device="cuda", mesh=None):
     """A small fixed effect + random effect ``GameEstimator`` fit on
-    ``device`` with the warm-up on and two sweeps; returns the estimator,
-    which keeps the coordinates it built (``last_coordinates``) and the
-    warm-up's report (``last_fit_stats["precompile"]``)."""
+    ``device`` (or on ``mesh``) with the warm-up on and two sweeps; returns
+    the estimator, which keeps the coordinates it built
+    (``last_coordinates``) and the warm-up's report
+    (``last_fit_stats["precompile"]``)."""
     import numpy as np
     import torch
 
@@ -102,8 +106,33 @@ def build_estimator_fixture(device="cuda"):
         precompile=True,
         keep_coordinates=True,
     )
-    est.fit(data)
+    est.fit(data, mesh=mesh)
     return est
+
+
+def fixture_mesh(device):
+    """The mesh of the fixture fit: every rank of an initialized group on
+    the entity axis, else a world of one (``make_mesh`` starts it)."""
+    import torch.distributed as dist
+
+    from photon_tpu_torch.parallel.mesh import make_mesh
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return make_mesh(1, world, device=device)
+
+
+def print_census_table(rows: list[dict[str, Any]]) -> None:
+    header = ("program", "calls", "sites", "bytes", "comm_bytes", "ops")
+    cells = [(r["program"], str(r["calls"]), str(len(r["collective_sites"])), str(r["bytes"]),
+              str(r["comm_bytes"]),
+              ",".join(sorted({s["op"] for s in r["collective_sites"]})) or "-") for r in rows]
+    widths = [max(len(header[i]), *(len(c[i]) for c in cells)) if cells else len(header[i])
+              for i in range(len(header))]
+    fmt = "  ".join(f"{{:<{w}}}" for w in widths)
+    print("[photon-lint] communication census of the fixture fit (per coordinate and program):")
+    print("  " + fmt.format(*header))
+    for c in cells:
+        print("  " + fmt.format(*c))
 
 
 def breakdown_rows(report: dict) -> list[dict[str, Any]]:
@@ -127,35 +156,57 @@ def print_program_table(rows: list[dict[str, Any]]) -> None:
 def run_program_checks(jsonl_rows: list[dict[str, Any]],
                        breakdown_out: list[dict[str, Any]] | None = None,
                        device="cuda") -> int:
+    from photon_tpu_torch.analysis import spmd
     from photon_tpu_torch.analysis.shapes import check_shape_budget, solve_shape_census
     from photon_tpu_torch.game.data import re_shape_budget
+    from photon_tpu_torch.parallel.mesh import destroy_mesh
 
+    mesh = fixture_mesh(device)
     try:
-        est = build_estimator_fixture(device)
-    except Exception as e:  # the gate reports a broken fixture as a failure
-        print(f"[photon-lint] ERROR: the estimator fixture failed to fit: "
-              f"{type(e).__name__}: {e}")
-        return 1
-    report = est.last_fit_stats["precompile"]
-    coordinates = est.last_coordinates or {}
+        try:
+            est = build_estimator_fixture(mesh.device, mesh)
+        except Exception as e:  # the gate reports a broken fixture as a failure
+            print(f"[photon-lint] ERROR: the estimator fixture failed to fit: "
+                  f"{type(e).__name__}: {e}")
+            return 1
+        report = est.last_fit_stats["precompile"]
+        coordinates = est.last_coordinates or {}
+        comm = spmd.communication_census(mesh.census)
+        placement = spmd.check_placement(coordinates, mesh)
+        contract = spmd.check_contracts(coordinates, mesh.census)
+        dims = "x".join(map(str, mesh.dims))
+    finally:
+        destroy_mesh(mesh)
     rows = breakdown_rows(report)
     census = solve_shape_census(coordinates)
     print(f"[photon-lint] program checks: {report['n_programs']} warmed programs, "
-          f"{len(census)} distinct solve shapes")
+          f"{len(census)} distinct solve shapes, mesh={dims}, "
+          f"{sum(r['calls'] for r in comm)} collectives at {sum(len(r['collective_sites']) for r in comm)} sites")
     print_program_table(rows)
+    print_census_table(comm)
     if breakdown_out is not None:
         breakdown_out.extend(rows)
+    for row in comm:
+        # the row's program kind stays in its "program" (<cid>:<kind>)
+        jsonl_rows.append({"engine": "spmd", **row, "kind": "comm-census"})
     findings = check_shape_budget(coordinates, re_shape_budget(None))
     for pf in findings:
         print(f"  {pf.render()}")
         jsonl_rows.append({"engine": "shapes", **pf.to_json()})
+    for pf in contract + placement:
+        print(f"  {pf.render()}")
+        jsonl_rows.append({"engine": "spmd", **pf.to_json()})
     if report["n_programs"] == 0:
         print("[photon-lint] ERROR: the warm-up warmed no program")
         return 1
     if not census:
         print("[photon-lint] ERROR: the fixture's random effect contributed no solve shape")
         return 1
-    return 1 if findings else 0
+    if not comm:
+        print("[photon-lint] ERROR: the meshed fixture fit made no counted collective: the "
+              "census proved nothing")
+        return 1
+    return 1 if findings or contract or placement else 0
 
 
 def main(argv: Sequence[str] | None = None) -> int:

@@ -5,8 +5,9 @@ The AST engine of ``python -m photon_tpu_torch.analysis``, the JAX
 package's engine (photon_tpu/analysis/core.py) with the port's paths:
 the scan is every ``photon_tpu_torch/**/*.py`` (tests stay out), and the
 hot paths whose steady-state loops must not sync are the descent, the
-coordinates, the scorer, the streaming trainer and the optimizers. There
-is no multi-device scope yet. Rules are deliberately mechanical, a
+coordinates, the scorer, the streaming trainer and the optimizers; the
+mesh scope (PHL007) is the hot paths plus ``photon_tpu_torch/parallel/``.
+Rules are deliberately mechanical, a
 pattern either matches or it doesn't, and the escape hatches are
 explicit and reviewable:
 
@@ -43,6 +44,11 @@ HOT_PATH_FILES = (
 )
 HOT_PATH_PREFIXES = ("photon_tpu_torch/optimize/",)
 
+#: modules where placement decisions on a mesh live: the hot paths plus
+#: the mesh layer. PHL007 (a whole host array placed on the card) fires
+#: only here, as JAX's does in its mesh scope
+MESH_SCOPED_PREFIXES = ("photon_tpu_torch/parallel/",)
+
 _ANNOTATION_RE = re.compile(
     r"#\s*phl-ok:\s*(?P<rules>PHL\d{3}(?:\s*,\s*PHL\d{3})*)\s*(?P<reason>\S.*)?$"
 )
@@ -53,6 +59,11 @@ def is_hot_path(relpath: str) -> bool:
     return p in HOT_PATH_FILES or any(
         p.startswith(pref) for pref in HOT_PATH_PREFIXES
     )
+
+
+def is_mesh_scoped(relpath: str) -> bool:
+    p = relpath.replace("\\", "/")
+    return is_hot_path(p) or any(p.startswith(pref) for pref in MESH_SCOPED_PREFIXES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +105,8 @@ class FileContext:
     #: node-id set shared between cooperating rules (PHL001 claims
     #: escaping views so PHL002 doesn't double-report them)
     claimed: set[int] = dataclasses.field(default_factory=set)
+    #: hot-path or mesh-layer module (see is_mesh_scoped)
+    mesh_scoped: bool = False
     #: ast parent links, built lazily
     _parents: dict[int, ast.AST] | None = None
 
@@ -147,6 +160,7 @@ class Rule:
     rule_id: str = "PHL000"
     title: str = ""
     hot_path_only: bool = False
+    mesh_scoped_only: bool = False
 
     def check(self, ctx: FileContext) -> list[Finding]:  # pragma: no cover
         raise NotImplementedError
@@ -233,6 +247,7 @@ def all_rules() -> list[Rule]:
         rules_host_sync,
         rules_mmap,
         rules_retry,
+        rules_spmd,
         rules_threads,
     )
 
@@ -244,11 +259,13 @@ def analyze_source(
     path: str,
     *,
     hot: bool | None = None,
+    mesh_scoped: bool | None = None,
     rules: Iterable[Rule] | None = None,
 ) -> list[Finding]:
     """Run the AST rules over one file's source. Annotated findings are
     returned with status="annotated"; callers decide whether those gate.
-    ``hot=None`` classifies from the path (tests force it for fixtures)."""
+    ``hot=None`` / ``mesh_scoped=None`` classify from the path (tests
+    force them for fixtures)."""
     relpath = path.replace("\\", "/")
     lines = src.splitlines()
     try:
@@ -270,10 +287,13 @@ def analyze_source(
         lines=lines,
         hot=is_hot_path(relpath) if hot is None else hot,
         annotations=parse_annotations(src),
+        mesh_scoped=is_mesh_scoped(relpath) if mesh_scoped is None else mesh_scoped,
     )
     findings: list[Finding] = []
     for rule in rules if rules is not None else all_rules():
         if rule.hot_path_only and not ctx.hot:
+            continue
+        if rule.mesh_scoped_only and not ctx.mesh_scoped:
             continue
         for f in rule.check(ctx):
             findings.append(

@@ -31,8 +31,15 @@ falls back to the avro path with a logged warning, never to wrong rows;
 Counters, with the JAX package's names: ``cache.hit``, ``cache.miss``,
 ``cache.stale``, ``cache.fallback`` (with lifecycle events), and the
 writer's ``cache.write_rows``, ``cache.build``, ``cache.build_bytes`` and
-``cache.build_failed``. Not carried: per-process ingest sharding
-(``PHOTON_INGEST_SHARD`` with more than one shard raises, ROADMAP A7).
+``cache.build_failed``.
+
+Per-process ingest shards (:func:`ingest_shard`): every process of a
+multi-process run reads its own round-robin subset of the part files, so
+a fleet decodes each byte once. The subset is taken on the file list
+before the cache directory's key and the source fingerprint are computed,
+so the cold Avro read and the warm mmap replay split the same way and
+each shard has a cache of its own. A meshed fit needs the whole input on
+every rank (parallel/distributed.py); its driver passes ``shard=(0, 1)``.
 """
 from __future__ import annotations
 
@@ -78,6 +85,7 @@ __all__ = [
     "ingest_shard",
     "list_source_files",
     "resolve_reader",
+    "shard_paths",
     "verify_on_open",
     "write_game_data",
 ]
@@ -137,34 +145,73 @@ def default_cache_dir(paths: Sequence[str], shard_configs: Mapping, id_tags: Seq
 
 
 def ingest_shard() -> tuple[int, int]:
-    """This process's ingest shard ``(index, count)``: always ``(0, 1)``.
-    ``PHOTON_INGEST_SHARD`` is validated as in the JAX package (``i/n``
-    or ``off``); more than one shard needs the mesh (ROADMAP A7)."""
+    """This process's disjoint ingest shard ``(index, count)``.
+
+    Every process of a multi-process run runs the same driver on the same
+    input paths; without a shard each would decode (or replay) the whole
+    dataset. Resolution: ``PHOTON_INGEST_SHARD`` (``"i/n"``, the test
+    lever and the override for launchers that shard upstream; ``"off"``
+    turns selection off), else the live ``torch.distributed`` world when
+    one is initialized with more than one rank (read only: finding out
+    never initializes a group), else ``(0, 1)``.
+
+    Contract boundary: disjoint ingest pairs with per-process fits (a
+    streaming fit, ``mesh=None``). A meshed fit follows
+    ``parallel.distributed.distribute_batch``'s contract instead (the same
+    global data on every rank, each keeping its rows) and must read with
+    ``shard=(0, 1)``, ``PHOTON_INGEST_SHARD=off``'s meaning: disjoint rows
+    would make every rank's "global" data disagree."""
     env = os.environ.get("PHOTON_INGEST_SHARD", "").strip()
-    if not env or env.lower() == "off":
+    if env.lower() == "off":
         return 0, 1
-    idx_s, sep, n_s = env.partition("/")
-    try:
-        idx, n = int(idx_s), int(n_s)
-    except ValueError:
-        idx, n = -1, 0
-    if not sep or n < 1 or not (0 <= idx < n):
-        raise ValueError(f"PHOTON_INGEST_SHARD must be 'i/n' with 0 <= i < n, got {env!r}")
-    if n > 1:
-        raise NotImplementedError(
-            f"PHOTON_INGEST_SHARD={env!r} is not ported to photon_tpu_torch yet "
-            "(ROADMAP A7: mesh over NCCL, per-process ingest shards)"
-        )
-    return 0, 1
+    if env:
+        idx_s, sep, n_s = env.partition("/")
+        try:
+            idx, n = int(idx_s), int(n_s)
+        except ValueError:
+            idx, n = -1, 0
+        if not sep or n < 1 or not (0 <= idx < n):
+            raise ValueError(f"PHOTON_INGEST_SHARD must be 'i/n' with 0 <= i < n, got {env!r}")
+        return idx, n
+    return obs.fleet.live_world()
 
 
-def list_source_files(paths: Sequence[str]) -> list[str]:
+def list_source_files(paths: Sequence[str], shard: tuple[int, int] | None = None) -> list[str]:
     """THE avro part-file enumeration of the cache layer (front door,
     fingerprint, cache tool): the staleness verdict and a build's
-    fingerprint describe the same file list."""
+    fingerprint describe the same file list.
+
+    ``shard=(i, n)`` keeps this process's round-robin subset (``files[i::n]``
+    of the sorted enumeration); selecting here, on the file list, makes
+    the cold Avro path and the warm cache path (whose key and fingerprint
+    derive from this list) split the same way."""
     from photon_tpu_torch.io.avro import avro_part_files
 
-    return [f for p in paths for f in avro_part_files(p)]
+    files = [f for p in paths for f in avro_part_files(p)]
+    if shard is None or shard[1] <= 1:
+        return files
+    idx, n = shard
+    selected = files[idx::n]
+    if not selected:
+        raise ValueError(
+            f"ingest shard {idx}/{n} selects 0 of {len(files)} part "
+            "files — fewer part files than processes; repartition the "
+            "input or run fewer processes"
+        )
+    return selected
+
+
+def shard_paths(paths: Sequence[str], shard: tuple[int, int] | None = None):
+    """``(paths, shard)``: ``paths`` narrowed to this process's ingest shard
+    (``shard``, else :func:`ingest_shard`), as given when unsharded. Every
+    cache key and fingerprint is computed from the narrowed list, so the
+    cold avro read, the warm replay and a cache build (cli/cache_tool.py)
+    all describe the same disjoint rows and key to the same directory."""
+    shard = ingest_shard() if shard is None else shard
+    if shard[1] > 1:
+        paths = list_source_files(paths, shard=shard)
+        logger.info("ingest shard %d/%d: %d part files", shard[0], shard[1], len(paths))
+    return paths, shard
 
 
 def _fallback(reason: str, detail: str) -> None:
@@ -359,12 +406,14 @@ def resolve_reader(
     index_maps: Mapping | None = None,
     id_tags: Sequence[str] = (),
     mode: str | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> ResolvedReader:
     """The ingest front door: resolve (paths, schema) to a cache replay or
-    the avro path by mode (see the module docstring)."""
+    the avro path by mode (see the module docstring). ``shard`` overrides
+    :func:`ingest_shard` (a meshed fit passes ``(0, 1)``)."""
     if isinstance(paths, (str, bytes)):
         paths = [paths]
-    ingest_shard()  # validates PHOTON_INGEST_SHARD; one shard only
+    paths, _ = shard_paths(paths, shard)
     mode = cache_mode(mode)
     if mode == "off":
         return ResolvedReader(

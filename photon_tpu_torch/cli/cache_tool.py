@@ -36,7 +36,7 @@ import shutil
 import sys
 import time
 
-from photon_tpu_torch.cache import default_cache_dir, ingest_shard, list_source_files
+from photon_tpu_torch.cache import default_cache_dir, list_source_files, shard_paths
 from photon_tpu_torch.cache.format import MANIFEST, check_columns, load_manifest
 from photon_tpu_torch.cache.writer import FeatureCacheWriter
 from photon_tpu_torch.cli.parsing import parse_feature_shard_config
@@ -50,7 +50,9 @@ def _build(args) -> int:
     shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)
     id_tags = tuple(t.strip() for t in (args.id_tags or "").split(",") if t.strip())
     paths = [p.strip() for p in args.input_data_directories.split(",") if p.strip()]
-    ingest_shard()  # validates PHOTON_INGEST_SHARD; one shard only
+    paths, shard = shard_paths(paths)
+    if shard[1] > 1:
+        print(f"ingest shard {shard[0]}/{shard[1]}: {len(paths)} part files")
     index_maps = None
     if args.off_heap_index_map_dir:
         index_maps = {

@@ -7,7 +7,8 @@ Counterpart of photon_tpu/cli/game_base.py. Reads go through the
 feature cache's front door (``photon_tpu_torch.cache.resolve_reader``,
 ``--feature-cache``). Each driver run is a telemetry session
 (:func:`run_profile`) that leaves its artifacts under ``<output>/obs/``
-(:func:`export_run_profile`).
+(:func:`export_run_profile`), or ``<output>/obs/p<k>/`` for process k of
+a fleet, where process 0 also writes ``fleet_report.json``.
 """
 from __future__ import annotations
 
@@ -132,14 +133,17 @@ def read_game_data(
     id_tags=(),
     log=None,
     cache: str | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> tuple[GameData, dict[str, IndexMap], dict]:
     """One materialized GameData through the ingest front door, its index
     maps, and what read it: ``{"decoder": "native" | "python" | "cache",
     "reason": ...}`` (also logged). ``cache`` is the
     ``--feature-cache`` mode (env ``PHOTON_FEATURE_CACHE`` wins; default
-    off, the plain avro read)."""
+    off, the plain avro read); ``shard`` overrides the process's ingest
+    shard (``cache.ingest_shard``)."""
     resolved = resolve_reader(
-        paths, shard_configs, index_maps=index_maps, id_tags=tuple(id_tags), mode=cache
+        paths, shard_configs, index_maps=index_maps, id_tags=tuple(id_tags), mode=cache,
+        shard=shard,
     )
     data = resolved.read()
     decoder = resolved.decoder
@@ -195,7 +199,10 @@ def run_profile(out_root=None):
     plane = None
     try:
         if out_root is not None:
-            plane = obs.live_plane(os.path.join(str(out_root), "obs"))
+            # <out_root>/obs for one process, <out_root>/obs/p<k> for
+            # process k of a fleet (obs/fleet.py), so the processes of a
+            # meshed run sharing one output root never collide
+            plane = obs.live_plane(obs.fleet.obs_dir(out_root))
         try:
             yield
         except BaseException as e:
@@ -222,7 +229,7 @@ def _export_failure_artifacts(out_root, exc: BaseException) -> None:
     except Exception:  # pragma: no cover - dump_blackbox already guards
         pass
     try:
-        obs.export_partial_artifacts(os.path.join(str(out_root), "obs"),
+        obs.export_partial_artifacts(obs.fleet.obs_dir(out_root),
                                      meta={"failed": True, "error": reason})
     except Exception:  # pragma: no cover - the exporter already guards
         pass
@@ -238,8 +245,43 @@ def export_run_profile(out_root, log=None, meta=None) -> dict | None:
 
     if not obs.enabled():
         return None
-    paths = obs.export_artifacts(os.path.join(str(out_root), "obs"), meta=meta)
+    paths = obs.export_artifacts(obs.fleet.obs_dir(out_root), meta=meta)
     if log is not None:
         log.info("run profile:\n%s", obs.summary_table())
         log.info("telemetry artifacts: %s", paths)
+    fleet_path = export_fleet_report(log)
+    if fleet_path is not None:
+        paths["fleet_report"] = fleet_path
     return paths
+
+
+def export_fleet_report(log=None) -> str | None:
+    """Process 0 of a fleet run writes the offline fleet document (the
+    worker table, the merged registry, the per-sweep skew rows, the
+    stragglers: obs/fleet.py) as ``fleet_report.json`` at the shared obs
+    root. None in a single process, on processes other than 0, or with no
+    publisher armed; guarded: the report never fails the run it
+    describes."""
+    import json
+    import logging
+
+    from photon_tpu_torch import obs
+
+    pub = obs.fleet.get_publisher()
+    if pub is None or pub.info.index != 0:
+        return None
+    try:
+        doc = obs.fleet.fleet_report(pub.fleet_root)
+        path = os.path.join(pub.fleet_root, "fleet_report.json")
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=2, default=str, sort_keys=True)
+    except Exception as e:  # pragma: no cover - defensive
+        logging.getLogger(__name__).warning(
+            "fleet report export failed: %s: %s", type(e).__name__, e)
+        return None
+    if log is not None:
+        workers = doc.get("workers", [])
+        log.info("fleet report: %d workers (%d not ok), %d skew rows, %d straggler flags -> %s",
+                 len(workers), sum(1 for w in workers if w.get("status") != "ok"),
+                 len(doc.get("skew", [])), len(doc.get("stragglers", [])), path)
+    return path

@@ -18,10 +18,17 @@ warmed before the first sweep, game/descent.precompile_coordinates), and
 so does ``--mesh`` / ``PHOTON_MESH`` (parallel/mesh.py): ``--mesh 1x1``
 fits on a world of one with no launcher, and under ``torchrun
 --nproc-per-node N`` every rank runs this driver with ``--mesh DxE``
-(D×E = N), reads the same input, fits its part and returns the same
-models, while only rank 0 writes the output directory's models,
-summary, checkpoints and ``obs/`` (each other rank keeps its own
-``driver-rank<r>.log``). The process group ends on every exit path.
+(D×E = N), reads the same input (the whole of it: a meshed run reads
+with ingest shard ``(0, 1)`` whatever ``PHOTON_INGEST_SHARD`` or the
+world says), fits its part and returns the same models, while only rank
+0 writes the output directory's models, summary and checkpoints (each
+other rank keeps its own ``driver-rank<r>.log``). In a world of more
+than one rank the fleet plane is on (obs/fleet.py): every rank keeps its
+telemetry under ``obs/p<rank>/`` and rank 0 writes
+``obs/fleet_report.json``; with ``PHOTON_OBS_FLEET=0`` only rank 0 keeps
+``obs/``. The process group ends on every exit path. Without a mesh, a
+process of a multi-process run (``PHOTON_INGEST_SHARD=i/n``, or a live
+group) reads and fits its own round-robin subset of the part files.
 
 Usage:
     python -m photon_tpu_torch.cli.game_training \
@@ -62,6 +69,7 @@ from photon_tpu_torch.hyperparameter.serialization import priors_to_json
 from photon_tpu_torch.io.avro import write_avro_file
 from photon_tpu_torch.io.model_io import load_game_model, save_game_model
 from photon_tpu_torch.io.schemas import FEATURE_SUMMARIZATION_RESULT_AVRO
+from photon_tpu_torch.obs import fleet
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.problem import VarianceComputationType
 from photon_tpu_torch.parallel.mesh import destroy_mesh, on_rank0, resolve_mesh
@@ -400,7 +408,13 @@ def _run(args, device, events, mesh) -> dict:
     decoders = {}
     walls: dict[str, float] = {}
     log_name = "driver.log" if primary else f"driver-rank{mesh.rank}.log"
-    with game_base.run_profile(out_root if primary else None), PhotonLogger(
+    # every rank of a fleet keeps its telemetry under obs/p<k>; without the
+    # fleet plane only rank 0 has an obs directory
+    profiled = primary or fleet.fleet_enabled()
+    # a meshed fit needs the whole input on every rank: its reads take
+    # ingest shard (0, 1) whatever the world (cache.ingest_shard)
+    read_shard = (0, 1) if mesh.distributed else None
+    with game_base.run_profile(out_root if profiled else None), PhotonLogger(
         os.path.join(out_root, log_name), level=args.log_level
     ) as log:
         # driver-level boundary; the estimator adds the per-fit events
@@ -410,7 +424,8 @@ def _run(args, device, events, mesh) -> dict:
             paths = game_base.resolve_input_paths(args)
             index_maps = game_base.prepare_feature_maps(args, shard_configs)
             data, index_maps, decoders["training"] = game_base.read_game_data(
-                paths, shard_configs, index_maps, id_tags, log=log, cache=args.feature_cache
+                paths, shard_configs, index_maps, id_tags, log=log, cache=args.feature_cache,
+                shard=read_shard,
             )
         log.info(
             "read %d samples, shards %s",
@@ -428,7 +443,7 @@ def _run(args, device, events, mesh) -> dict:
                 )
                 validation_data, _, decoders["validation"] = game_base.read_game_data(
                     game_base.resolve_input_paths(v_args), shard_configs, index_maps,
-                    validation_id_tags, log=log, cache=args.feature_cache,
+                    validation_id_tags, log=log, cache=args.feature_cache, shard=read_shard,
                 )
 
         with game_base.phase(walls, "data validation"):
@@ -593,6 +608,7 @@ def _run(args, device, events, mesh) -> dict:
         if primary:
             with open(os.path.join(out_root, SUMMARY_FILE), "w") as f:
                 json.dump(summary, f, indent=2)
+        if profiled:
             game_base.export_run_profile(out_root, log, meta={"driver": "game_training"})
         emitter.emit("driver_finish", num_models=len(results))
     return {

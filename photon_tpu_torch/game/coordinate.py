@@ -97,7 +97,11 @@ from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.parallel.distributed import fetch_global
 from photon_tpu_torch.parallel.mesh import (
     LOCAL,
+    RE_FOLD_SITE,
+    ROW_GATHER_SITE,
+    SCORE_GATHER_SITE,
     all_reduce_sum,
+    collective_scope,
     entity_range,
     gather_entities,
     gather_rows,
@@ -179,6 +183,10 @@ def score_rows(feats: Tensor, coef_rows: Tensor) -> Tensor:
     return (feats * coef_rows).sum(-1)
 
 
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def one_iteration(config: GLMProblemConfig) -> GLMProblemConfig:
     """``config`` with its optimizer capped at one iteration: a warm-up
     solve that still runs the first line search."""
@@ -229,9 +237,24 @@ class Coordinate:
         self.programs.dispatch(SWEEP_KEY)
         with obs.dispatch_site():
             residual = total - score
-            new_state, info = self.train(residual, state)
-            new_score = self.score(new_state)
+            with collective_scope(program="train"):
+                new_state, info = self.train(residual, state)
+            with collective_scope(program="score"):
+                new_score = self.score(new_state)
         return new_state, new_score, residual + new_score, info
+
+    def spmd_contract(self):
+        """The collectives this coordinate's programs may make on a mesh
+        (analysis/spmd.py), JAX's ``spmd_contract``: by default none."""
+        from photon_tpu_torch.analysis import spmd
+
+        return spmd.SpmdContract()
+
+    def program_flops(self) -> dict:
+        """Analytic flops of one evaluation of each program key on this
+        rank (the device-time breakdown's compute side, obs/fleet.py);
+        empty for a coordinate with no count."""
+        return {}
 
     @property
     def has_health(self) -> bool:
@@ -242,6 +265,7 @@ class Coordinate:
         """A state loaded on the host (checkpoint resume, warm start)
         where this coordinate keeps its state: on the fit's device."""
         if isinstance(state, Tensor):
+            # phl-ok: PHL007 a loaded fixed-effect d-vector or MF factor table is replicated by contract (JAX replicates them too); a random effect overrides this with its entity_range
             return state.to(self.device)
         return type(state)(self.place_state(s) for s in state)
 
@@ -278,12 +302,15 @@ class Coordinate:
         """One sweep step's work from a throwaway state: a one-iteration
         solve on a zero residual, its health triple and its score."""
         residual = torch.zeros(self.num_samples, dtype=self.dtype, device=self.device)
-        state, info = self._train_warm(residual, self.initial_state())
+        with collective_scope(program="train"):
+            state, info = self._train_warm(residual, self.initial_state())
         sweep_health(state, info)
-        self._score(state)
+        with collective_scope(program="score"):
+            self._score(state)
 
     def _warm_score(self) -> None:
-        self._score(self.initial_state())
+        with collective_scope(program="score"):
+            self._score(self.initial_state())
 
 
 @dataclasses.dataclass(eq=False)
@@ -326,12 +353,14 @@ class FixedEffectCoordinate(Coordinate):
         fit_device, device = device, (torch.device("cpu") if mesh.distributed else device)
 
         def col(a):
+            # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
             return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
         feat_dtype = torch.bfloat16 if config.bf16_features else dtype
         windows = None
         if _use_sparse(config.representation, shard, dtype, config.bf16_features):
             ell_idx, ell_val = shard.to_ell(dtype=numpy_dtype(dtype))
+            # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
             values = torch.as_tensor(ell_val).to(device=device, dtype=feat_dtype)
             if config.bf16_features:
                 # the window layout holds the same (rounded) values
@@ -341,6 +370,7 @@ class FixedEffectCoordinate(Coordinate):
                 force=config.column_windows or windows_wanted(fit_device, shard.num_cols),
             )
             batch = SparseBatch(
+                # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
                 indices=torch.as_tensor(ell_idx).to(device=device, dtype=torch.int64),
                 values=values,
                 labels=col(data.labels),
@@ -350,6 +380,7 @@ class FixedEffectCoordinate(Coordinate):
             )
         else:
             batch = LabeledBatch(
+                # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
                 features=torch.as_tensor(shard.to_dense(dtype=numpy_dtype(dtype))).to(
                     device=device, dtype=feat_dtype
                 ),
@@ -361,6 +392,7 @@ class FixedEffectCoordinate(Coordinate):
             batch = shard_batch(batch, mesh)
             if windows is not None:
                 batch = batch._replace(windows=shard_windows(windows, mesh, shard.num_cols))
+        # phl-ok: PHL007 the normalization's d-vectors are replicated by contract, as the coefficients they scale
         normalization = normalization.to(device=fit_device, dtype=dtype)
         problem = GLMProblem.build(
             opt.with_regularization_weight(config.regularization_weights[0]), normalization,
@@ -414,7 +446,7 @@ class FixedEffectCoordinate(Coordinate):
         return self._score(state)
 
     def _score(self, state: Tensor) -> Tensor:
-        return gather_rows(self.score_batch(self.batch, state), self.mesh)
+        return gather_rows(self.score_batch(self.batch, state), self.mesh, SCORE_GATHER_SITE)
 
     def score_batch(self, batch, state: Tensor) -> Tensor:
         """The score of the rows of ``batch`` (the resident batch, or a
@@ -423,6 +455,42 @@ class FixedEffectCoordinate(Coordinate):
         if self.normalization.shifts is not None:
             s = s + self.normalization.margin_shift(state)
         return s
+
+    def spmd_contract(self):
+        """JAX's fixed-effect contract: on a mesh the solve all-reduces one
+        d-vector gradient (plus scalar loss and convergence sums) per
+        evaluation. Two [N] row-vector gathers come from the port's
+        replicated [N] totals (ROADMAP C9) and are admitted by name alone:
+        a windowed gradient's row vector and the score's."""
+        from photon_tpu_torch.analysis import spmd
+
+        if not self.mesh.distributed:
+            return spmd.SpmdContract()
+        itemsize = _itemsize(self.dtype)
+        rows = self.num_samples * itemsize
+        return spmd.SpmdContract(
+            comm=spmd.CommAllowance(
+                ops=("all-reduce",), max_bytes_per_site=(self.num_features + 16) * itemsize,
+                reason="FE sharded solve: one d-vector gradient reduce (+ scalar loss/"
+                "convergence reduces) per iteration"),
+            named={
+                ROW_GATHER_SITE: spmd.CommAllowance(
+                    ops=("all-gather",), max_bytes_per_site=rows,
+                    reason="ROADMAP C9: a windowed gradient gathers its [N] row vector once, "
+                    "as JAX's sharded_windowed_rmatvec takes it replicated"),
+                SCORE_GATHER_SITE: spmd.CommAllowance(
+                    ops=("all-gather",), max_bytes_per_site=rows,
+                    reason="ROADMAP C9: the [N] scores and totals are replicated on every rank"),
+            },
+        )
+
+    def program_flops(self) -> dict:
+        """2 flops per nonzero (ELL slot, or dense entry) of this rank's
+        rows per feature pass: an evaluation is two passes (X·w, Xᵀr), a
+        score one."""
+        b = self.batch
+        nnz = b.indices.numel() if isinstance(b, SparseBatch) else b.features.numel()
+        return {SWEEP_KEY: 6.0 * nnz, SCORE_KEY: 2.0 * nnz}
 
     def to_model(self, state: Tensor) -> FixedEffectModel:
         """Original-space means; variances of the transformed-space solve."""
@@ -511,9 +579,11 @@ class RandomEffectCoordinate(Coordinate):
             placed = {}
             try:
                 for name in ("features", "labels", "offsets", "weights", "score_feats"):
+                    # phl-ok: PHL007 ``b`` is this rank's entity_range of the bucket (_entity_shard above)
                     placed[name] = torch.as_tensor(getattr(b, name)).to(device=device,
                                                                          dtype=dtype)
                 for name in ("sample_pos", "score_slot", "score_pos"):
+                    # phl-ok: PHL007 ``b`` is this rank's entity_range of the bucket (_entity_shard above)
                     placed[name] = torch.as_tensor(getattr(b, name)).to(device=device,
                                                                          dtype=torch.int64)
                 return _DeviceBucket(**placed)
@@ -613,7 +683,30 @@ class RandomEffectCoordinate(Coordinate):
             out[db.score_pos] = score_rows(db.score_feats, coefs[db.score_slot])
         # each entity shard wrote its own rows and zeros elsewhere: the sum
         # over the entity axis is exact
-        return all_reduce_sum(out, self.mesh, self.mesh.entity_group)
+        return all_reduce_sum(out, self.mesh, self.mesh.entity_group, RE_FOLD_SITE)
+
+    def spmd_contract(self):
+        """JAX's random-effect contract: the solves share nothing between
+        entity shards (collective-free); the score folds each shard's rows
+        into the [N] total, one [N] all-reduce over the entity axis."""
+        from photon_tpu_torch.analysis import spmd
+
+        if not self.mesh.distributed:
+            return spmd.SpmdContract()
+        itemsize = max(_itemsize(self.dtype), 4)
+        fold = spmd.CommAllowance(
+            ops=("all-reduce",),
+            max_bytes_per_site=(self.num_samples + self.mesh.size + 64) * itemsize,
+            reason="RE score fold: one [n]-row reduce per site (the solves themselves are "
+            "collective-free)")
+        return spmd.SpmdContract(comm=spmd.COLLECTIVE_FREE, comm_overrides={"score": fold})
+
+    def program_flops(self) -> dict:
+        """2·E·rows·d per evaluation of each solve shape (this rank's lanes)
+        and 2 flops per score-row entry."""
+        solve = sum(2.0 * db.features.numel() for db in self.device_buckets)
+        score = sum(2.0 * db.score_feats.numel() for db in self.device_buckets)
+        return {SWEEP_KEY: solve + score, SCORE_KEY: score}
 
     def to_model(self, state: list[Tensor]) -> RandomEffectModel:
         """Per-bucket coefficients and, when configured, the variances of
@@ -697,13 +790,16 @@ class MatrixFactorizationCoordinate(Coordinate):
         row_idx, col_idx = row_idx[lo:hi], col_idx[lo:hi]
 
         def f(a):
+            # phl-ok: PHL007 every caller passes this rank's row_range slice
             return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=device, dtype=dtype)
 
         return MatrixFactorizationCoordinate(
             config=config,
             row_vocab=row_vocab,
             col_vocab=col_vocab,
+            # phl-ok: PHL007 cut to this rank's row_range above
             row_idx=torch.as_tensor(row_idx).to(device),
+            # phl-ok: PHL007 cut to this rank's row_range above
             col_idx=torch.as_tensor(col_idx).to(device),
             labels=f(data.labels[lo:hi]),
             offsets=f(data.offsets[lo:hi]),
@@ -731,7 +827,7 @@ class MatrixFactorizationCoordinate(Coordinate):
         v = rng.normal(scale=scale, size=(len(self.col_vocab), k))
 
         def t(a):
-            # phl-ok: PHL002 once per fit: the seeded initial factors go to the card before the first sweep
+            # phl-ok: PHL002, PHL007 once per fit: the seeded initial factors go to the card before the first sweep, the same tables on every rank (JAX replicates them too)
             return torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
 
         return t(u), t(v)
@@ -789,7 +885,32 @@ class MatrixFactorizationCoordinate(Coordinate):
         u, v = state
         s = (u[self.row_idx] * v[self.col_idx]).sum(-1)
         s = torch.where(self.weights > 0, s, torch.zeros_like(s))
-        return gather_rows(s, self.mesh)
+        return gather_rows(s, self.mesh, SCORE_GATHER_SITE)
+
+    def spmd_contract(self):
+        """JAX's MF contract: the joint solve all-reduces one packed
+        (R·k + C·k) factor gradient per evaluation; the score's [N] gather
+        comes from the replicated totals (ROADMAP C9), admitted by name."""
+        from photon_tpu_torch.analysis import spmd
+
+        if not self.mesh.distributed:
+            return spmd.SpmdContract()
+        itemsize = _itemsize(self.dtype)
+        packed = (len(self.row_vocab) + len(self.col_vocab)) * self.config.num_factors + 16
+        return spmd.SpmdContract(
+            comm=spmd.CommAllowance(
+                ops=("all-reduce",), max_bytes_per_site=packed * itemsize,
+                reason="MF joint solve: one packed (R·k + C·k) factor gradient reduce per "
+                "iteration"),
+            named={SCORE_GATHER_SITE: spmd.CommAllowance(
+                ops=("all-gather",), max_bytes_per_site=self.num_samples * itemsize,
+                reason="ROADMAP C9: the [N] scores and totals are replicated on every rank")},
+        )
+
+    def program_flops(self) -> dict:
+        """2·N·k per evaluation (this rank's rows) and per score."""
+        f = 2.0 * self.labels.shape[0] * self.config.num_factors
+        return {SWEEP_KEY: 2 * f, SCORE_KEY: f}
 
     def to_model(self, state) -> MatrixFactorizationModel:
         return MatrixFactorizationModel(

@@ -42,6 +42,10 @@ injected NaN; not CUDA kernels), ``compiles`` and ``compile_seconds``
 own ``dispatches``), ``descent.sweep`` (carrying those counters) and
 ``descent.barrier`` enter ``torch.profiler.record_function`` while
 telemetry is on, so a profiler trace splits device work by coordinate.
+Each sweep's start and barrier arrival go to the fleet plane's sweep log
+(``obs.fleet.record_sweep``, a no-op without a publisher), and each
+coordinate's score and step run inside ``parallel.mesh.collective_scope``
+so that a mesh's census attributes their collectives to the coordinate.
 
 :func:`precompile_coordinates` is the fit's warm-up (JAX's AOT
 precompile pass): it runs every program key of the coordinates once
@@ -60,6 +64,7 @@ import torch
 from photon_tpu_torch import obs
 from photon_tpu_torch.game.coordinate import Coordinate
 from photon_tpu_torch.obs.health import DivergenceError, resolve_policy, sweep_health
+from photon_tpu_torch.parallel.mesh import collective_scope
 from photon_tpu_torch.util import compile_watch, faults
 
 logger = logging.getLogger(__name__)
@@ -110,12 +115,12 @@ def precompile_coordinates(
         except NotImplementedError:
             logger.warning("coordinate %s does not support precompile", cid)
             continue
-        specs.extend((f"{cid}:{label}", warm_fn) for _key, label, warm_fn in entries)
+        specs.extend((cid, f"{cid}:{label}", warm_fn) for _key, label, warm_fn in entries)
     programs = []
     t0 = time.perf_counter()
-    for label, warm_fn in specs:
+    for cid, label, warm_fn in specs:
         with compile_watch.watch() as cw, obs.span("precompile.program", cat="compile",
-                                                   program=label):
+                                                   program=label), collective_scope(cid):
             t1 = time.perf_counter()
             warm_fn()
             wall = time.perf_counter() - t1
@@ -268,7 +273,10 @@ def run_coordinate_descent(
     # initial scores: locked coordinates contribute through these forever
     with obs.span("descent.initial_score", coordinates=len(coordinates)) as init_span:
         d0 = obs.dispatch_count()
-        scores = {cid: coordinates[cid].score(states[cid]) for cid in coordinates}
+        scores = {}
+        for cid in coordinates:
+            with collective_scope(cid, "score"):
+                scores[cid] = coordinates[cid].score(states[cid])
         total = _sum_scores(scores)
         init_span.set(dispatches=obs.dispatch_count() - d0)
 
@@ -293,9 +301,10 @@ def run_coordinate_descent(
                     dc0 = obs.dispatch_count()
                     if clause is not None and clause.kind == "nan":
                         states[cid] = _poison_state_nan(states[cid])
-                    states[cid], scores[cid], total, info = coordinates[cid].sweep_step(
-                        total, scores[cid], states[cid]
-                    )
+                    with collective_scope(cid):
+                        states[cid], scores[cid], total, info = coordinates[cid].sweep_step(
+                            total, scores[cid], states[cid]
+                        )
                     # a coordinate with no optimizer result has no row, nor
                     # has a random effect on a mesh (Coordinate.has_health)
                     if info is not None and coordinates[cid].has_health:
@@ -348,6 +357,10 @@ def run_coordinate_descent(
                           sweep_seconds=round(sweep_row["sweep_seconds"], 6),
                           barrier_seconds=round(sweep_row["barrier_seconds"], 6),
                           dispatches=dispatches, health=health)
+        # fleet tap (obs/fleet.py): this process's sweep start and barrier
+        # arrival, appended to its sweep log; host file I/O only, and two
+        # reads of a module global when no fleet publisher is armed
+        obs.fleet.record_sweep(it, sweep_row["sweep_seconds"], sweep_row["barrier_seconds"])
         if sweep_hook is not None:
             sweep_hook(it, sweep_row)
         for cid in [c for c, h in health.items() if not h["finite"]]:
@@ -365,7 +378,8 @@ def run_coordinate_descent(
                 )
                 halted.add(cid)
                 states[cid] = coordinates[cid].initial_state()
-                scores[cid] = coordinates[cid].score(states[cid])
+                with collective_scope(cid, "score"):
+                    scores[cid] = coordinates[cid].score(states[cid])
                 total = _sum_scores(scores)
             else:
                 logger.warning(

@@ -325,9 +325,9 @@ class GameEstimator:
             self.device = self.mesh.device
             if stream is not None:
                 raise StreamingModeError(
-                    "streaming fits are per-process (mesh=None): a meshed fit keeps the "
-                    "materialized path; multi-process streaming is not ported yet "
-                    "(ROADMAP A7)"
+                    "streaming fits are per-process (mesh=None): an in-process "
+                    "device mesh keeps the materialized path; multi-PROCESS "
+                    "scale-out streams disjoint ingest_shard slices instead"
                 )
             if self.max_restarts:
                 raise ValueError(
@@ -589,6 +589,12 @@ class GameEstimator:
             if checkpointer is not None:
                 self._checkpoint(checkpointer.mark_grid_done, gi,
                                  self._global_states(states, coordinates), fingerprint)
+        # the device-time breakdown (obs/fleet.py): the last grid point this
+        # call swept, its walls joined with the census and the warmed
+        # programs' flops; host pricing after training, never failing the fit
+        done = [r for r in results if r is not None]
+        if done:
+            obs.fleet.publish_device_breakdown(coordinates, done[-1].tracker)
         self.last_fit_stats = {
             "build_s": build_s,
             "validation_build_s": validation_build_s,

@@ -350,6 +350,7 @@ class GameScorer:
                 raise UnsupportedModelLayout(f"unknown coordinate model for {cid!r}")
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
+        # phl-ok: PHL007 the scorer is per-process: it never runs on a mesh
         return torch.as_tensor(np.require(np.asarray(a), requirements="W")).to(
             device=self.device, dtype=dtype or self.dtype
         )
@@ -563,6 +564,7 @@ class GameScorer:
         pinned = _tree_map(fill, host_batch)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
+            # phl-ok: PHL007 the scorer's staged batch is per-process: the scorer never runs on a mesh
             dev = _tree_map(lambda _, b: b.to(self.device, non_blocking=True), pinned)
             event = torch.cuda.Event()
             event.record(self._copy_stream)

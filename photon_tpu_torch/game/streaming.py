@@ -326,6 +326,7 @@ class _Stager:
             buf.copy_(t)
             bufs.append(buf)
         with torch.cuda.stream(self.copy_stream):
+            # phl-ok: PHL007 a streamed chunk is per-process: a streaming fit refuses a mesh
             dev = tuple(b.to(self.device, non_blocking=True) for b in bufs)
             event = torch.cuda.Event()
             event.record(self.copy_stream)
@@ -588,6 +589,7 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
         stream: StreamConfig,
         telemetry: StreamTelemetry,
     ) -> "StreamingFixedEffectCoordinate":
+        # phl-ok: PHL007 a streaming fit refuses a mesh: its d-vectors are per-process
         normalization = normalization.to(device=device, dtype=dtype)
         problem = GLMProblem.build(
             config.optimization.with_regularization_weight(config.regularization_weights[0]),
@@ -633,6 +635,7 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
         out = torch.zeros(self.num_samples, dtype=self.dtype)
         # the host state goes up without a stream sync: a copy from
         # pageable memory is staged before the call returns
+        # phl-ok: PHL007 a streaming fit refuses a mesh: its state is per-process
         state_dev = state.to(self.device, self.dtype, non_blocking=True)
 
         def run_fn(meta, dev):
@@ -678,6 +681,7 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
 
         def warm_fn():
             self.programs.warm(key)
+            # phl-ok: PHL007 a streaming fit refuses a mesh: its state is per-process
             state_dev = self.initial_state().to(self.device, non_blocking=True)
             block = torch.zeros((self.stream.chunk_rows, self.num_features),
                                 dtype=self._feature_dtype)
@@ -692,6 +696,7 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
                 "streaming fits do not compute coefficient variances; set "
                 "variance_computation=NONE"
             )
+        # phl-ok: PHL007 a streaming fit refuses a mesh: its state is per-process
         return super().to_model(state.to(self.device))
 
 

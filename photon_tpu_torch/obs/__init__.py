@@ -27,10 +27,11 @@ behind one enable switch, so instrumentation sites stay one-liners::
 The live half, composed per run by :class:`LiveTelemetryPlane`:
 :mod:`.flight` (the crash-surviving mmap ring, blackbox dumps, stale-ring
 recovery after a SIGKILL), :mod:`.series` (periodic ``series.jsonl``
-rows) and :mod:`.http` (``/metrics``, ``/healthz``, ``/slo``, ``/trace``,
-``/blackbox`` on ``PHOTON_OBS_HTTP_PORT``). The JAX package's fleet plane
-(``PHOTON_OBS_FLEET``) is not ported (ROADMAP A7); setting it raises
-NotImplementedError.
+rows), :mod:`.fleet` (the cross-process plane of a meshed fit:
+heartbeats, per-sweep skew, the aggregate families, the device-time
+breakdown; ``PHOTON_OBS_FLEET``, on by itself in a world of more than one
+rank) and :mod:`.http` (``/metrics``, ``/healthz``, ``/slo``, ``/trace``,
+``/blackbox`` on ``PHOTON_OBS_HTTP_PORT``).
 
 Telemetry is DISABLED by default (``PHOTON_OBS=1`` enables it at import,
 or call :func:`enable`). A disabled span still measures its wall but
@@ -44,7 +45,7 @@ import logging
 import os
 import threading
 
-from photon_tpu_torch.obs import causal, flight, health, http, memory, series, slo
+from photon_tpu_torch.obs import causal, fleet, flight, health, http, memory, series, slo
 from photon_tpu_torch.obs.export import (
     chrome_trace,
     export_artifacts,
@@ -75,6 +76,7 @@ __all__ = [
     "enabled",
     "export_artifacts",
     "export_partial_artifacts",
+    "fleet",
     "flight",
     "gauge",
     "get_registry",
@@ -88,7 +90,6 @@ __all__ = [
     "memory",
     "phase_summary",
     "record_dispatch",
-    "refuse_unported_env",
     "reset",
     "series",
     "slo",
@@ -104,23 +105,6 @@ logger = logging.getLogger(__name__)
 
 _tracer = Tracer(enabled=os.environ.get("PHOTON_OBS", "") == "1")
 _registry = MetricsRegistry()
-
-#: environment switches of JAX telemetry layers the port does not carry
-_UNPORTED_ENV = (
-    ("PHOTON_OBS_FLEET", "ROADMAP A7: obs.fleet, the cross-process plane", ("", "0")),
-)
-
-
-def refuse_unported_env() -> None:
-    """Raise NotImplementedError for a set switch of an unported layer
-    (``PHOTON_OBS_FLEET=1``)."""
-    for var, item, off in _UNPORTED_ENV:
-        value = os.environ.get(var, "").strip()
-        if value not in off:
-            raise NotImplementedError(
-                f"{var}={value!r} is not ported to photon_tpu_torch yet ({item})"
-            )
-
 
 def get_tracer() -> Tracer:
     """The process-global default tracer."""
@@ -147,12 +131,15 @@ def disable() -> None:
 
 def reset() -> None:
     """Drop every recorded span, zero the registry, and clear the memory
-    ledger's, the SLO tracker's and the causal buffer's per-run state (the
-    artifact boundary; warm-up footprints, an armed SLO spec and an armed
-    trace plane with its knobs survive)."""
+    ledger's, the fleet plane's (its breakdown and sweep-log reads), the
+    SLO tracker's and the causal buffer's per-run state (the artifact
+    boundary; warm-up footprints, an armed SLO spec and an armed trace
+    plane with its knobs survive)."""
     _tracer.clear()
     _registry.clear()
     memory.get_ledger().reset_run_state()
+    fleet.clear_breakdown()
+    fleet.clear_sweeps_cache()
     slo.reset_run_state()
     causal.reset_run_state()
 
@@ -236,7 +223,8 @@ class LiveTelemetryPlane:
     """The always-on half of telemetry for ONE run directory: stale-ring
     recovery (what a killed previous run was doing, as ``blackbox-
     <seq>.json``), the mmap flight recorder with its crash handlers, and
-    the series flusher and the opt-in HTTP endpoints
+    the series flusher, the fleet publisher (a multi-process run, or
+    ``PHOTON_OBS_FLEET=1``) and the opt-in HTTP endpoints
     (``PHOTON_OBS_HTTP_PORT``), started together and torn down together
     (LIFO, each step guarded: telemetry never fails or outlives the run).
     ``PHOTON_OBS_RING_MB=0`` and ``PHOTON_OBS_FLUSH_S=0`` turn pieces off;
@@ -250,18 +238,21 @@ class LiveTelemetryPlane:
         self.recorder = None
         self.flusher = None
         self.server = None
+        self.fleet_publisher = None
 
     def start(self) -> "LiveTelemetryPlane":
         """Arm the plane. If a step fails (a bad knob), every piece armed
         so far is torn down before the error propagates."""
         try:
-            refuse_unported_env()
             os.makedirs(self.directory, exist_ok=True)
             self.recovered_blackbox = flight.recover_stale(self.directory)
             self.recorder = flight.enable(self.directory)
             if self.recorder is not None:
                 flight.install_crash_handler()
             self.flusher = series.start_flusher(os.path.join(self.directory, "series.jsonl"))
+            # fleet membership: heartbeats and the sweep log, None in a
+            # single-process run unless PHOTON_OBS_FLEET=1
+            self.fleet_publisher = fleet.start_publisher(self.directory)
             self.server = http.start_from_env()
         except BaseException:
             self.close()
@@ -269,8 +260,8 @@ class LiveTelemetryPlane:
         return self
 
     def close(self) -> None:
-        for step in (http.stop_server, series.stop_flusher, flight.uninstall_crash_handler,
-                     flight.disable):
+        for step in (http.stop_server, fleet.stop_publisher, series.stop_flusher,
+                     flight.uninstall_crash_handler, flight.disable):
             try:
                 step()
             except Exception as e:  # pragma: no cover - defensive

@@ -11,7 +11,9 @@ is a header line, one line per span and a final metrics line.
 ``export_artifacts`` writes the set a driver run leaves under
 ``<output>/obs/``: ``trace.json``, ``metrics.json``, ``manifest.jsonl``,
 ``memory_report.json``, ``summary.txt`` and, when an SLO is armed or batch
-latencies were observed, ``slo_report.json``.
+latencies were observed, ``slo_report.json``; after a warmed fit, the
+device-time breakdown (``breakdown.json``, obs/fleet.py), whose table the
+summary ends with.
 """
 from __future__ import annotations
 
@@ -143,19 +145,24 @@ def write_memory_report(path, meta: dict | None = None) -> str:
 
 
 def _write_summary(path, tracer, registry) -> str:
+    from photon_tpu_torch.obs import fleet as obs_fleet
+
     with open(path, "w") as f:
         f.write(summary_table(tracer) + "\n")
         hist_block = histogram_summary(registry)
         if hist_block:
             f.write("\n" + hist_block + "\n")
+        bd_block = obs_fleet.breakdown_table()
+        if bd_block:
+            f.write("\n" + bd_block + "\n")
     return str(path)
 
 
 def export_artifacts(directory, prefix: str = "", tracer=None, registry=None,
                      meta: dict | None = None) -> dict:
     """Write the artifact set under ``directory`` and return ``{"trace",
-    "metrics", "manifest", "memory", "summary"[, "slo", "trace_exemplars"]}``
-    paths.
+    "metrics", "manifest", "memory", "summary"[, "breakdown", "slo",
+    "trace_exemplars"]}`` paths.
     ``prefix`` namespaces the file names."""
     from photon_tpu_torch.obs import slo as obs_slo
 
@@ -170,6 +177,16 @@ def export_artifacts(directory, prefix: str = "", tracer=None, registry=None,
         "manifest": write_run_manifest(_path("manifest.jsonl"), tracer, registry, meta),
         "memory": write_memory_report(_path("memory_report.json"), meta),
     }
+    # the device-time breakdown only when a fit published one
+    # (obs/fleet.py: census bytes and analytic flops joined with the walls)
+    from photon_tpu_torch.obs import fleet as obs_fleet
+
+    bd = obs_fleet.get_breakdown()
+    if bd is not None:
+        bd_path = _path(obs_fleet.BREAKDOWN_FILENAME)
+        with open(bd_path, "w") as f:
+            json.dump(_json_safe({**(meta or {}), "breakdown": bd}), f, indent=2, sort_keys=True)
+        paths["breakdown"] = bd_path
     # the SLO report only when an SLO is armed or latencies were observed
     _, registry_r = _resolve(None, registry)
     slo_doc = obs_slo.report(registry_r)

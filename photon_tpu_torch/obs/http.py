@@ -10,16 +10,20 @@ while it runs instead of only after it exports. It binds to
 - ``/metrics`` — the :class:`~photon_tpu_torch.obs.metrics.MetricsRegistry`
   in Prometheus text exposition format (counters as ``*_total``,
   gauges, histograms as summaries with p50/p90/p99/p99.9 quantile lines
-  from the sparse log buckets). Counter samples stay MONOTONIC across
+  from the sparse log buckets); with a fleet publisher armed, also every
+  process's families as ``photon_proc_*{process="k"}`` and their
+  aggregate as ``photon_fleet_*`` (:func:`fleet_prometheus_text`). Counter samples stay MONOTONIC across
   ``registry.clear()`` (a driver resets at each run boundary; a scraper
   must see a cumulative series, not a sawtooth) via per-name reset
   compensation.
 - ``/healthz`` — JSON: last per-coordinate health scalars (the values
   the per-sweep barrier fetched), divergence state, ``recovery.*``
   restart counters, producer-watchdog liveness, series-flusher and
-  flight-recorder liveness, and the latency-SLO state (armed spec,
-  violation count, burn rates). ``fleet`` is null: the cross-process
-  plane is not ported (ROADMAP A7), as in JAX's single-process document.
+  flight-recorder liveness, the latency-SLO state (armed spec,
+  violation count, burn rates) and, with a fleet publisher armed
+  (obs/fleet.py), the ``fleet`` section: the worker heartbeat table with
+  stale and dead workers, the per-sweep skew and the stragglers (null
+  without a publisher).
 - ``/slo`` — the full latency-SLO document
   (:func:`photon_tpu_torch.obs.slo.report`).
 - ``/trace`` — the retained causal traces (obs/causal.py) as
@@ -160,6 +164,108 @@ def prometheus_text(
     return "\n".join(lines) + "\n"
 
 
+def fleet_prometheus_text(
+    monotonic: CounterMonotonicity | None = None,
+) -> str:
+    """The FLEET half of a ``/metrics`` scrape (empty string when no
+    fleet publisher is armed): per-process families re-exported with
+    ``{process=,host=}`` labels under a ``photon_proc_`` prefix (so they
+    never collide with this process's own unlabeled families — duplicate
+    ``# TYPE`` lines are illegal exposition), plus aggregate
+    ``photon_fleet_*`` families merged by :mod:`photon_tpu_torch.obs.fleet`
+    (counters summed, histogram summaries from the bucket-exact merge —
+    the acceptance contract is ``photon_fleet_x_total == Σ
+    photon_proc_x_total{process=k}``, scraped from ONE endpoint).
+    Counter-monotonicity compensation applies per (process, name) and to
+    the aggregate, so a worker's ``registry.clear()`` can't read as a
+    counter going backwards."""
+    from photon_tpu_torch.obs import fleet
+
+    root = fleet.get_fleet_root()
+    if root is None:
+        return ""
+    docs = fleet.read_worker_docs(root)
+    if not docs:
+        return ""
+    lines: list[str] = []
+
+    def adj(scope: str, name: str, value: float) -> float:
+        if monotonic is None:
+            return value
+        return monotonic.adjust(f"{scope}:{name}", value)
+
+    def labels(doc: dict) -> str:
+        return (
+            f'{{process="{doc.get("process_index")}"'
+            f',host="{doc.get("host", "")}"}}'
+        )
+
+    # -- per-process families (photon_proc_*) -----------------------------
+    counter_names = sorted(
+        {
+            n
+            for d in docs
+            for n in ((d.get("metrics") or {}).get("counters") or {})
+        }
+    )
+    for name in counter_names:
+        base = sanitize_metric_name(name).replace(PREFIX, PREFIX + "proc_", 1)
+        if not base.endswith("_total"):
+            base += "_total"
+        lines.append(f"# TYPE {base} counter")
+        for d in docs:
+            v = ((d.get("metrics") or {}).get("counters") or {}).get(name)
+            if v is None:
+                continue
+            v = adj(f"p{d.get('process_index')}", name, v)
+            lines.append(f"{base}{labels(d)} {_fmt(v)}")
+    gauge_names = sorted(
+        {
+            n
+            for d in docs
+            for n in ((d.get("metrics") or {}).get("gauges") or {})
+        }
+    )
+    for name in gauge_names:
+        base = sanitize_metric_name(name).replace(PREFIX, PREFIX + "proc_", 1)
+        lines.append(f"# TYPE {base} gauge")
+        for d in docs:
+            g = (d.get("metrics") or {}).get("gauges") or {}
+            if name in g:
+                lines.append(f"{base}{labels(d)} {_fmt(g[name])}")
+
+    # -- aggregate families (photon_fleet_*) ------------------------------
+    merged = fleet.merge_snapshots([d.get("metrics") or {} for d in docs])
+    for name in sorted(merged["counters"]):
+        base = sanitize_metric_name(name).replace(
+            PREFIX, PREFIX + "fleet_", 1
+        )
+        if not base.endswith("_total"):
+            base += "_total"
+        lines.append(f"# TYPE {base} counter")
+        lines.append(
+            f"{base} {_fmt(adj('fleet', name, merged['counters'][name]))}"
+        )
+    for name in sorted(merged["histograms"]):
+        h = merged["histograms"][name]
+        base = sanitize_metric_name(name).replace(
+            PREFIX, PREFIX + "fleet_", 1
+        )
+        lines.append(f"# TYPE {base} summary")
+        for p in SUMMARY_PERCENTILES:
+            q = h.get(f"p{p}")
+            if q is not None:
+                lines.append(f'{base}{{quantile="{p / 100.0:g}"}} {_fmt(q)}')
+        lines.append(
+            f"{base}_sum {_fmt(adj('fleet', name + ':sum', h.get('sum', 0.0)))}"
+        )
+        lines.append(
+            f"{base}_count "
+            f"{_fmt(adj('fleet', name + ':count', h.get('count', 0)))}"
+        )
+    return "\n".join(lines) + "\n" if lines else ""
+
+
 _SAMPLE_RE = re.compile(
     r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
     r"(?:\{(?P<labels>[^}]*)\})?"
@@ -267,13 +373,14 @@ def healthz_snapshot(registry=None) -> dict:
     registry plus the flight recorder's and series flusher's own state.
     Pure host reads — serving a scrape can never touch the device."""
     from photon_tpu_torch import obs
+    from photon_tpu_torch.obs import fleet as obs_fleet
     from photon_tpu_torch.obs import flight, series
 
     snap = (registry or obs.get_registry()).snapshot()
     counters = snap.get("counters", {})
     gauges = snap.get("gauges", {})
     divergences = counters.get("health.divergence", 0)
-    proc = series.process_info()
+    proc = obs_fleet.process_info()
     doc = {
         "status": "diverged" if divergences else "ok",
         "pid": os.getpid(),
@@ -350,9 +457,26 @@ def healthz_snapshot(registry=None) -> dict:
             "last_flush_age_s": flusher.last_flush_age_s(),
         }
     )
-    # no fleet plane in the port (ROADMAP A7): the key stays, as JAX's
-    # single-process document has it
-    doc["fleet"] = None
+    # the fleet section: the worker heartbeat table (a silent or dead
+    # worker shows here, on the process that is often the only one left to
+    # scrape) and the live skew and straggler view, from host file reads
+    root = obs_fleet.get_fleet_root()
+    if root is None:
+        doc["fleet"] = None
+    else:
+        workers = obs_fleet.workers_summary(root)
+        skew = obs_fleet.compute_skew(obs_fleet.read_sweeps(root))
+        doc["fleet"] = {
+            "root": root,
+            "workers": workers,
+            "stale": [w["process_index"] for w in workers if w["status"] == "stale"],
+            "dead": [w["process_index"] for w in workers if w["status"] == "dead"],
+            "stale_after_s": obs_fleet.stale_after_s(),
+            "sweeps_joined": len(skew),
+            "max_skew_ratio": obs_fleet.max_skew_ratio(skew),
+            "stragglers": sorted({p for r in skew for p in r["stragglers"]}),
+            "last_skew": skew[-1] if skew else None,
+        }
     return doc
 
 
@@ -368,7 +492,10 @@ class _Handler(BaseHTTPRequestHandler):
                 from photon_tpu_torch import obs
 
                 mono = self.server._monotonic  # type: ignore[attr-defined]
-                body = prometheus_text(obs.get_registry().snapshot(), mono).encode()
+                # one scrape: with a fleet publisher armed the response also
+                # carries the per-process and the aggregate families
+                text = prometheus_text(obs.get_registry().snapshot(), mono)
+                body = (text + fleet_prometheus_text(mono)).encode()
                 ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif self.path.split("?")[0] == "/healthz":
                 body = (

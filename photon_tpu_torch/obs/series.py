@@ -18,20 +18,22 @@ Row schema (one JSON object per line)::
      "counters": {<name>: <delta>}, "gauges": {<name>: <value>},
      "histograms": {<name>: {"count": <delta>, "p50":..,"p90":..,"p99":..}}}
 
-``process_index`` comes from ``PHOTON_OBS_PROCESS`` (``"i/n"``), else 0.
+``process_index`` and ``host`` come from ``fleet.process_info`` (the
+fleet plane's one resolution: ``PHOTON_OBS_PROCESS``, then the live
+``torch.distributed`` world, then process 0 of 1).
 A flush costs one registry snapshot and one small JSON line (host work
 only). ``stop()`` joins the thread and writes one final row, so a run
 shorter than one interval still yields a point.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import logging
 import os
-import socket
 import threading
 import time
+
+from photon_tpu_torch.obs.fleet import process_info
 
 logger = logging.getLogger(__name__)
 
@@ -54,35 +56,6 @@ def flush_interval_s() -> float:
     if v < 0:
         raise ValueError(f"PHOTON_OBS_FLUSH_S must be >= 0, got {env!r}")
     return v
-
-
-@dataclasses.dataclass(frozen=True)
-class ProcessInfo:
-    """This process's place among the processes of one run."""
-
-    index: int
-    count: int
-    host: str
-    pid: int
-
-
-def process_info() -> ProcessInfo:
-    """``PHOTON_OBS_PROCESS`` (``"i/n"``, 0 <= i < n), else process 0 of
-    1. The port runs one process per run; the variable stamps rows that a
-    launcher concatenates from several."""
-    idx, n = 0, 1
-    env = os.environ.get("PHOTON_OBS_PROCESS", "").strip()
-    if env:
-        idx_s, sep, n_s = env.partition("/")
-        try:
-            idx, n = int(idx_s), int(n_s)
-        except ValueError:
-            idx, n = -1, 0
-        if not sep or n < 1 or not (0 <= idx < n):
-            raise ValueError(
-                f"PHOTON_OBS_PROCESS must be 'i/n' with 0 <= i < n, got {env!r}"
-            )
-    return ProcessInfo(index=idx, count=n, host=socket.gethostname(), pid=os.getpid())
 
 
 class SeriesFlusher:

@@ -31,7 +31,7 @@ from photon_tpu_torch.ops.gather import take_1d
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.common import DirectionalOracle, SmoothMarginOracle
-from photon_tpu_torch.parallel.mesh import LOCAL, all_reduce_sum, gather_rows
+from photon_tpu_torch.parallel.mesh import LOCAL, ROW_GATHER_SITE, all_reduce_sum, gather_rows
 from photon_tpu_torch.parallel.sparse import sharded_windowed_rmatvec
 from photon_tpu_torch.types import SparseBatch
 
@@ -83,7 +83,8 @@ def rmatvec(batch, per_row: Tensor, dim: int, mesh=LOCAL) -> Tensor:
     Under a ``mesh`` the batch is this rank's rows and the result is
     summed over the ranks."""
     if _use_windows(batch, per_row):
-        return sharded_windowed_rmatvec(batch.windows, gather_rows(per_row, mesh), dim, mesh)
+        return sharded_windowed_rmatvec(batch.windows, gather_rows(per_row, mesh, ROW_GATHER_SITE),
+                                        dim, mesh)
     return all_reduce_sum(_rmatvec_local(batch, per_row, dim), mesh)
 
 

@@ -119,10 +119,10 @@ def project_to_box(x: torch.Tensor, lower, upper) -> torch.Tensor:
     Bounds are cast to the coefficients' dtype and device; [D] bounds
     broadcast over a leading lane axis."""
     if lower is not None:
-        # phl-ok: PHL002 box bounds (host arrays of the config) placed at each projection: L-BFGS-B and boxed OWL-QN only
+        # phl-ok: PHL007, PHL002 box bounds (host arrays of the config, d-vectors replicated with the coefficients they bound) placed at each projection: L-BFGS-B and boxed OWL-QN only
         x = torch.maximum(x, torch.as_tensor(lower, dtype=x.dtype, device=x.device))
     if upper is not None:
-        # phl-ok: PHL002 box bounds (host arrays of the config) placed at each projection: L-BFGS-B and boxed OWL-QN only
+        # phl-ok: PHL007, PHL002 box bounds (host arrays of the config, d-vectors replicated with the coefficients they bound) placed at each projection: L-BFGS-B and boxed OWL-QN only
         x = torch.minimum(x, torch.as_tensor(upper, dtype=x.dtype, device=x.device))
     return x
 

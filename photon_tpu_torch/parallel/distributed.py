@@ -13,9 +13,10 @@ that are multi-process specific:
   a batch built from IDENTICAL global host data on every process.
 
 Ingest pairing: ``distribute_batch`` needs the same global data on every
-process, so a meshed fit reads the whole input on every rank
-(``cache.ingest_shard`` stays ``(0, 1)``). Per-process disjoint ingest
-comes with multi-process streaming (ROADMAP A7).
+process, so a meshed fit reads the whole input on every rank (the
+training driver reads with ingest shard ``(0, 1)``). Disjoint
+per-process ingest (``cache.ingest_shard``) pairs with per-process fits,
+the streaming ones, as in JAX.
 """
 from __future__ import annotations
 

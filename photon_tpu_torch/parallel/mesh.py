@@ -31,11 +31,23 @@ replicated tensors, and a fixed-effect or MF step takes its rows' slice.
 Every value a solver decides on (line-search trials, stop tests) comes
 out of an ``all_reduce``, which hands every rank the same bits, so every
 rank takes the same branch and meets the next collective.
+
+The collectives of a fit go through three counted wrappers
+(``all_reduce_sum``, ``gather_rows``, ``gather_entities``): each call
+records its kind and payload in ``Mesh.census`` (``Mesh.collectives``
+counts it by kind) under the coordinate and program kind of the innermost
+:func:`collective_scope` (``("fit", "other")`` outside one), with the name
+of its call site where the caller gives one. The census is the port's
+counterpart of JAX's communication census of compiled programs
+(photon_tpu/analysis/spmd.py); ``analysis/spmd.py`` prices it and holds it
+to each coordinate's ``spmd_contract()``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import torch
@@ -78,9 +90,20 @@ class Mesh:
     device_mesh: object
     device: torch.device
     owns_group: bool = False
-    collectives: dict = dataclasses.field(
-        default_factory=lambda: {"all_reduce": 0, "all_gather": 0})
+    #: (coordinate, program kind) → {(op, site, payload bytes, group size):
+    #: calls}: every counted collective with its payload (see the module
+    #: docstring)
+    census: dict = dataclasses.field(default_factory=dict)
     distributed = True
+
+    @property
+    def collectives(self) -> dict:
+        """Calls made through this module so far, by kind."""
+        out = {"all_reduce": 0, "all_gather": 0}
+        for calls in self.census.values():
+            for (op, _site, _nbytes, _group), n in calls.items():
+                out[op.replace("-", "_")] += n
+        return out
 
     @property
     def axis_names(self) -> tuple:
@@ -297,33 +320,77 @@ def replicate(tree, mesh: Mesh):
     return tree.to(mesh.device)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: Mesh | LocalMesh, group=None) -> torch.Tensor:
+#: named call sites of the census: a windowed fixed effect's [N] row
+#: vector gathered once per gradient, the [N] score of a fixed effect or
+#: MF gathered from the ranks' row slices (both from the replicated [N]
+#: totals, ROADMAP C9), and a random effect's score summed over its
+#: entity shards
+ROW_GATHER_SITE = "windowed_fe_rows"
+SCORE_GATHER_SITE = "replicated_scores"
+RE_FOLD_SITE = "re_score_fold"
+
+#: the scope the collectives made on this thread are attributed to
+_scope = threading.local()
+#: the coordinate of a collective made outside every coordinate's scope
+#: (checkpoint flags, export gathers)
+FIT_SCOPE = "fit"
+
+
+@contextlib.contextmanager
+def collective_scope(coordinate: str | None = None, program: str | None = None):
+    """Attribute the counted collectives made inside to ``coordinate`` and
+    ``program`` (a kind: ``"train"``, ``"score"``); a None part keeps the
+    enclosing scope's."""
+    prev = getattr(_scope, "value", (None, None))
+    _scope.value = (prev[0] if coordinate is None else coordinate,
+                    prev[1] if program is None else program)
+    try:
+        yield
+    finally:
+        _scope.value = prev
+
+
+def _record(mesh: Mesh, op: str, nbytes: int, group_size: int, site: str | None) -> None:
+    coordinate, program = getattr(_scope, "value", (None, None))
+    calls = mesh.census.setdefault((coordinate or FIT_SCOPE, program or "other"), {})
+    key = (op, site, int(nbytes), int(group_size))
+    calls[key] = calls.get(key, 0) + 1
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh | LocalMesh, group=None,
+                   site: str | None = None) -> torch.Tensor:
     """Σ over the ranks of ``group`` (the mesh's world by default), in
-    place; the result is the same bits on every rank."""
+    place; the result is the same bits on every rank. ``site`` names the
+    call site in the census."""
     if not mesh.distributed:
         return t
-    mesh.collectives["all_reduce"] += 1
+    _record(mesh, "all-reduce", t.numel() * t.element_size(), dist.get_world_size(group), site)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def gather_rows(local: torch.Tensor, mesh: Mesh | LocalMesh) -> torch.Tensor:
-    """The full row vector from every rank's row slice, on every rank."""
+def gather_rows(local: torch.Tensor, mesh: Mesh | LocalMesh,
+                site: str | None = None) -> torch.Tensor:
+    """The full row vector from every rank's row slice, on every rank. Its
+    payload in the census is the gathered vector, as an all-gather's
+    result type prices it."""
     if not mesh.distributed:
         return local
-    mesh.collectives["all_gather"] += 1
+    _record(mesh, "all-gather", local.numel() * local.element_size() * mesh.size, mesh.size,
+            site)
     parts = [torch.empty_like(local) for _ in range(mesh.size)]
     dist.all_gather(parts, local.contiguous())
     return torch.cat(parts)
 
 
-def gather_entities(local: torch.Tensor, mesh: Mesh | LocalMesh) -> torch.Tensor:
+def gather_entities(local: torch.Tensor, mesh: Mesh | LocalMesh,
+                    site: str | None = None) -> torch.Tensor:
     """The whole entity axis from every entity shard (the export and
     checkpoint boundary), on every rank."""
     shards = mesh.entity_shards
     if shards == 1:
         return local
-    mesh.collectives["all_gather"] += 1
+    _record(mesh, "all-gather", local.numel() * local.element_size() * shards, shards, site)
     parts = [torch.empty_like(local) for _ in range(shards)]
     dist.all_gather(parts, local.contiguous(), group=mesh.entity_group)
     return torch.cat(parts)

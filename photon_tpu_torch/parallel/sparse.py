@@ -79,6 +79,7 @@ def shard_windows(windows: ColumnWindows, mesh: Mesh, num_features: int) -> Colu
         try:
             for name in ("rows", "lcols", "vals", "inst2win"):
                 placed.append(getattr(windows, name)[lo:hi].contiguous().to(mesh.device))
+            # phl-ok: PHL007 the window-local column offsets [w] are the same on every instance shard
             placed.append(windows.iota.to(mesh.device))
             return ColumnWindows(*placed)
         except BaseException:

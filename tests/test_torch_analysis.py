@@ -453,3 +453,180 @@ def test_streamed_census_is_the_warm_up_solve_keys():
             if label == "stream_solve"}
     assert {(rows, d) for _, _, rows, d, _ in keys} == solve_shape_census(coords)
     assert np.all([k[1] >= 1 for k in keys])
+
+
+# --- PHL007 and PHL008: the mesh rules in torch's forms --------------------------
+
+PHL007_BAD = '''import torch
+
+
+def place(x_host, mesh, device):
+    a = torch.as_tensor(x_host).to(device)
+    b = x_host.cuda()
+    c = torch.as_tensor(x_host, device=mesh.device)
+    d = x_host.to(device=device)
+    e = x_host.to(torch.device("cuda", 0))
+    return a, b, c, d, e
+'''
+
+PHL007_GOOD = '''import torch
+
+from photon_tpu_torch.parallel.mesh import row_range, shard_batch
+
+
+def place(x_host, batch, mesh, device, n):
+    lo, hi = row_range(mesh, n)
+    a = torch.as_tensor(x_host[lo:hi]).to(device)
+    b = shard_batch(batch, mesh)
+    c = torch.tensor([1.0], device=mesh.device)
+    d = x_host.to(torch.float64)
+    e = x_host.to("cpu")
+    f = x_host[lo:hi].contiguous().cuda()
+    g = torch.as_tensor(x_host, device="cpu")
+    return a, b, c, d, e, f, g
+
+
+def replicate(tree, mesh):
+    return tree.to(mesh.device)
+'''
+
+PHL008_BAD = '''import torch.distributed as dist
+from torch.distributed import all_gather_into_tensor
+
+
+def sums(t, out, parts):
+    dist.all_reduce(t)
+    dist.broadcast(t, 0)
+    dist.all_gather(parts, t)
+    all_gather_into_tensor(out, t)
+    torch.distributed.reduce_scatter_tensor(out, t)
+'''
+
+PHL008_GOOD = '''import torch.distributed as dist
+
+from photon_tpu_torch.parallel.mesh import all_reduce_sum, gather_rows
+
+
+def sums(t, mesh):
+    dist.barrier()
+    n = dist.get_world_size()
+    return all_reduce_sum(t, mesh), gather_rows(t, mesh), n
+'''
+
+MESH_FIXTURES = {"PHL007": (PHL007_BAD, PHL007_GOOD, 5), "PHL008": (PHL008_BAD, PHL008_GOOD, 5)}
+
+
+def _mesh_new(src, rule, path="photon_tpu_torch/parallel/x.py"):
+    return [f for f in analyze_source(src, path) if f.rule == rule and f.status == "new"]
+
+
+@pytest.mark.parametrize("rule", sorted(MESH_FIXTURES))
+def test_mesh_rule_fires_on_every_planted_form(rule):
+    bad, _, n = MESH_FIXTURES[rule]
+    assert len(_mesh_new(bad, rule)) == n
+
+
+@pytest.mark.parametrize("rule", sorted(MESH_FIXTURES))
+def test_mesh_rule_silent_on_the_fixed_form(rule):
+    found = _mesh_new(MESH_FIXTURES[rule][1], rule)
+    assert not found, "\n".join(f.render() for f in found)
+
+
+def test_phl007_is_mesh_scoped_and_phl008_is_not():
+    from photon_tpu_torch.analysis.core import is_mesh_scoped
+
+    assert is_mesh_scoped("photon_tpu_torch/parallel/sparse.py")
+    assert is_mesh_scoped("photon_tpu_torch/game/coordinate.py")  # a hot path
+    assert not is_mesh_scoped("photon_tpu_torch/io/avro.py")
+    assert _mesh_new(PHL007_BAD, "PHL007", "photon_tpu_torch/game/coordinate.py")
+    assert not _mesh_new(PHL007_BAD, "PHL007", "photon_tpu_torch/io/avro.py")
+    assert _mesh_new(PHL008_BAD, "PHL008", "photon_tpu_torch/io/avro.py")
+    annotated = PHL007_BAD.replace(
+        "    b = x_host.cuda()", "    # phl-ok: PHL007 a per-process tensor\n    b = x_host.cuda()")
+    assert len(_mesh_new(annotated, "PHL007")) == 4
+
+
+def test_phl008_spares_the_counted_wrappers_only_in_their_file():
+    src = (REPO / "photon_tpu_torch" / "parallel" / "mesh.py").read_text()
+    assert not _mesh_new(src, "PHL008", "photon_tpu_torch/parallel/mesh.py")
+    moved = _mesh_new(src, "PHL008", "photon_tpu_torch/parallel/elsewhere.py")
+    assert {f.snippet.split("(")[0] for f in moved} == {"dist.all_reduce", "dist.all_gather"}
+
+
+# --- the census and the contracts (analysis/spmd.py) ------------------------------
+
+
+def test_comm_allowance_holds_kinds_payloads_and_named_sites():
+    from photon_tpu_torch.analysis import spmd
+
+    fe = spmd.SpmdContract(
+        comm=spmd.CommAllowance(ops=("all-reduce",), max_bytes_per_site=136),
+        named={"rows": spmd.CommAllowance(ops=("all-gather",), max_bytes_per_site=4096)})
+    ok = [spmd.CollectiveSite("all-reduce", None, 136, 2, 9),
+          spmd.CollectiveSite("all-gather", "rows", 4096, 2, 3)]
+    assert spmd.check_comm_allowance(ok, fe, "train", "fixed:train") == []
+    bad = [spmd.CollectiveSite("all-gather", None, 64, 2, 1),  # not by name: refused
+           spmd.CollectiveSite("all-reduce", None, 137, 2, 1),  # over the bound
+           spmd.CollectiveSite("all-gather", "rows", 8192, 2, 1)]  # over its own bound
+    found = spmd.check_comm_allowance(bad, fe, "train", "fixed:train")
+    assert [f.check for f in found] == ["comm-allowance"] * 3
+    re = spmd.SpmdContract(comm=spmd.COLLECTIVE_FREE, comm_overrides={
+        "score": spmd.CommAllowance(ops=("all-reduce",), max_bytes_per_site=4096)})
+    fold = [spmd.CollectiveSite("all-reduce", "re_score_fold", 2048, 2, 5)]
+    assert spmd.check_comm_allowance(fold, re, "score", "user:score") == []
+    assert spmd.check_comm_allowance(fold, re, "train", "user:train")  # the solve: none
+
+
+def test_census_rows_price_one_execution_per_site():
+    from photon_tpu_torch.analysis import spmd
+
+    census = {("fixed", "train"): {("all-reduce", None, 136, 2): 40,
+                                   ("all-reduce", None, 8, 2): 80},
+              ("user", "score"): {("all-reduce", "re_score_fold", 2048, 2): 3}}
+    rows = {r["program"]: r for r in spmd.communication_census(census)}
+    assert rows["fixed:train"]["comm_bytes"] == 144 and rows["fixed:train"]["calls"] == 120
+    assert rows["fixed:train"]["bytes"] == 40 * 136 + 80 * 8
+    assert spmd.census_by_op(census) == {"all-reduce": {"calls": 123,
+                                                        "bytes": 40 * 136 + 80 * 8 + 3 * 2048}}
+
+
+def test_placement_check_finds_a_table_of_full_size():
+    """On rank 0 of a 1x2 mesh a random effect's bucket must hold half its
+    padded lanes and a fixed effect's batch half the rows; the whole table
+    on the rank is the sharding contract's finding."""
+    import types
+
+    from photon_tpu_torch.analysis import spmd
+
+    mesh = types.SimpleNamespace(distributed=True, size=2, entity_shards=2, rank=0)
+
+    def re_coord(lanes, table=None):
+        host = types.SimpleNamespace(features=np.zeros((7, 3, 2)))
+        dev = types.SimpleNamespace(features=torch.zeros((lanes, 3, 2)))
+        return types.SimpleNamespace(
+            mesh=mesh, dataset=types.SimpleNamespace(buckets=[host]), device_buckets=[dev],
+            num_samples=10, initial_state=lambda: [torch.zeros((table or lanes, 2))])
+
+    def fe_coord(rows):
+        return types.SimpleNamespace(mesh=mesh, batch=types.SimpleNamespace(
+            labels=torch.zeros(rows)))
+
+    assert spmd.check_placement({"user": re_coord(4), "fixed": fe_coord(5)}, mesh) == []
+    found = spmd.check_placement({"user": re_coord(8), "fixed": fe_coord(10)}, mesh)
+    assert [f.program for f in found] == ["user:bucket0", "user:bucket0", "fixed:rows"]
+    assert all("every rank" in f.message for f in found)
+    (table,) = spmd.check_placement({"user": re_coord(4, table=8)}, mesh)
+    assert table.message.startswith("coefficient table holds 8 entity lanes")
+    assert spmd.check_placement({"user": re_coord(8)}, tcoord.LOCAL) == []
+
+
+def test_programs_report_the_census_in_their_jsonl(tmp_path, capsys):
+    out = tmp_path / "lint.jsonl"
+    assert main(["--root", str(REPO), "--programs", "--device", "cpu", "--jsonl", str(out)]) == 0
+    rows = [json.loads(ln) for ln in out.read_text().splitlines()]
+    census = {r["program"]: r for r in rows if r.get("kind") == "comm-census"}
+    # a world of one: the fixed effect's solve reduces d-vectors, the random
+    # effect's solve makes no collective
+    assert set(census) == {"global:train", "global:score", "per_user:score"}
+    assert {s["op"] for s in census["global:train"]["collective_sites"]} == {"all-reduce"}
+    assert "communication census" in capsys.readouterr().out

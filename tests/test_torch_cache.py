@@ -240,6 +240,8 @@ def test_env_mode_wins_and_bad_values_raise(dataset, monkeypatch):
 
 
 def test_ingest_shard_resolves_one_shard(monkeypatch):
+    """The name dates from when the port had one shard only; ``"1/2"`` is
+    now JAX's ``(1, 2)``."""
     for value in ("", "off", "0/1"):
         monkeypatch.setenv("PHOTON_INGEST_SHARD", value)
         assert tcache.ingest_shard() == (0, 1)
@@ -248,8 +250,7 @@ def test_ingest_shard_resolves_one_shard(monkeypatch):
         with pytest.raises(ValueError, match="PHOTON_INGEST_SHARD"):
             tcache.ingest_shard()
     monkeypatch.setenv("PHOTON_INGEST_SHARD", "1/2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        resolve_reader("x", SHARDS, mode="off")
+    assert tcache.ingest_shard() == jcache.ingest_shard() == (1, 2)
 
 
 def test_env_cache_dir_is_a_root_keeping_datasets_separate(dataset, tmp_path, monkeypatch):
@@ -520,3 +521,88 @@ def test_warm_stream_decodes_no_avro_and_scores_like_the_avro_stream(dataset, mo
     assert [p["source"] for p in warm_prov] == ["cache"] * 6
     np.testing.assert_array_equal(cold, avro)
     np.testing.assert_array_equal(warm, avro)
+
+
+# --- per-process ingest shards -----------------------------------------------------
+
+from test_torch_mesh import a7_ranks  # noqa: E402,F401 - the two-rank fixture
+import torch_mesh_worker as worker  # noqa: E402
+
+
+@pytest.mark.parametrize("value", ["", "off", "OFF", "0/1", "0/2", "1/2", "2/5", "4/5", "1/1",
+                                   "2", "a/b", "-1/2", "3/2"])
+def test_ingest_shard_and_file_subset_equal_jax(dataset, monkeypatch, value):
+    """Every value of ``PHOTON_INGEST_SHARD`` resolves as JAX's does (or
+    raises the same error), and ``list_source_files(shard=)`` keeps the
+    same round-robin subset of the 5 part files; ``shard_paths`` narrows
+    the input as JAX's ``resolve_reader`` does before its cache key."""
+    d, _, _ = dataset
+    monkeypatch.setenv("PHOTON_INGEST_SHARD", value)
+    try:
+        want = jcache.ingest_shard()
+    except ValueError as e:
+        with pytest.raises(ValueError, match="PHOTON_INGEST_SHARD") as got:
+            tcache.ingest_shard()
+        assert str(got.value) == str(e)
+        return
+    assert tcache.ingest_shard() == want
+    assert tcache.list_source_files([d], shard=want) == jcache.list_source_files([d], shard=want)
+    narrowed = jcache.list_source_files([d], shard=want) if want[1] > 1 else [d]
+    assert tcache.shard_paths([d]) == (narrowed, want)
+
+
+def test_fewer_files_than_shards_is_jax_error(dataset):
+    d, _, _ = dataset
+    with pytest.raises(ValueError) as want:
+        jcache.list_source_files([d], shard=(5, 6))
+    with pytest.raises(ValueError) as got:
+        tcache.list_source_files([d], shard=(5, 6))
+    assert str(got.value) == str(want.value) and "selects 0 of 5 part files" in str(got.value)
+
+
+def test_shards_read_disjoint_complete_rows_cold_and_warm(dataset, monkeypatch):
+    """Cold Avro reads of the two shards are disjoint and together the
+    whole dataset, equal to JAX's reads of the same shards; each shard
+    builds a cache of its own, and its warm replay splits the same way."""
+    d, ref, _ = dataset
+    reads, dirs = {}, {}
+    for k in (0, 1):
+        monkeypatch.setenv("PHOTON_INGEST_SHARD", f"{k}/2")
+        cold = resolve_reader(d, SHARDS, id_tags=TAGS, mode="use")
+        assert cold.state == "miss" and cold.paths == tcache.list_source_files([d])[k::2]
+        reads[k] = cold.read()
+        _assert_game_data_equal(reads[k], jcache.resolve_reader(
+            d, J_SHARDS, id_tags=TAGS, mode="off").read())
+        warm = resolve_reader(d, SHARDS, id_tags=TAGS, mode="require")
+        assert warm.state == "hit" and warm.paths == cold.paths
+        _assert_game_data_equal(reads[k], warm.read())
+        dirs[k] = warm.cache_dir
+        assert dirs[k] == default_cache_dir(cold.paths, SHARDS, TAGS)
+    assert dirs[0] != dirs[1]
+    assert reads[0].num_samples + reads[1].num_samples == ref.num_samples == 41
+    uids = [u for k in (0, 1) for u in reads[k].uids if u is not None]
+    assert sorted(uids) == sorted(u for u in ref.uids if u is not None)
+
+
+def test_cache_tool_builds_the_shard_the_front_door_reads(dataset, monkeypatch, capsys):
+    d, _, _ = dataset
+    monkeypatch.setenv("PHOTON_INGEST_SHARD", "1/2")
+    assert cache_tool.run(["build", "--input-data-directories", d,
+                           "--feature-shard-configurations", SHARD_ARG, "--id-tags", "userId",
+                           "--chunk-rows", "8"]) == 0
+    assert "ingest shard 1/2: 2 part files" in capsys.readouterr().out
+    warm = resolve_reader(d, SHARDS, id_tags=TAGS, mode="require")
+    assert warm.state == "hit" and len(warm.paths) == 2
+    assert warm.read().num_samples == 3 + 9  # parts 1 and 3
+
+
+def test_live_world_resolves_ingest_shard_and_fleet_process(a7_ranks):  # noqa: F811
+    """In a two-rank Gloo world with no variable set, each rank resolves
+    ``(rank, 2)`` for its ingest shard and its fleet coordinates, the
+    fleet plane is on, and the ranks' files are the round-robin halves."""
+    got = [worker.load(a7_ranks, "ingest_live", 2, 1, r) for r in range(2)]
+    files = tcache.list_source_files([os.path.join(a7_ranks, "parts")])
+    for r, g in enumerate(got):
+        assert g["shard"] == (r, 2) and g["process"] == (r, 2) and g["fleet_enabled"]
+        assert g["files"] == files[r::2]
+        assert g["obs_dir"] == os.path.join(a7_ranks, "obs", f"p{r}")

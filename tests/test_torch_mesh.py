@@ -97,6 +97,22 @@ def ranks(tmp_path_factory):
     return _once(tmp_path_factory, "mesh-ranks", build)
 
 
+@pytest.fixture(scope="module")
+def a7_ranks(tmp_path_factory):
+    """The two-rank tasks of the rest of the mesh, spawned once for the
+    session (tests/test_torch_{cache,fleet,mesh}.py read them): the live
+    world's ingest shards on five part files, a meshed training driver,
+    the fleet plane, the lint's ``--programs``."""
+    from test_cache import _write_parts
+
+    def build(out):
+        _write_parts(os.path.join(out, "parts"), seed=3)
+        worker.spawn(2, out, [("ingest_live", 2, 1), ("mesh_driver", 2, 1), ("fleet", 2, 1),
+                              ("programs", 1, 2)])
+
+    return _once(tmp_path_factory, "a7-ranks", build)
+
+
 def _jax_estimator(mesh=None, mf=False):
     coords = worker.configs(jcfg, jprob, JOptConfig, JTask, mf=mf)
     return JEstimator(task=JTask.LOGISTIC_REGRESSION, coordinate_configs=coords,
@@ -474,3 +490,77 @@ def test_distribute_batch_and_fetch_global_on_a_world_of_one(world_of_one):
     state.add_(1)
     np.testing.assert_array_equal(host, np.arange(4.0))
     assert host.dtype == np.float64
+
+
+# ---------------------------------------------------------------------------
+# the rest of the mesh: ingest on a mesh, the census and the contracts
+# ---------------------------------------------------------------------------
+
+
+def test_meshed_driver_reads_every_part_file(a7_ranks):
+    """A training driver run with ``--mesh 2x1`` in a live two-rank world
+    (where ``cache.ingest_shard`` resolves ``(rank, 2)``) still reads every
+    part file on every rank: a meshed fit needs the whole input, so its
+    reads pin ingest shard ``(0, 1)``."""
+    for rank in range(2):
+        got = worker.load(a7_ranks, "mesh_driver", 2, 1, rank)
+        # the input directory as given (a shard would narrow it to its files)
+        assert got["paths"] == [[os.path.join(a7_ranks, "parts")]] and got["rows"] == 41
+
+
+@pytest.mark.parametrize("d,e,mf", FITS, ids=FIT_IDS)
+def test_meshed_fit_census_passes_the_contracts(ranks, d, e, mf):
+    """On every rank of the 2x1, 1x2 and 2x2 fits the census holds to each
+    coordinate's ``spmd_contract()``: a random effect's solve makes no
+    collective (its score folds over the entity axis), the fixed effect
+    all-reduces d-vectors in its solve and gathers its [N] vectors by
+    name, and every table holds only this rank's range."""
+    for rank in range(d * e):
+        got = _port_fit(ranks, d, e, mf, rank)
+        assert got["contract_findings"] == [] and got["placement_findings"] == []
+        rows = {r["program"]: r for r in got["comm"]}
+        assert not {"user:train", "item:train"} & set(rows)
+        assert {s["op"] for s in rows["fixed:train"]["collective_sites"]} <= {
+            "all-reduce", "all-gather"}
+        assert {s["site"] for s in rows["fixed:train"]["collective_sites"]
+                if s["op"] == "all-gather"} == {"windowed_fe_rows"}
+        if e > 1:
+            assert rows["user:score"]["collective_sites"][0]["site"] == "re_score_fold"
+
+
+@pytest.fixture(scope="module")
+def jax_fixture_census():
+    """JAX's communication census of its lint's meshed estimator fixture
+    (photon_tpu/analysis/cli.py) on a 1x2 mesh of the virtual devices:
+    program → the collective families in it."""
+    from photon_tpu.analysis.cli import build_estimator_fixture as j_fixture
+    from photon_tpu.analysis.hlo import audit_coordinates
+
+    report = audit_coordinates(j_fixture(mesh=_jax_mesh(1, 2)))
+    out = {r["program"]: {s["op"] for s in r["collective_sites"]} for r in report.comm}
+    jax.clear_caches()
+    return out
+
+
+def test_programs_census_on_two_ranks_matches_jax(a7_ranks, jax_fixture_census):
+    """``python -m photon_tpu_torch.analysis --programs`` on two Gloo CPU
+    ranks (every rank on the entity axis, as JAX's gate puts its devices)
+    passes on both, and its census finds collectives in the same
+    coordinates as JAX's census of its meshed fixture: the fixed effect's
+    solve all-reduces, the random effect's solve makes none and its score
+    folds over the entity axis."""
+    def coords_with(census):
+        # "fit" holds what ran outside every coordinate (the export's
+        # gathers), which JAX's census of compiled programs has no row for
+        return {p.split(":")[0] for p, ops in census.items() if ops} - {"fit"}
+
+    for rank in range(2):
+        got = worker.load(a7_ranks, "programs", 1, 2, rank)
+        assert got["rc"] == 0, got["out"]
+        census = {r["program"]: {s["op"] for s in r["collective_sites"]}
+                  for r in got["rows"] if r.get("kind") == "comm-census"}
+        assert coords_with(census) == coords_with(jax_fixture_census) == {"global", "per_user"}
+        assert census["global:train"] == {"all-reduce"}
+        assert jax_fixture_census["global:sweep:False"] == {"all-reduce"}
+        assert "per_user:train" not in census and census["per_user:score"] == {"all-reduce"}
+        assert not [r for r in got["rows"] if r.get("check")]  # no contract finding

@@ -245,22 +245,22 @@ def test_series_knob_and_process_info(monkeypatch):
 
 @pytest.mark.parametrize("var,value", [("PHOTON_OBS_HTTP_PORT", "0"), ("PHOTON_OBS_FLEET", "1")])
 def test_live_plane_refuses_unported_layers(tmp_path, monkeypatch, var, value):
-    """Of the JAX plane's switches only ``PHOTON_OBS_FLEET=1`` is refused
-    (ROADMAP A7), leaving nothing armed; ``PHOTON_OBS_HTTP_PORT`` arms the
-    endpoints with the plane and its close stops them. The name dates from
+    """No switch of the JAX plane is refused any more: ``PHOTON_OBS_FLEET=1``
+    arms the fleet publisher with the plane and ``PHOTON_OBS_HTTP_PORT``
+    the endpoints, and the plane's close stops both. The name dates from
     when both were refused; it is kept so that the test's history reads
     on."""
     monkeypatch.setenv(var, value)
-    if var == "PHOTON_OBS_FLEET":
-        with pytest.raises(NotImplementedError, match=f"{var}.*ROADMAP A7"):
-            obs.live_plane(tmp_path / "obs")
-    else:
-        plane = obs.live_plane(tmp_path / "obs")
-        try:
+    plane = obs.live_plane(tmp_path / "obs")
+    try:
+        if var == "PHOTON_OBS_FLEET":
+            assert plane.fleet_publisher is obs.fleet.get_publisher() is not None
+            assert (tmp_path / "obs" / obs.fleet.REGISTRY_FILENAME).exists()
+        else:
             assert plane.server is obs.http.get_server() and plane.server.port > 0
-        finally:
-            plane.close()
-        assert obs.http.get_server() is None
+    finally:
+        plane.close()
+    assert obs.http.get_server() is None and obs.fleet.get_publisher() is None
     assert obs.flight.get_recorder() is None and obs.series.get_flusher() is None
 
 
@@ -307,22 +307,24 @@ def test_run_profile_success_failure_and_opt_out(tmp_path, monkeypatch):
 
 
 def test_trace_switch_still_raises_naming_a5b(monkeypatch):
-    """``PHOTON_TRACE`` is no longer refused: ``refuse_unported_env``
-    passes it and ``causal.ensure_from_env`` arms the plane; the one
-    switch still refused is ``PHOTON_OBS_FLEET=1``, naming ROADMAP A7.
-    The name dates from when ``PHOTON_TRACE`` was refused, naming A5b; it
-    is kept so that the test's history reads on."""
+    """``PHOTON_TRACE`` is no longer refused: ``causal.ensure_from_env``
+    arms the plane; nor is ``PHOTON_OBS_FLEET``, which turns the fleet
+    plane on (``1``) or off (``0``) as JAX's does and refuses any other
+    value. The name dates from when ``PHOTON_TRACE`` was refused, naming
+    A5b; it is kept so that the test's history reads on."""
     monkeypatch.setenv("PHOTON_TRACE", "1")
-    obs.refuse_unported_env()
     try:
         assert obs.causal.ensure_from_env() is obs.causal.active() is not None
     finally:
         obs.causal.clear()
-    monkeypatch.setenv("PHOTON_OBS_FLEET", "1")
-    with pytest.raises(NotImplementedError, match="PHOTON_OBS_FLEET.*ROADMAP A7"):
-        obs.refuse_unported_env()
-    monkeypatch.setenv("PHOTON_OBS_FLEET", "0")
-    obs.refuse_unported_env()
+    from photon_tpu.obs import fleet as jfleet
+
+    for value, on in (("1", True), ("0", False), ("", False)):
+        monkeypatch.setenv("PHOTON_OBS_FLEET", value)
+        assert obs.fleet.fleet_enabled() is jfleet.fleet_enabled() is on
+    monkeypatch.setenv("PHOTON_OBS_FLEET", "yes")
+    with pytest.raises(ValueError, match="PHOTON_OBS_FLEET"):
+        obs.fleet.fleet_enabled()
 
 
 def test_retry_counters_use_the_jax_names():

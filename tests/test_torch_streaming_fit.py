@@ -491,3 +491,49 @@ def test_supervised_restart_of_a_streaming_fit(tmp_path):
     finally:
         monkey.undo()
     assert len(calls) == 1
+
+
+# ---------------------------------------------------------------------------
+# per-process ingest shards
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_streaming_fit_on_an_ingest_shard_equals_jax(tmp_path, monkeypatch, k):
+    """A process of a two-process run (``PHOTON_INGEST_SHARD=k/2``) reads
+    its round-robin half of the part files and fits it streaming; the
+    port's fit is JAX's on the same shard within 1e-9 at float64 (the
+    tolerance of test_streaming_fit_equals_jax)."""
+    from test_cache import _write_parts
+
+    from photon_tpu.cache import resolve_reader as j_resolve
+    from photon_tpu.io.data_reader import FeatureShardConfig as JShard
+    from photon_tpu_torch.cache import resolve_reader as t_resolve
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig as TShard
+
+    d = str(tmp_path / "parts")
+    sizes = (40, 60, 50, 70)
+    _write_parts(d, seed=5, n=sum(sizes), part_sizes=sizes, users=12)
+    monkeypatch.setenv("PHOTON_INGEST_SHARD", f"{k}/2")
+    j_data = j_resolve(d, {"g": JShard(feature_bags=("features",), has_intercept=False)},
+                       id_tags=("userId",), mode="off").read()
+    t_data = t_resolve(d, {"g": TShard(feature_bags=("features",), has_intercept=False)},
+                       id_tags=("userId",), mode="off").read()
+    assert t_data.num_samples == j_data.num_samples == sum(sizes[k::2])
+    models = []
+    for cfg, prob, OptConfig, task, Est, kw, data in (
+        (jcfg, jprob, JOptConfig, JTask.LINEAR_REGRESSION, JEstimator, {"dtype": jnp.float64},
+         j_data),
+        (tcfg, tprob, TOptConfig, TTask.LINEAR_REGRESSION, GameEstimator,
+         {"dtype": torch.float64, "device": "cpu"}, t_data),
+    ):
+        user = cfg.RandomEffectCoordinateConfig(
+            random_effect_type="userId", feature_shard="g",
+            optimization=_opt(prob, OptConfig, task), regularization_weights=(1.0,))
+        est = Est(task=task, coordinate_configs={"user": user}, update_sequence=["user"],
+                  descent_iterations=2, **kw)
+        models.append(est.fit(data, stream=32)[0].model.coordinates["user"])
+    jmap, tmap = _entity_coef_map(models[0]), _entity_coef_map(models[1])
+    assert jmap.keys() == tmap.keys() and len(tmap) > 1
+    for key in jmap:
+        np.testing.assert_allclose(tmap[key], np.asarray(jmap[key]), rtol=1e-9, atol=1e-9)

@@ -14,6 +14,7 @@ the same builders.
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import pickle
 import uuid
@@ -179,13 +180,20 @@ def task_fit(mesh, out, *, mf=False):
 
     cls.train, cls.score = spy(train, "train"), spy(score, "score")
     try:
-        est = port_estimator(mf=mf)
+        est = port_estimator(mf=mf, keep_coordinates=True)
         res = est.fit(port_data(), mesh=mesh)[0]
     finally:
         cls.train, cls.score = train, score
+    from photon_tpu_torch.analysis import spmd
+
     return {"model": model_arrays(res.model), "scores": res.scores,
             "census": est.last_fit_stats["shard_census"], "mesh": est.last_fit_stats["mesh"],
-            "re_train_collectives": seen["train"], "re_score_collectives": seen["score"]}
+            "re_train_collectives": seen["train"], "re_score_collectives": seen["score"],
+            "comm": spmd.communication_census(mesh.census),
+            "contract_findings": [f.render() for f in spmd.check_contracts(
+                est.last_coordinates, mesh.census)],
+            "placement_findings": [f.render() for f in spmd.check_placement(
+                est.last_coordinates, mesh)]}
 
 
 def task_checkpoint(mesh, out):
@@ -272,6 +280,137 @@ def task_rmatvec(mesh, out):
     return {"out": got.numpy().copy(), "shard_instances": int(shard.rows.shape[0])}
 
 
+def task_ingest_live(mesh, out):
+    """What a process of the live world resolves: its ingest shard, its
+    fleet coordinates and its part files of ``<out>/parts``."""
+    from photon_tpu_torch.cache import ingest_shard, list_source_files
+    from photon_tpu_torch.obs import fleet
+
+    shard = ingest_shard()
+    info = fleet.process_info()
+    return {"shard": shard, "process": (info.index, info.count),
+            "fleet_enabled": fleet.fleet_enabled(info),
+            "obs_dir": fleet.obs_dir(out),
+            "files": list_source_files([os.path.join(out, "parts")], shard=shard)}
+
+
+#: the meshed training driver's fixed-effect command line on ``<out>/parts``
+def driver_argv(out, *extra):
+    return ["--input-data-directories", os.path.join(out, "parts"),
+            "--root-output-directory", os.path.join(out, "driver-mesh"),
+            "--training-task", "LINEAR_REGRESSION",
+            "--feature-shard-configurations", "name=g,feature.bags=features,intercept=false",
+            "--coordinate-configurations",
+            "name=fixed,feature.shard=g,optimizer=LBFGS,max.iter=3,regularization=L2,"
+            "reg.weights=1",
+            "--coordinate-update-sequence", "fixed", "--coordinate-descent-iterations", "1",
+            "--override-output-directory", *extra]
+
+
+def task_mesh_driver(mesh, out):
+    """The training driver with ``--mesh 2x1`` in the live two-rank world:
+    the part files each rank's reads kept."""
+    from photon_tpu_torch.cli import game_base, game_training
+
+    seen = []
+    resolve = game_base.resolve_reader
+
+    def spied(paths, *a, **kw):
+        r = resolve(paths, *a, **kw)
+        seen.append(list(r.paths))
+        return r
+
+    game_base.resolve_reader = spied
+    try:
+        res = game_training.run(driver_argv(out, "--mesh", "2x1"), device="cpu")
+    finally:
+        game_base.resolve_reader = resolve
+    return {"paths": seen, "rows": int(res["results"][0].scores.shape[0])}
+
+
+FLEET_STALL_S, FLEET_HEARTBEAT_S = 5.0, 0.1
+
+
+def task_fleet(mesh, out):
+    """The fleet plane of a two-rank fit: each rank's telemetry session on
+    the shared root ``<out>/fleet`` (the plane is on by itself in a world
+    of two), the warm-up on, rank 1's second sweep stalled. After the fit
+    rank 1 stops itself (SIGSTOP) while rank 0 waits for it in a Gloo
+    collective; rank 0's watcher thread sees its heartbeat go stale and
+    continues it (SIGCONT), then sees it ok again."""
+    import signal
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    from photon_tpu_torch import obs
+    from photon_tpu_torch.cli import game_base
+    from photon_tpu_torch.util import faults
+
+    root = os.path.join(out, "fleet")
+    os.environ["PHOTON_OBS_HEARTBEAT_S"] = str(FLEET_HEARTBEAT_S)
+    seen = {"stale": None, "ok_again": None, "in_barrier_when_stale": None}
+    in_barrier = threading.Event()
+
+    def watch():
+        froot = os.path.join(root, "obs")
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 60:
+            rows = {w["process_index"]: w for w in obs.fleet.workers_summary(froot)}
+            w1 = rows.get(1)
+            if w1 is not None and seen["stale"] is None and w1["status"] != "ok":
+                seen["stale"] = w1["status"]
+                seen["in_barrier_when_stale"] = in_barrier.is_set()
+                os.kill(w1["pid"], signal.SIGCONT)
+            elif seen["stale"] is not None and w1["status"] == "ok":
+                seen["ok_again"] = True
+                return
+            time.sleep(0.02)
+
+    with game_base.run_profile(root):
+        if mesh.rank == 1:
+            faults.install(f"descent.sweep@2=stall:{FLEET_STALL_S}")
+        try:
+            est = port_estimator(precompile=True, keep_coordinates=True)
+            res = est.fit(port_data(), mesh=mesh)[0]
+        finally:
+            faults.clear()
+        bd = obs.fleet.get_breakdown()
+        dist.barrier()
+        if mesh.rank == 1:
+            os.kill(os.getpid(), signal.SIGSTOP)  # rank 0's watcher continues it
+        else:
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+            in_barrier.set()
+        dist.barrier()
+        if mesh.rank == 0:
+            watcher.join(60)
+        paths = game_base.export_run_profile(root, meta={"task": "fleet"})
+    return {"model": model_arrays(res.model), "seen": seen, "breakdown": bd,
+            "paths": paths, "obs_dir": obs.fleet.obs_dir(root),
+            "dispatches": [t["dispatches"] for t in res.tracker if "sweep_seconds" in t]}
+
+
+def task_programs(mesh, out):
+    """``python -m photon_tpu_torch.analysis --programs`` on the CPU in the
+    live world: its exit code and its JSONL rows."""
+    import contextlib
+    import io
+
+    from photon_tpu_torch.analysis.cli import main
+
+    path = os.path.join(out, f"lint-{mesh.rank}.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = main(["--root", os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "--programs", "--device", "cpu", "--jsonl", path])
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return {"rc": rc, "rows": [r for r in rows if r.get("engine") != "ast"],
+            "out": text.getvalue()}
+
+
 TASKS = {
     "fit": task_fit,
     "fit_mf": lambda mesh, out: task_fit(mesh, out, mf=True),
@@ -279,6 +418,10 @@ TASKS = {
     "stale": task_stale,
     "write_fault": task_write_fault,
     "rmatvec": task_rmatvec,
+    "ingest_live": task_ingest_live,
+    "mesh_driver": task_mesh_driver,
+    "fleet": task_fleet,
+    "programs": task_programs,
 }
 
 
