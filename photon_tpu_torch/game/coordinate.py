@@ -38,6 +38,16 @@ it), and ``train`` or ``score`` called on its own is one, as in JAX.
 These are coordinate-level sites, not CUDA kernels: a step launches
 many.
 
+Spans (recorded while telemetry is on): a sweep step's two programs,
+``coordinate.train`` and ``coordinate.score``, each with the coordinate
+id of the enclosing ``collective_scope``; ``re.bucket`` around each
+lane-batched solve of a random effect (lanes, rows, d). The build's
+stages are ``obs.stage`` spans, whose walls also land in the fit's
+``last_fit_stats["build_stages"]``: ``build.fe_windows`` around the
+fixed effect's host window layout and ``build.placement`` around each
+coordinate's host-to-device copies (the fixed effect's ELL, columns and
+windows; each random-effect bucket's ``place``).
+
 Placement: each random-effect bucket goes to the device inside
 ``retry_call(..., label="device_put")`` with the fault point
 ``coordinate.placement`` inside the retried thunk, as JAX's
@@ -61,6 +71,7 @@ touches no state, score, work counter or fault point of the fit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import types
 
 import numpy as np
@@ -91,7 +102,11 @@ from photon_tpu_torch.obs.health import sweep_health
 from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD, loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import matvec
-from photon_tpu_torch.ops.sparse_windows import maybe_build_windows, windows_wanted
+from photon_tpu_torch.ops.sparse_windows import (
+    column_windows_from_numpy,
+    maybe_window_layout,
+    windows_wanted,
+)
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.parallel.distributed import fetch_global
@@ -102,6 +117,7 @@ from photon_tpu_torch.parallel.mesh import (
     SCORE_GATHER_SITE,
     all_reduce_sum,
     collective_scope,
+    current_scope,
     entity_range,
     gather_entities,
     gather_rows,
@@ -198,7 +214,8 @@ def one_iteration(config: GLMProblemConfig) -> GLMProblemConfig:
 def device_barrier(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (nothing on the CPU)."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)  # phl-ok: PHL002 a warm-up's end, so its wall is honest
+        with obs.host_sync("coordinate.warmup"):
+            torch.cuda.synchronize(device)  # phl-ok: PHL002 a warm-up's end, so its wall is honest
 
 
 class ProgramKeys:
@@ -235,11 +252,14 @@ class Coordinate:
     def sweep_step(self, total: Tensor, score: Tensor, state):
         """→ (new_state, new_score, new_total, info)"""
         self.programs.dispatch(SWEEP_KEY)
+        cid = current_scope()[0]
         with obs.dispatch_site():
             residual = total - score
-            with collective_scope(program="train"):
+            with obs.span("coordinate.train", coordinate=cid), \
+                    collective_scope(program="train"):
                 new_state, info = self.train(residual, state)
-            with collective_scope(program="score"):
+            with obs.span("coordinate.score", coordinate=cid), \
+                    collective_scope(program="score"):
                 new_score = self.score(new_state)
         return new_state, new_score, residual + new_score, info
 
@@ -358,36 +378,43 @@ class FixedEffectCoordinate(Coordinate):
 
         feat_dtype = torch.bfloat16 if config.bf16_features else dtype
         windows = None
+        placement = functools.partial(obs.stage, "build.placement", shard=config.feature_shard)
         if _use_sparse(config.representation, shard, dtype, config.bf16_features):
             ell_idx, ell_val = shard.to_ell(dtype=numpy_dtype(dtype))
-            # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
-            values = torch.as_tensor(ell_val).to(device=device, dtype=feat_dtype)
+            with placement():
+                # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
+                values = torch.as_tensor(ell_val).to(device=device, dtype=feat_dtype)
             if config.bf16_features:
                 # the window layout holds the same (rounded) values
                 ell_val = values.to("cpu", dtype).numpy()
-            windows = maybe_build_windows(
-                ell_idx, ell_val, shard.num_cols, device=device, dtype=dtype,
-                force=config.column_windows or windows_wanted(fit_device, shard.num_cols),
-            )
-            batch = SparseBatch(
-                # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
-                indices=torch.as_tensor(ell_idx).to(device=device, dtype=torch.int64),
-                values=values,
-                labels=col(data.labels),
-                offsets=col(data.offsets),
-                weights=col(weights),
-                windows=windows,
-            )
+            with obs.stage("build.fe_windows", shard=config.feature_shard):
+                layout = maybe_window_layout(
+                    ell_idx, ell_val, shard.num_cols, device=device,
+                    force=config.column_windows or windows_wanted(fit_device, shard.num_cols),
+                )
+            with placement():
+                if layout is not None:
+                    windows = column_windows_from_numpy(layout, device=device, dtype=dtype)
+                batch = SparseBatch(
+                    # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
+                    indices=torch.as_tensor(ell_idx).to(device=device, dtype=torch.int64),
+                    values=values,
+                    labels=col(data.labels),
+                    offsets=col(data.offsets),
+                    weights=col(weights),
+                    windows=windows,
+                )
         else:
-            batch = LabeledBatch(
-                # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
-                features=torch.as_tensor(shard.to_dense(dtype=numpy_dtype(dtype))).to(
-                    device=device, dtype=feat_dtype
-                ),
-                labels=col(data.labels),
-                offsets=col(data.offsets),
-                weights=col(weights),
-            )
+            with placement():
+                batch = LabeledBatch(
+                    # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
+                    features=torch.as_tensor(shard.to_dense(dtype=numpy_dtype(dtype))).to(
+                        device=device, dtype=feat_dtype
+                    ),
+                    labels=col(data.labels),
+                    offsets=col(data.offsets),
+                    weights=col(weights),
+                )
         if mesh.distributed:
             batch = shard_batch(batch, mesh)
             if windows is not None:
@@ -591,11 +618,12 @@ class RandomEffectCoordinate(Coordinate):
                 placed.clear()  # the retry must not hold this attempt's tensors
                 raise
 
-        device_buckets = [
-            retry_call(lambda b=b: place(b), policy=PLACEMENT_RETRY_POLICY,
-                       classify=is_transient, label="device_put")
-            for b in dataset.buckets
-        ]
+        with obs.stage("build.placement", random_effect=config.random_effect_type):
+            device_buckets = [
+                retry_call(lambda b=b: place(b), policy=PLACEMENT_RETRY_POLICY,
+                           classify=is_transient, label="device_put")
+                for b in dataset.buckets
+            ]
         return RandomEffectCoordinate(
             config=config,
             dataset=dataset,
@@ -658,10 +686,11 @@ class RandomEffectCoordinate(Coordinate):
 
     def _train(self, residual_scores: Tensor, state: list[Tensor], config=None):
         res_pad = torch.cat([residual_scores, residual_scores.new_zeros(1)])
-        infos = [
-            self._solve_bucket(db, w0, res_pad, config)
-            for db, w0 in zip(self.device_buckets, state)
-        ]
+        infos = []
+        for db, w0 in zip(self.device_buckets, state):
+            lanes, rows, d = db.features.shape
+            with obs.span("re.bucket", cat="solver", lanes=lanes, rows=rows, d=d):
+                infos.append(self._solve_bucket(db, w0, res_pad, config))
         return [r.x for r in infos], infos
 
     def _train_warm(self, residual_scores: Tensor, state: list[Tensor]):

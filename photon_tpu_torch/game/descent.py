@@ -37,11 +37,20 @@ Work counters, with JAX's names and meanings: each sweep row carries
 ``dispatches`` (the coordinate-level launch sites of ``obs.record_dispatch``
 in the sweep: one per coordinate step, one per streamed chunk, one per
 injected NaN; not CUDA kernels), ``compiles`` and ``compile_seconds``
-(compile_watch's one-time costs) and ``granularity``. The spans
-``descent.initial_score`` and ``descent.coordinate`` (each carrying its
-own ``dispatches``), ``descent.sweep`` (carrying those counters) and
+(compile_watch's one-time costs) and ``granularity``. Each coordinate
+row and each sweep row (the sweep's coordinates and its barrier) also
+carries ``host_syncs``, its blocking reads of the card per sync site of
+``obs.host_sync`` (counted whether or not telemetry is on), and, while
+telemetry is on, ``sync_wait_s``, the host's wait in them per site. The
+descent's own sites: ``descent.barrier`` (the health copy),
+``descent.coordinate_barrier`` (the per-coordinate sync of the profiling
+mode, or the barrier of a sweep with no device health) and
+``descent.validation``. The spans ``descent.initial_score`` and
+``descent.coordinate`` (each carrying its own ``dispatches``, the latter
+its ``host_syncs`` too), ``descent.sweep`` (carrying those counters) and
 ``descent.barrier`` enter ``torch.profiler.record_function`` while
-telemetry is on, so a profiler trace splits device work by coordinate.
+telemetry is on, so a profiler trace splits device work by coordinate
+(``obs.export.join_device_trace`` gives each range its coordinate).
 Each sweep's start and barrier arrival go to the fleet plane's sweep log
 (``obs.fleet.record_sweep``, a no-op without a publisher), and each
 coordinate's score and step run inside ``parallel.mesh.collective_scope``
@@ -139,8 +148,9 @@ def precompile_coordinates(
 
 def _barrier(t: torch.Tensor) -> None:
     if t.device.type == "cuda":
-        # phl-ok: PHL002 the sweep's device barrier (per-coordinate granularity, or no device health to copy)
-        torch.cuda.synchronize(t.device)
+        with obs.host_sync("descent.coordinate_barrier"):
+            # phl-ok: PHL002 the sweep's device barrier (per-coordinate granularity, or no device health to copy)
+            torch.cuda.synchronize(t.device)
 
 
 def clone_state(state):
@@ -188,8 +198,9 @@ def _read_health(health_dev: Mapping[str, dict], total: torch.Tensor) -> dict:
         for cid in on_device
         for k in ("loss", "gnorm", "finite")
     ]
-    # phl-ok: PHL002 the sweep's one health copy, which is also its barrier
-    vals = torch.stack(flat).cpu().tolist()
+    with obs.host_sync("descent.barrier"):
+        # phl-ok: PHL002 the sweep's one health copy, which is also its barrier
+        vals = torch.stack(flat).cpu().tolist()
     read = {
         cid: {
             "loss": vals[3 * i],
@@ -289,6 +300,7 @@ def run_coordinate_descent(
         # fault injection (a no-op without a plan): crash or fail mid-fit
         faults.fault_point("descent.sweep")
         d0 = obs.dispatch_count()
+        s0 = obs.sync_snapshot()
         c0 = compile_watch.snapshot()
         health_dev: dict[str, dict] = {}
         with obs.span("descent.sweep", iteration=it) as sweep_span:
@@ -299,6 +311,7 @@ def run_coordinate_descent(
                 obs.flight.record("coordinate", iteration=it, coordinate=cid)
                 with obs.span("descent.coordinate", iteration=it, coordinate=cid) as coord_span:
                     dc0 = obs.dispatch_count()
+                    sc0 = obs.sync_snapshot()
                     if clause is not None and clause.kind == "nan":
                         states[cid] = _poison_state_nan(states[cid])
                     with collective_scope(cid):
@@ -311,16 +324,20 @@ def run_coordinate_descent(
                         health_dev[cid] = sweep_health(states[cid], info)
                     if per_coordinate:
                         _barrier(scores[cid])
-                    coord_span.set(dispatches=obs.dispatch_count() - dc0)
+                    syncs, waits = obs.syncs_since(sc0)
+                    coord_span.set(dispatches=obs.dispatch_count() - dc0,
+                                   host_syncs=sum(syncs.values()))
                 obs.counter("descent.coordinate_steps")
-                tracker.append(
-                    {
-                        "iteration": it,
-                        "coordinate": cid,
-                        "seconds": coord_span.duration_s,
-                        "info": info,
-                    }
-                )
+                row = {
+                    "iteration": it,
+                    "coordinate": cid,
+                    "seconds": coord_span.duration_s,
+                    "info": info,
+                    "host_syncs": syncs,
+                }
+                if waits:
+                    row["sync_wait_s"] = waits
+                tracker.append(row)
             # the sweep's total summed afresh (see the module docstring)
             total = _sum_scores(scores)
             barrier_s = 0.0
@@ -332,9 +349,10 @@ def run_coordinate_descent(
                 barrier_s = bar_span.duration_s
             cw = compile_watch.delta(c0)
             dispatches = obs.dispatch_count() - d0
+            syncs, waits = obs.syncs_since(s0)
             sweep_span.set(dispatches=dispatches, compiles=cw["backend_compiles"],
                            compile_seconds=cw["backend_compile_s"], barrier_seconds=barrier_s,
-                           granularity=tracker_granularity)
+                           granularity=tracker_granularity, host_syncs=sum(syncs.values()))
         sweep_row = {
             "iteration": it,
             "sweep_seconds": sweep_span.duration_s,
@@ -345,7 +363,10 @@ def run_coordinate_descent(
             "compile_seconds": cw["backend_compile_s"],
             "granularity": tracker_granularity,
             "health": health,
+            "host_syncs": syncs,
         }
+        if waits:
+            sweep_row["sync_wait_s"] = waits
         tracker.append(sweep_row)
         obs.counter("descent.sweeps")
         obs.histogram("descent.sweep_seconds", sweep_row["sweep_seconds"])
@@ -388,8 +409,9 @@ def run_coordinate_descent(
                 )
         if validation_fn is not None:
             t_val = time.perf_counter()
-            # phl-ok: PHL002 the validation metric, read once per sweep after the barrier
-            metric = float(validation_fn(states))
+            with obs.host_sync("descent.validation"):
+                # phl-ok: PHL002 the validation metric, read once per sweep after the barrier
+                metric = float(validation_fn(states))
             tracker.append(
                 {
                     "iteration": it,

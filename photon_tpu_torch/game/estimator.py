@@ -144,7 +144,10 @@ class GameEstimator:
     ``sweep_complete``, ``training_finish`` and ``training_failure`` with
     the JAX package's payloads. ``last_fit_stats`` holds the fit's phase
     walls, its ``dispatches`` (the descent's work counter), ``ingest`` and
-    the compile_watch delta, as JAX's does.
+    the compile_watch delta, as JAX's does, and ``build_stages``: the host
+    build's stage walls (the spans ``fit.shape_profile``, ``build.pad``,
+    ``build.re_dataset``, ``build.fe_windows``, ``build.placement``),
+    measured whether or not telemetry is on.
 
     ``on_divergence`` is what a non-finite sweep does (obs/health.py):
     ``"raise"`` (the default), ``"warn"`` or ``"halt_coordinate"``; None
@@ -236,7 +239,7 @@ class GameEstimator:
     def _build_coordinates(self, data: GameData, initial_model=None, shape_pool=None,
                            stream_cfg: StreamConfig | None = None):
         if shape_pool is None:
-            with obs.span("fit.shape_profile"):
+            with obs.stage("fit.shape_profile", cat="phase"):
                 shape_pool = self._build_shape_pool(data, initial_model)
         norm = self.normalization_contexts or {}
         coords = {}
@@ -245,11 +248,12 @@ class GameEstimator:
         for cid, cfg in self.coordinate_configs.items():
             ds = None
             if isinstance(cfg, RandomEffectCoordinateConfig):
-                ds = build_random_effect_dataset(
-                    data, cfg, seed=self.seed, entity_shards=entity_shards,
-                    existing_model_keys=self._existing_model_keys(cid, initial_model),
-                    shape_pool=shape_pool,
-                )
+                with obs.stage("build.re_dataset", coordinate=cid):
+                    ds = build_random_effect_dataset(
+                        data, cfg, seed=self.seed, entity_shards=entity_shards,
+                        existing_model_keys=self._existing_model_keys(cid, initial_model),
+                        shape_pool=shape_pool,
+                    )
                 logger.info(
                     "coordinate %s: %d entities in %d buckets (padding waste %.1f%%)",
                     cid, ds.num_entities, len(ds.buckets),
@@ -464,8 +468,10 @@ class GameEstimator:
         t0 = time.perf_counter()
         n_rows = data.num_samples
         mesh = self.mesh
-        with obs.span("fit.data_build", num_samples=int(data.num_samples)):
-            data = pad_game_data(data, mesh.size)
+        with obs.stage_walls() as build_stages, \
+                obs.span("fit.data_build", num_samples=int(data.num_samples)):
+            with obs.stage("build.pad"):
+                data = pad_game_data(data, mesh.size)
             coordinates = self._build_coordinates(data, initial_model, shape_pool, stream_cfg)
         census = None
         if mesh.distributed:
@@ -597,6 +603,10 @@ class GameEstimator:
             obs.fleet.publish_device_breakdown(coordinates, done[-1].tracker)
         self.last_fit_stats = {
             "build_s": build_s,
+            # the host build's stage walls summed by stage name (obs.stage):
+            # fit.shape_profile, build.pad, build.re_dataset, build.fe_windows,
+            # build.placement
+            "build_stages": build_stages,
             "validation_build_s": validation_build_s,
             "grid_s": grid_s,
             "wall_s": time.perf_counter() - t0,

@@ -314,8 +314,9 @@ class _Stager:
         slot = self.slot
         self.slot = (slot + 1) % DEVICE_SLOTS
         if self.copied[slot] is not None:
-            # phl-ok: PHL002 staging slot reuse: the slot's last copy must land
-            self.copied[slot].synchronize()  # the slot's last copy has landed
+            with obs.host_sync("stream.slot_reuse"):
+                # phl-ok: PHL002 staging slot reuse: the slot's last copy must land
+                self.copied[slot].synchronize()  # the slot's last copy has landed
         bufs = []
         for i, t in enumerate(host):
             key = (i, tuple(t.shape), t.dtype)
@@ -556,8 +557,9 @@ def _warm_chunk(stager: _Stager, telemetry: StreamTelemetry, host: tuple, run_fn
     out = run_fn(dev)
     del dev
     for t in out:
-        # phl-ok: PHL002 the warm-up chunk's read-back, as a stream reads a chunk back
-        t.to(_HOST)
+        with obs.host_sync("stream.warmup_readback"):
+            # phl-ok: PHL002 the warm-up chunk's read-back, as a stream reads a chunk back
+            t.to(_HOST)
     device_barrier(device)
 
 
@@ -645,8 +647,9 @@ class StreamingFixedEffectCoordinate(FixedEffectCoordinate):
 
         def sink_fn(meta, res):
             lo, hi = meta
-            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
-            out[lo:hi] = res[: hi - lo].to(_HOST)
+            with obs.host_sync("stream.chunk_readback"):
+                # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
+                out[lo:hi] = res[: hi - lo].to(_HOST)
 
         with obs.span("train.stream.fe_score", cat="stream", coordinate=self.feature_shard):
             run_stream(self._iter_score_chunks(), run_fn, sink_fn, telemetry=self.telemetry,
@@ -818,8 +821,9 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
         def sink_fn(meta, res):
             pos, real = meta
             # positions are unique: the write equals the device's
-            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
-            out[pos] = res[:real].to(_HOST)
+            with obs.host_sync("stream.chunk_readback"):
+                # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
+                out[pos] = res[:real].to(_HOST)
 
         with obs.span("train.stream.re_score", cat="stream",
                       coordinate=self.config.random_effect_type):
@@ -856,8 +860,12 @@ class StreamingRandomEffectCoordinate(RandomEffectCoordinate):
 
         def sink_fn(meta, out):
             bi, e0, real = meta
-            # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
-            x, value, gsq = (t[:real].to(_HOST) for t in out)
+            host = []
+            for t in out:
+                with obs.host_sync("stream.chunk_readback"):
+                    # phl-ok: PHL002 a chunk's read-back, once per chunk behind its compute
+                    host.append(t[:real].to(_HOST))
+            x, value, gsq = host
             new_state[bi][e0 : e0 + real] = x
             sums[0] += float(value.to(torch.float64).sum())
             sums[1] += float(gsq.to(torch.float64).sum())

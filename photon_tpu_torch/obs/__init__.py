@@ -13,7 +13,8 @@ behind one enable switch, so instrumentation sites stay one-liners::
 
 - :mod:`.tracer`: nestable, thread-safe spans; each recorded span enters
   ``torch.profiler.record_function``, so host spans line up with device
-  work in a ``torch.profiler`` trace;
+  work in a ``torch.profiler`` trace, and ``export.join_device_trace``
+  joins that trace back to the span records (args, ids) on one clock;
 - :mod:`.metrics`: counters, gauges and log-bucket histograms;
 - :mod:`.export`: Chrome trace-event JSON, the metrics snapshot, the JSONL
   run manifest, partial artifacts after a failure, summary tables;
@@ -35,8 +36,13 @@ rank) and :mod:`.http` (``/metrics``, ``/healthz``, ``/slo``, ``/trace``,
 
 Telemetry is DISABLED by default (``PHOTON_OBS=1`` enables it at import,
 or call :func:`enable`). A disabled span still measures its wall but
-records nothing and takes no lock; no mode of telemetry launches device
-work or synchronizes with the card.
+records nothing and takes no lock. No mode of telemetry launches device
+work. One telemetry-only read synchronizes with the card:
+``optimize.common.record_optimize_metrics`` (the single-GLM path) reads a
+solve's four counters back while telemetry is on, counted at the sync
+site ``optimize.counters``. Every blocking read on the fit's path goes
+through :class:`host_sync`, which counts it per site whether or not
+telemetry is on, and times the host's wait in it while telemetry is on.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import contextlib
 import logging
 import os
 import threading
+import time
 
 from photon_tpu_torch.obs import causal, fleet, flight, health, http, memory, series, slo
 from photon_tpu_torch.obs.export import (
@@ -84,6 +91,7 @@ __all__ = [
     "health",
     "histogram",
     "histogram_summary",
+    "host_sync",
     "http",
     "instant",
     "live_plane",
@@ -94,7 +102,11 @@ __all__ = [
     "series",
     "slo",
     "span",
+    "stage",
+    "stage_walls",
     "summary_table",
+    "sync_snapshot",
+    "syncs_since",
     "write_chrome_trace",
     "write_memory_report",
     "write_metrics",
@@ -217,6 +229,98 @@ def dispatch_count() -> int:
     """The cumulative count of :func:`record_dispatch` (monotonic: a sweep
     or a fit reports the difference of two reads)."""
     return _dispatches
+
+
+_stage_tls = threading.local()
+
+
+@contextlib.contextmanager
+def stage_walls():
+    """Sum the walls of the :func:`stage` spans that close on this thread
+    inside, by name, into the dict it yields (measured whether or not
+    telemetry is on: a fit's ``last_fit_stats["build_stages"]``)."""
+    walls: dict[str, float] = {}
+    prev = getattr(_stage_tls, "walls", None)
+    _stage_tls.walls = walls
+    try:
+        yield walls
+    finally:
+        _stage_tls.walls = prev
+
+
+@contextlib.contextmanager
+def stage(name: str, cat: str = "build", **args):
+    """A :func:`span` whose wall also adds to the innermost
+    :func:`stage_walls` open on this thread (a stage of a host build)."""
+    with _tracer.span(name, cat=cat, **args) as sp:
+        yield sp
+    walls = getattr(_stage_tls, "walls", None)
+    if walls is not None:
+        walls[name] = walls.get(name, 0.0) + sp.duration_s
+
+
+#: cumulative blocking reads of the card per site, and (telemetry on
+#: only) the host's wait in them in ns (see host_sync)
+_syncs: dict[str, int] = {}
+_sync_wait_ns: dict[str, int] = {}
+_sync_lock = threading.Lock()
+
+
+class host_sync:
+    """Around ONE blocking read of the card (``bool(t.any())``, a
+    device-to-host copy, a ``synchronize``) at a named site::
+
+        with obs.host_sync("lbfgs.iteration"):
+            # phl-ok: PHL002 ...
+            go = bool(active.any())
+
+    Counted per site always, as :func:`record_dispatch` counts (one
+    integer bump under one lock); while telemetry is on the read is also
+    timed with ``perf_counter_ns`` and both are mirrored as the counters
+    ``sync.<site>`` and ``sync_wait_s.<site>``. It launches nothing and
+    adds no sync of its own: the read stays at its annotated line.
+    :func:`sync_snapshot` reads the cumulative totals and
+    :func:`syncs_since` their differences over a step."""
+
+    __slots__ = ("site", "_t0")
+
+    def __init__(self, site: str):
+        self.site = site
+        self._t0 = 0
+
+    def __enter__(self) -> "host_sync":
+        if _tracer.enabled:
+            self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        site, wait = self.site, 0
+        if self._t0:
+            wait = time.perf_counter_ns() - self._t0
+        with _sync_lock:
+            _syncs[site] = _syncs.get(site, 0) + 1
+            if wait:
+                _sync_wait_ns[site] = _sync_wait_ns.get(site, 0) + wait
+        if wait:
+            _registry.counter(f"sync.{site}")
+            _registry.counter(f"sync_wait_s.{site}", wait / 1e9)
+
+
+def sync_snapshot() -> tuple[dict[str, int], dict[str, int]]:
+    """The cumulative blocking reads per site and the host's cumulative
+    wait in them per site in ns (timed while telemetry was on: a site read
+    only with telemetry off has no wait), for :func:`syncs_since`."""
+    with _sync_lock:
+        return dict(_syncs), dict(_sync_wait_ns)
+
+
+def syncs_since(snapshot: tuple[dict, dict]) -> tuple[dict[str, int], dict[str, float]]:
+    """``(counts, wait_s)`` per site since ``snapshot``, sites that moved only."""
+    counts0, waits0 = snapshot
+    counts, waits = sync_snapshot()
+    return ({k: n - counts0.get(k, 0) for k, n in counts.items() if n != counts0.get(k, 0)},
+            {k: (w - waits0.get(k, 0)) / 1e9 for k, w in waits.items()
+             if w != waits0.get(k, 0)})
 
 
 class LiveTelemetryPlane:

@@ -602,7 +602,9 @@ def mark_fault(point: str, kind: str) -> None:
 
 def current_trace_id() -> int | None:
     """The trace ID active on this thread (None when disarmed or no
-    trace is active) — the tracer passes it to ``record_function``."""
+    trace is active) — the tracer keeps it on each span record
+    (``SpanRecord.trace_id``), and a device trace joined to the records
+    carries it (``export.join_device_trace``)."""
     if _BUFFER is None:
         return None
     stack = _tls_stack()

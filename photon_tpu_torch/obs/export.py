@@ -17,6 +17,7 @@ summary ends with.
 """
 from __future__ import annotations
 
+import gzip
 import json
 import logging
 import os
@@ -58,13 +59,131 @@ def _json_safe(v: Any) -> Any:
         return str(v)
 
 
-def chrome_trace(tracer=None, registry=None, meta: dict | None = None) -> dict:
-    """The run as a Chrome trace-event JSON object."""
+#: the device's event categories in a ``torch.profiler`` Chrome trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _span_args(rec) -> dict:
+    args = {**rec.args, "span_id": rec.span_id, "parent_id": rec.parent_id}
+    if rec.trace_id is not None:
+        args["trace_id"] = rec.trace_id
+    return _json_safe(args)
+
+
+def join_device_trace(events, records) -> dict:
+    """Join the events of a ``torch.profiler`` Chrome trace (µs, the
+    profiler's clock) to the tracer's span records (``perf_counter_ns``)
+    of the same interval.
+
+    Each ``user_annotation`` event is the ``record_function`` range of a
+    recorded span, which carries the span's name only. Events and records
+    are grouped by (name, OS thread) and paired in order of start. The
+    clocks' offset is the median, over the groups whose counts agree, of
+    an event's midpoint less its record's (the range opens just before
+    the record's clock read and closes just after). A group whose counts
+    differ (records from before or after the profiled interval) is then
+    paired in order, each event with the nearest unpaired record on the
+    profiler's clock, within 1 ms and 1% of the event's length.
+
+    Returns ``{"pairs": [(event, record), ...], "offset_us": float | None,
+    "unmatched_events": int, "unmatched_records": int}``: a record's start
+    on the profiler's clock is ``t0_ns / 1e3 + offset_us``."""
+    def groups(items, key):
+        out: dict = {}
+        for x in items:
+            out.setdefault(key(x), []).append(x)
+        return out
+
+    def mid_us(e):
+        return float(e["ts"]) + 0.5 * float(e.get("dur", 0.0))
+
+    anns = groups((e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"),
+                  lambda e: (e.get("name"), e.get("tid")))
+    recs = groups((r for r in records if not r.instant), lambda r: (r.name, r.native_tid))
+    pairs, uneven = [], []
+    for key, evs in anns.items():
+        evs.sort(key=lambda e: float(e["ts"]))
+        rs = sorted(recs.get(key, ()), key=lambda r: r.t0_ns)
+        if len(rs) == len(evs):
+            pairs.extend(zip(evs, rs))
+        elif rs:
+            uneven.append((evs, rs))
+    offsets = sorted(mid_us(e) - (r.t0_ns + 0.5 * r.dur_ns) / 1e3 for e, r in pairs)
+    offset = offsets[len(offsets) // 2] if offsets else None
+    if offset is not None:
+        for evs, rs in uneven:
+            i = 0
+            for e in evs:
+                t = mid_us(e) - offset
+                best = None
+                for j in range(i, len(rs)):
+                    gap = abs((rs[j].t0_ns + 0.5 * rs[j].dur_ns) / 1e3 - t)
+                    if best is not None and gap >= best[1]:
+                        break
+                    best = (j, gap)
+                if best is not None and best[1] <= 1000.0 + 0.01 * float(e.get("dur", 0.0)):
+                    pairs.append((e, rs[best[0]]))
+                    i = best[0] + 1
+    n_events = sum(len(v) for v in anns.values())
+    n_records = sum(len(v) for v in recs.values())
+    return {"pairs": pairs, "offset_us": offset, "unmatched_events": n_events - len(pairs),
+            "unmatched_records": n_records - len(pairs)}
+
+
+def annotate_device_trace(events, records) -> tuple[list[dict], dict]:
+    """``events`` with each joined ``user_annotation`` given its span
+    record's args, ``span_id``, ``parent_id`` and ``trace_id``
+    (:func:`join_device_trace`), and that join."""
+    join = join_device_trace(events, records)
+    by_event = {id(e): r for e, r in join["pairs"]}
+    out = [{**e, "args": {**(e.get("args") or {}), **_span_args(by_event[id(e)])}}
+           if id(e) in by_event else e for e in events]
+    return out, join
+
+
+def _device_events(tracer, device_trace) -> tuple[list[dict], float | None]:
+    """The device's kernels, copies and memsets and the host's CUDA
+    runtime calls of ``device_trace``, moved onto the tracer's timeline
+    by the offset of :func:`join_device_trace` (returned beside them);
+    runtime calls go on the track of the span thread that made them."""
+    spans = tracer.spans()
+    join = join_device_trace(device_trace, spans)
+    if join["offset_us"] is None:
+        return [], None
+    shift = join["offset_us"] + tracer.epoch_ns / 1e3
+    threads = {r.native_tid: r.tid for r in spans}
+    out, devices = [], set()
+    for e in device_trace:
+        cat = e.get("cat")
+        if e.get("ph") != "X" or cat not in DEVICE_CATS + ("cuda_runtime",):
+            continue
+        ev = {**e, "ts": float(e["ts"]) - shift}
+        if cat == "cuda_runtime":
+            ev["pid"], ev["tid"] = tracer.pid, threads.get(e.get("tid"), e.get("tid"))
+        else:
+            devices.add(e.get("pid"))
+        out.append(ev)
+    meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+             "args": {"name": f"device {pid}"}} for pid in sorted(devices, key=str)]
+    return meta + out, join["offset_us"]
+
+
+def chrome_trace(tracer=None, registry=None, meta: dict | None = None,
+                 device_trace=None) -> dict:
+    """The run as a Chrome trace-event JSON object. With ``device_trace``
+    (the events of a ``torch.profiler`` Chrome trace of part of the run),
+    the card's kernels, copies and memsets and the CUDA runtime calls join
+    the spans on the tracer's clock (:func:`join_device_trace`); the
+    offset found is ``otherData.device_offset_us``."""
     tracer, registry = _resolve(tracer, registry)
     events: list[dict] = [
         {"name": "process_name", "ph": "M", "pid": tracer.pid, "tid": 0,
          "args": {"name": "photon-tpu"}}
     ]
+    extra: dict = {}
+    if device_trace is not None:
+        device_events, extra["device_offset_us"] = _device_events(tracer, device_trace)
+        events.extend(device_events)
     for rec in tracer.spans():
         ev = {
             "name": rec.name,
@@ -72,7 +191,7 @@ def chrome_trace(tracer=None, registry=None, meta: dict | None = None) -> dict:
             "pid": tracer.pid,
             "tid": rec.tid,
             "ts": (rec.t0_ns - tracer.epoch_ns) / 1e3,
-            "args": _json_safe({**rec.args, "span_id": rec.span_id, "parent_id": rec.parent_id}),
+            "args": _span_args(rec),
         }
         if rec.instant:
             ev["ph"] = "i"
@@ -85,14 +204,19 @@ def chrome_trace(tracer=None, registry=None, meta: dict | None = None) -> dict:
         "traceEvents": events,
         "displayTimeUnit": "ms",
         "otherData": _json_safe(
-            {"epoch_wall_s": tracer.epoch_wall_s, "metrics": registry.snapshot(), **(meta or {})}
+            {"epoch_wall_s": tracer.epoch_wall_s, "metrics": registry.snapshot(), **extra,
+             **(meta or {})}
         ),
     }
 
 
-def write_chrome_trace(path, tracer=None, registry=None, meta=None) -> str:
-    with open(path, "w") as f:
-        json.dump(chrome_trace(tracer, registry, meta), f)
+def write_chrome_trace(path, tracer=None, registry=None, meta=None, device_trace=None) -> str:
+    """:func:`chrome_trace` as a JSON file (gzip-compressed when ``path``
+    ends in ``.gz``, which Perfetto opens as it is)."""
+    doc = chrome_trace(tracer, registry, meta, device_trace)
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wt") as f:
+        json.dump(doc, f)
     return str(path)
 
 

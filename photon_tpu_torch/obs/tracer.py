@@ -10,16 +10,20 @@ anchor taken when the tracer is built, so exporters can place the
 monotonic timeline in wall-clock time.
 
 Where JAX enters a ``jax.profiler.TraceAnnotation`` per recorded span, the
-port enters ``torch.profiler.record_function``: under a ``torch.profiler``
-trace the host span then appears as a range that the device work it
-launched lines up with. While a profiler is running, the range carries
-the span's id and, inside an active causal trace (obs/causal.py), its
-``trace_id`` as its argument string (``"span_id=7,trace_id=3"``), so a
-device trace joins back to host spans and request traces; with no
-profiler running nothing is formatted. A DISABLED tracer's span still
-measures its wall (two clock reads) but takes no lock, records nothing
-and enters no annotation; no mode of the tracer launches device work or
-synchronizes.
+port enters ``torch.profiler.record_function`` with the span's name: under
+a ``torch.profiler`` trace the host span then appears as a
+``user_annotation`` range that the device work it launched lines up with.
+The range carries the name only: torch's exported trace drops a
+``record_function`` argument string (checked on torch 2.11 with CUDA 12.8
+and on 2.13 for the CPU), and the profiler's clock is not
+``perf_counter_ns``. So the join goes the other way:
+``export.join_device_trace`` matches each range to its span record, in
+order per (name, thread), takes the clocks' offset from the matches and
+gives the range the record's args, id and causal ``trace_id``; records
+carry the OS thread id (``native_tid``) that the profiler names threads
+by. A DISABLED tracer's span still measures its wall (two clock reads)
+but takes no lock, records nothing and enters no annotation; no mode of
+the tracer launches device work or synchronizes.
 """
 from __future__ import annotations
 
@@ -48,18 +52,11 @@ class SpanRecord:
     parent_id: int | None
     args: dict[str, Any] = field(default_factory=dict)
     instant: bool = False
-
-
-def _annotation_args(span_id: int) -> str | None:
-    """The ``record_function`` argument string of a span: its id and the
-    causal trace active on this thread, formatted only while a profiler
-    runs (JAX's TraceAnnotation metadata)."""
-    if not torch.autograd._profiler_enabled():
-        return None
-    trace_id = causal.current_trace_id()
-    if trace_id is None:
-        return f"span_id={span_id}"
-    return f"span_id={span_id},trace_id={trace_id}"
+    #: the OS thread id (``threading.get_native_id``), as a profiler
+    #: trace names the thread; 0 where unknown
+    native_tid: int = 0
+    #: the causal trace (obs/causal.py) active on the thread at entry
+    trace_id: int | None = None
 
 
 class Span:
@@ -73,7 +70,7 @@ class Span:
 
     __slots__ = (
         "_tracer", "name", "cat", "args", "_t0_ns", "_dur_ns", "_recording", "_ann",
-        "_parent_id", "span_id",
+        "_parent_id", "span_id", "_trace_id",
     )
 
     def __init__(self, tracer: "Tracer", name: str, cat: str, args: dict):
@@ -87,6 +84,7 @@ class Span:
         self._ann = None
         self._parent_id = None
         self.span_id = 0
+        self._trace_id = None
 
     def set(self, **kwargs) -> "Span":
         """Attach attributes (exported as trace-event ``args``)."""
@@ -106,8 +104,9 @@ class Span:
             stack = tracer._stack()
             self._parent_id = stack[-1] if stack else None
             stack.append(self.span_id)
+            self._trace_id = causal.current_trace_id()
             if tracer.annotate_device:
-                self._ann = torch.profiler.record_function(self.name, _annotation_args(self.span_id))
+                self._ann = torch.profiler.record_function(self.name)
                 self._ann.__enter__()
         self._t0_ns = time.perf_counter_ns()
         return self
@@ -130,6 +129,7 @@ class Span:
                 name=self.name, cat=self.cat, t0_ns=self._t0_ns, dur_ns=self._dur_ns,
                 tid=threading.get_ident(), span_id=self.span_id,
                 parent_id=self._parent_id, args=self.args,
+                native_tid=threading.get_native_id(), trace_id=self._trace_id,
             )
         )
 

@@ -269,12 +269,29 @@ def maybe_build_windows(
     """Layout policy: windows where :func:`windows_wanted` says, and on
     any device when ``force`` is set (the CPU tests run the plain Xᵀr
     so)."""
-    device = torch.device(device)
-    if force or windows_wanted(device, num_features):
-        return build_column_windows(
-            indices, values, num_features,
-            window=window, instance_cap=instance_cap,
-            device=device, dtype=dtype,
+    layout = maybe_window_layout(indices, values, num_features, device=device, force=force,
+                                 window=window, instance_cap=instance_cap)
+    if layout is None:
+        return None
+    return column_windows_from_numpy(layout, device=device, dtype=dtype)
+
+
+def maybe_window_layout(
+    indices: np.ndarray,
+    values: np.ndarray,
+    num_features: int,
+    *,
+    device: torch.device,
+    force: bool = False,
+    window: int = 128,
+    instance_cap: int = 4096,
+) -> dict | None:
+    """The host half of :func:`maybe_build_windows`: the layout's numpy
+    arrays (:func:`build_column_windows_numpy`) where the policy wants
+    windows for ``device``, else None; nothing is placed."""
+    if force or windows_wanted(torch.device(device), num_features):
+        return build_column_windows_numpy(
+            indices, values, num_features, window=window, instance_cap=instance_cap,
         )
     return None
 

@@ -100,16 +100,19 @@ def record_optimize_metrics(result: OptimizeResult) -> None:
     (``optimize.iterations`` / ``.n_evals`` / ``.n_hvp`` /
     ``.n_feature_passes``, JAX's names): the inner-loop accounting spans
     cannot see. A no-op while telemetry is disabled; enabled, it reads the
-    four scalars back in one copy, so call it where the solve has already
-    been waited for."""
+    four scalars back in one copy, a sync with the card (the site
+    ``optimize.counters``), so call it where the solve has already been
+    waited for."""
     from photon_tpu_torch import obs
 
     if not obs.enabled():
         return
     names = ("iterations", "n_evals", "n_hvp", "n_feature_passes")
     values = torch.stack([getattr(result, n).reshape(()).to(torch.float64) for n in names])
-    # phl-ok: PHL002 telemetry on only: the solve's counters, read back in one copy
-    for name, v in zip(names, values.tolist()):
+    with obs.host_sync("optimize.counters"):
+        # phl-ok: PHL002 telemetry on only: the solve's counters, read back in one copy
+        host = values.tolist()
+    for name, v in zip(names, host):
         obs.counter(f"optimize.{name}", int(v))
 
 

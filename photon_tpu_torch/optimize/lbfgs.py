@@ -23,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.optimize.common import (
     ConvergenceReason,
     DirectionalOracle,
@@ -119,7 +120,17 @@ def minimize_lbfgs(
 
     Without an oracle each line-search trial is a full evaluation through
     ``value_and_grad(x) -> (f, g)`` (two passes per trial); with one,
-    trials are O(N) on carried margins."""
+    trials are O(N) on carried margins. The solve is the span
+    ``lbfgs.solve`` (lanes, d), each line search ``lbfgs.linesearch``,
+    and each iteration's 'any lane active' read the sync site
+    ``lbfgs.iteration``."""
+    lanes = 1 if x0.dim() == 1 else x0.shape[0]
+    with obs.span("lbfgs.solve", cat="solver", lanes=lanes, d=x0.shape[-1]):
+        return _minimize_lbfgs(value_and_grad, x0, config, oracle)
+
+
+def _minimize_lbfgs(value_and_grad, x0: Tensor, config: OptimizerConfig,
+                    oracle: DirectionalOracle | None) -> OptimizeResult:
     if oracle is None:
         if value_and_grad is None:
             raise ValueError("need value_and_grad or oracle")
@@ -167,8 +178,10 @@ def minimize_lbfgs(
 
     for _ in range(t):
         active = reason == ConvergenceReason.NOT_CONVERGED
-        # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
-        if not bool(active.any()):
+        with obs.host_sync("lbfgs.iteration"):
+            # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
+            running = bool(active.any())
+        if not running:
             break
         direction = two_loop_direction(g, s_hist, y_hist, rho, num_pairs, pos)
         descent = (direction * g).sum(-1) < 0
@@ -188,22 +201,24 @@ def minimize_lbfgs(
                 f_t, g_t, _ = eval_at(x + alpha.unsqueeze(-1) * direction)
                 return f_t, (g_t * direction).sum(-1), (g_t,)
 
-            res = wolfe_search_phi(
-                phi, f, dphi0, (g,), initial_step=init_step, active=active,
-                c1=config.ls_c1, c2=config.ls_c2,
-                max_iterations=config.ls_max_iterations,
-            )
+            with obs.span("lbfgs.linesearch", cat="solver"):
+                res = wolfe_search_phi(
+                    phi, f, dphi0, (g,), initial_step=init_step, active=active,
+                    c1=config.ls_c1, c2=config.ls_c2,
+                    max_iterations=config.ls_max_iterations,
+                )
             x_new = x + res.step.unsqueeze(-1) * direction
             f_new, g_new = res.value, res.aux[0]
             carry_new = carry
             passes = 2 * res.num_evals
         else:
             phi, accept = oracle.dir_setup(carry, x, direction)
-            res = wolfe_search_phi(
-                phi, f, dphi0, (), initial_step=init_step, active=active,
-                c1=config.ls_c1, c2=config.ls_c2,
-                max_iterations=config.ls_max_iterations,
-            )
+            with obs.span("lbfgs.linesearch", cat="solver"):
+                res = wolfe_search_phi(
+                    phi, f, dphi0, (), initial_step=init_step, active=active,
+                    c1=config.ls_c1, c2=config.ls_c2,
+                    max_iterations=config.ls_max_iterations,
+                )
             x_new = x + res.step.unsqueeze(-1) * direction
             f_new = res.value
             if has_box:

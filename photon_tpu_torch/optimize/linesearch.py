@@ -4,7 +4,8 @@ Counterpart of ``wolfe_search_phi`` (photon_tpu/optimize/linesearch.py:98).
 The JAX version is one ``lax.while_loop`` that ``vmap`` batches; here the
 lane axis is written out. Every state field is a [B] tensor, a lane that
 is done keeps its state (``torch.where`` on the active mask), and the loop
-stops when no lane is active — one host sync per trial.
+stops when no lane is active — one host sync per trial (the sync site
+``linesearch.trial``, obs.host_sync).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.optimize.common import select_lanes
 
 Tensor = torch.Tensor
@@ -77,8 +79,10 @@ def wolfe_search_phi(
 
     for _ in range(max_iterations):
         run = ~done & (i < max_iterations)
-        # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
-        if not bool(run.any()):
+        with obs.host_sync("linesearch.trial"):
+            # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
+            searching = bool(run.any())
+        if not searching:
             break
         in_zoom = stage == 1
         alpha_t = torch.where(

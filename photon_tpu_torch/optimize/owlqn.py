@@ -24,6 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.optimize.common import (
     ConvergenceReason,
     OptimizeResult,
@@ -101,9 +102,11 @@ class _OWLQNState(NamedTuple):
 
 
 def _any_active(s: _OWLQNState) -> bool:
-    """The host check (one scalar sync): is any lane still running?"""
-    # phl-ok: PHL002 the per-iteration 'any lane active' sync of the OWL-QN loop
-    return bool((s.reason == ConvergenceReason.NOT_CONVERGED).any())
+    """The host check (one scalar sync, the site ``owlqn.iteration``): is
+    any lane still running?"""
+    with obs.host_sync("owlqn.iteration"):
+        # phl-ok: PHL002 the per-iteration 'any lane active' sync of the OWL-QN loop
+        return bool((s.reason == ConvergenceReason.NOT_CONVERGED).any())
 
 
 def _owlqn_machinery(
@@ -213,8 +216,10 @@ def _owlqn_machinery(
         aux = carry if margin_trials else g  # accepted margins, or gradient
         for _ in range(config.ls_max_iterations):
             run = ~done
-            # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
-            if not bool(run.any()):
+            with obs.host_sync("owlqn.trial"):
+                # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
+                searching = bool(run.any())
+            if not searching:
                 break
             x_cand = x + step_len.unsqueeze(-1) * direction
             x_cand = torch.where(torch.sign(x_cand) == xi, x_cand, torch.zeros_like(x_cand))

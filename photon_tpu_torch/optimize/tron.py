@@ -18,6 +18,7 @@ from typing import Callable
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.optimize.common import (
     ConvergenceReason,
     OptimizeResult,
@@ -61,8 +62,10 @@ def _truncated_cg(
     done = ~active
     for _ in range(max_iterations):
         run = ~done & (torch.sqrt(rtr) > cg_tol)
-        # phl-ok: PHL002 one sync per CG step on 'any lane still running'
-        if not bool(run.any()):
+        with obs.host_sync("tron.cg_step"):
+            # phl-ok: PHL002 one sync per CG step on 'any lane still running'
+            running = bool(run.any())
+        if not running:
             break
         hp = hvp(p)
         php = _dot(p, hp)
@@ -174,8 +177,10 @@ def minimize_tron(
 
     for _ in range(t):
         active = reason == ConvergenceReason.NOT_CONVERGED
-        # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
-        if not bool(active.any()):
+        with obs.host_sync("tron.iteration"):
+            # phl-ok: PHL002 one sync per iteration on 'any lane active': the loop's trip count is the data's
+            running = bool(active.any())
+        if not running:
             break
         step, r, cg_iters = _truncated_cg(
             hvp_factory(x), g, delta, active,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.parallel.mesh import LocalMesh, Mesh, gather_entities, shard_batch
 
 
@@ -55,8 +56,9 @@ def fetch_global(x: torch.Tensor, mesh: Mesh | LocalMesh) -> np.ndarray:
     entity axis, gathered from every entity shard (every rank must call
     it; off the mesh a plain copy)."""
     x = gather_entities(x, mesh)
-    # phl-ok: PHL002 export-boundary gather — the documented global materialization point
-    return x.detach().to("cpu", torch.float64).numpy().copy()
+    with obs.host_sync("export.gather"):
+        # phl-ok: PHL002 export-boundary gather — the documented global materialization point
+        return x.detach().to("cpu", torch.float64).numpy().copy()
 
 
 #: this process's rows of a batch of the GLOBAL data (the same host arrays

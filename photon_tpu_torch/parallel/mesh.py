@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, resolve_device
 
 BATCH_AXIS = "data"
@@ -341,7 +342,7 @@ def collective_scope(coordinate: str | None = None, program: str | None = None):
     """Attribute the counted collectives made inside to ``coordinate`` and
     ``program`` (a kind: ``"train"``, ``"score"``); a None part keeps the
     enclosing scope's."""
-    prev = getattr(_scope, "value", (None, None))
+    prev = current_scope()
     _scope.value = (prev[0] if coordinate is None else coordinate,
                     prev[1] if program is None else program)
     try:
@@ -350,8 +351,14 @@ def collective_scope(coordinate: str | None = None, program: str | None = None):
         _scope.value = prev
 
 
+def current_scope() -> tuple[str | None, str | None]:
+    """The (coordinate, program) of the innermost :func:`collective_scope`
+    on this thread, None where none is open."""
+    return getattr(_scope, "value", (None, None))
+
+
 def _record(mesh: Mesh, op: str, nbytes: int, group_size: int, site: str | None) -> None:
-    coordinate, program = getattr(_scope, "value", (None, None))
+    coordinate, program = current_scope()
     calls = mesh.census.setdefault((coordinate or FIT_SCOPE, program or "other"), {})
     key = (op, site, int(nbytes), int(group_size))
     calls[key] = calls.get(key, 0) + 1
@@ -412,8 +419,9 @@ def on_rank0(mesh: Mesh | LocalMesh, fn) -> None:
     failed = err is not None
     if mesh.distributed:
         flag = torch.tensor([float(failed)], device=mesh.device)
-        # phl-ok: PHL002 once per file write: every rank must learn rank 0's outcome
-        failed = all_reduce_sum(flag, mesh).item() > 0
+        with obs.host_sync("mesh.write_outcome"):
+            # phl-ok: PHL002 once per file write: every rank must learn rank 0's outcome
+            failed = all_reduce_sum(flag, mesh).item() > 0
     if err is not None:
         raise err
     if failed:

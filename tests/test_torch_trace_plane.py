@@ -642,10 +642,14 @@ def test_training_stream_chain_validates_with_faults(monkeypatch):
 # -- the tracer's record_function argument ----------------------------------
 
 
-def test_span_carries_the_trace_id_into_record_function(monkeypatch):
-    """Inside an active trace a recorded span enters ``record_function``
-    with ``span_id=…,trace_id=…``; with no profiler running nothing is
-    formatted (the argument is None)."""
+def test_span_carries_the_trace_id_into_record_function(monkeypatch, tmp_path):
+    """A recorded span enters ``record_function`` with its name alone
+    (torch's exported trace drops an argument string); inside an active
+    trace its record keeps the ``trace_id``, and the profiler's exported
+    range, joined back to the records (``export.annotate_device_trace``),
+    carries the span's id and that ``trace_id``."""
+    from photon_tpu_torch.obs.export import annotate_device_trace
+
     seen = []
     real = torch.profiler.record_function
 
@@ -661,17 +665,26 @@ def test_span_carries_the_trace_id_into_record_function(monkeypatch):
         assert causal.current_trace_id() == ctx.trace_id
         with obs.span("unprofiled"):
             pass
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
             with obs.span("unit_phase") as sp:
-                pass
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                torch.ones(4).sum()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof2:
         with obs.span("outside") as sp2:
             pass
-    assert seen == [("unprofiled", None),
-                    ("unit_phase", f"span_id={sp.span_id},trace_id={ctx.trace_id}"),
-                    ("outside", f"span_id={sp2.span_id}")]
+    assert seen == [("unprofiled", None), ("unit_phase", None), ("outside", None)]
     assert causal.current_trace_id() is None
-    assert tracer._annotation_args(3) is None  # no profiler running
+    recs = {r.name: r for r in obs.get_tracer().spans()}
+    assert recs["unit_phase"].trace_id == ctx.trace_id and recs["outside"].trace_id is None
+    for p, name, span, trace_id in ((prof, "unit_phase", sp, ctx.trace_id),
+                                    (prof2, "outside", sp2, None)):
+        path = tmp_path / f"{name}.json"
+        p.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        joined, join = annotate_device_trace(events, obs.get_tracer().spans())
+        (ann,) = [e for e in joined if e.get("cat") == "user_annotation"]
+        assert ann["name"] == name and ann["args"]["span_id"] == span.span_id
+        assert ann["args"].get("trace_id") == trace_id
+        assert join["unmatched_events"] == 0
 
 
 # -- concurrent scrapes under live traffic ----------------------------------
