@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on the card, at float32 and float64, at the main path's shapes and on
    edge layouts, and time kernel, plain version, a library call computing
    the same function (many launches between one pair of CUDA events), and
-   the memory bound;
+   the memory bound; the fused lane solve (``lane_kernel_phase``) against
+   the plain lane loop on buckets of the benchmark cell's shapes (float64
+   decision for decision, float32 within stated margins; no library
+   call computes it);
 4. main path: ``GameEstimator(device="cuda").fit`` on a GLMix model at the
    widths of bench config 5 (``game_ctr_scale``: sparse fixed effect with
    2^17 columns and 24 nonzeros per row, per-user and per-item random
@@ -257,7 +260,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``barrier_frac`` and the census bytes, the model within 1e-9 of the
    unmeshed fit); the lint's ``--programs`` run in ``sync_sites`` prints
    its census;
-15. print one ``{"kernels": [...]}`` line and, last, the ok line.
+15. print one ``{"kernels": [...]}`` line and, last, the ok line. Every
+   phase runs under ``LaneCensus``: the lane kernel's launches per phase
+   go into the line, and a phase fails when a random-effect lane solve on
+   the card left the kernel for the plain lane loop, unless its data
+   exceeds the kernel's row cap (``LaneCensus.EXPECTED``).
 
 Room for the phases of the mesh's second half (the script must finish in
 1200 s): subprocess legs that compare answers and not walls run at the
@@ -641,6 +648,235 @@ def kernel_phase(data):
         # dim not a multiple of the window, a hot column, ELL padding slots
         kernel_case("dim_1000_w128", idx3, val3, d3, dtype=dtype)
     return rows[torch.float32], mesh_kernel_shards("config5_fe", idx, val, fe.num_cols, layout)
+
+
+#: the random-effect buckets of ``game_ctr_scale`` (port_bench's cell): a
+#: user's genres (d 20, padded to 32) over at most 256 rows, a movie's
+#: intercept (d 1, padded to 8) over at most 1,024 rows
+LANE_BUCKETS = (("user_d20", 1024, 256, 20), ("user_d32", 1024, 256, 32),
+                ("item_d1", 783, 1024, 1), ("item_d8", 783, 1024, 8))
+#: float32: the kernel's objective over the plain loop's, per lane, at most
+#: this relative excess, (f_kernel − f_plain) / (1 + |f_plain|) read in
+#: float64: 10·tol, where float32's convergence test stops a lane (on an
+#: H100 the cell's 14 buckets and 8 such buckets read at most 1.3e-7 each
+#: way, and a solve one iteration short reads medians of 2e-4 to 6e-3 on
+#: the user buckets)
+LANE_F32_OBJ_MARGIN = 1e-6
+#: float32: a bucket's largest distance of a lane from the float64 solve at
+#: most this many times the plain loop's own at float32 (the cell's movie
+#: buckets read up to 1.33 on an H100, every other bucket at most 1)
+LANE_F32_X_FACTOR = 2.0
+
+
+def lane_bucket(seed, lanes, rows, d, dtype):
+    """A bucket of the cell's kind on the card: an intercept and one to
+    three of d − 1 genre columns set to 1 a row, 20 to ``rows`` active rows
+    a lane (the rest zero rows of weight 0), the last 5 lanes wholly
+    padding, logistic labels of a per-lane bias and genre affinities,
+    offsets of a fixed effect's scale."""
+    import numpy as np
+    import torch
+
+    from photon_tpu_torch.types import LabeledBatch
+
+    rng = np.random.default_rng(seed)
+    x = np.zeros((lanes, rows, d))
+    x[..., 0] = 1.0
+    if d > 1:
+        picks = rng.integers(1, d, size=(lanes, rows, 3))
+        li, ri, k = np.nonzero(np.arange(3) < rng.integers(1, 4, size=(lanes, rows, 1)))
+        x[li, ri, picks[li, ri, k]] = 1.0
+    beta = rng.normal(scale=0.5, size=(lanes, d))
+    offsets = rng.normal(scale=0.8, size=(lanes, rows))
+    margin = (x * beta[:, None, :]).sum(-1) + offsets
+    labels = (rng.uniform(size=margin.shape) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    active = np.arange(rows)[None, :] < rng.integers(min(20, rows), rows + 1, size=(lanes, 1))
+    active[-5:] = False
+    x[~active] = 0.0
+
+    def t(a):
+        return torch.as_tensor(np.where(active, a, 0.0), device="cuda").to(dtype)
+
+    return LabeledBatch(torch.as_tensor(x, device="cuda").to(dtype), t(labels), t(offsets),
+                        t(np.ones_like(offsets)))
+
+
+def lane_kernel_case(label, lanes, rows, d, dtype, seed):
+    """Hold the fused lane solve (``csrc/lane_lbfgs.cu``) against its plain
+    version, ``GLMProblem.solve`` (the lane loop), on one bucket of the
+    cell's kind, solved as the cell solves it (logistic, L2 λ = 1, L-BFGS
+    5 iterations, 8 trials, 10 pairs): every field bit-identical across two
+    launches; the padding lanes zero. At float64, every lane takes the
+    plain loop's decisions (iterations, reason, trials, feature passes),
+    or, where the plain loop on the host decides otherwise than on the
+    card, the host's; the objective within 1e-12 of the plain loop's and,
+    on the lanes without such a tie, x within 1e-7 (a converged
+    one-coefficient lane's x is set to a few 1e-9 by the rounding of its
+    last, flat line search). At float32 the two sum in other orders
+    (the kernel in float64, the loop in float32), so the share of lanes
+    with the same decisions is printed and not required; each lane's
+    objective (read in float64) is held to at most the plain loop's plus
+    LANE_F32_OBJ_MARGIN, and its distance from the float64 solve within
+    LANE_F32_X_FACTOR times the loop's own largest. Then time the kernel,
+    the plain loop (its syncs included) and the bytes bound (the bucket's
+    features, labels, offsets and weights read once)."""
+    import torch
+
+    from photon_tpu_torch.optimize import lane_lbfgs
+    from photon_tpu_torch.optimize.common import OptimizerConfig
+    from photon_tpu_torch.optimize.problem import (
+        GLMProblem,
+        GLMProblemConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_tpu_torch.types import LabeledBatch
+
+    problem = GLMProblem.build(GLMProblemConfig(
+        optimizer_config=OptimizerConfig(max_iterations=5, ls_max_iterations=8),
+        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0))
+    b = lane_bucket(seed, lanes, rows, d, dtype)
+    w0 = torch.zeros((lanes, d), dtype=dtype, device="cuda")
+    got = lane_lbfgs.minimize_lanes(problem, b, w0)
+    again = lane_lbfgs.minimize_lanes(problem, b, w0)
+    plain = problem.solve(b, w0)
+    for field, a in zip(got._fields, got):
+        if not torch.equal(a, getattr(again, field)):
+            fail(f"lane_lbfgs {label}: {field} differs between two launches on the same input")
+    if bool(got.x[-5:].any()):
+        fail(f"lane_lbfgs {label}: a padding lane did not train to zero")
+
+    def lane_rel(a, ref):
+        num = torch.linalg.vector_norm(a.double() - ref.double(), dim=-1)
+        den = torch.linalg.vector_norm(ref.double(), dim=-1)
+        return torch.where(den > 0, num / den.clamp_min(1e-300), num)
+
+    decisions = ("iterations", "reason", "n_evals", "n_feature_passes")
+
+    def same_decisions(a, ref):
+        out = torch.ones(lanes, dtype=torch.bool)
+        for field in decisions:
+            out &= getattr(a, field).cpu() == getattr(ref, field).cpu()
+        return out
+
+    live = b.weights.sum(1) > 0
+    same = {f: float((getattr(got, f) == getattr(plain, f))[live].float().mean())
+            for f in decisions}
+    x_rel = lane_rel(got.x, plain.x).cpu()
+    row = {"phase": "lane_kernel", "bucket": label, "dtype": str(dtype).removeprefix("torch."),
+           "lanes": lanes, "rows": rows, "d": d, "decisions_equal_share": same,
+           "x_max_rel_vs_plain": float(x_rel.max())}
+    if dtype == torch.float64:
+        # The plain loop on the host sums the same data in another order. A
+        # lane where it decides otherwise than on the card sits at a tie
+        # that rounding settles (a converged lane whose Armijo test compares
+        # gains far under one ulp of f), and the kernel may take either
+        # branch there; everywhere else it takes the card loop's decisions.
+        host = problem.solve(LabeledBatch(*(t.cpu() for t in b)), w0.cpu())
+        tie = ~same_decisions(host, plain)
+        ok = same_decisions(got, plain) | (tie & same_decisions(got, host))
+        value_rel = float(((got.value - plain.value).abs() / (1.0 + plain.value.abs())).max())
+        x_rel_untied = float(x_rel[~tie].max())
+        row.update(rounding_ties=int(tie.sum()), value_max_rel_vs_plain=value_rel,
+                   x_max_rel_vs_plain_untied=x_rel_untied)
+        if not bool(ok.all()):
+            fail(f"lane_lbfgs {label}: decisions differ from the plain loop's at float64 on "
+                 f"{int((~ok).sum())} lanes, not rounding ties: {same}")
+        if value_rel > 1e-12:
+            fail(f"lane_lbfgs {label}: objective {value_rel:.3g} from the plain loop's at "
+                 "float64 (> 1e-12)")
+        if x_rel_untied > 1e-7:
+            fail(f"lane_lbfgs {label}: x {x_rel_untied:.3g} from the plain loop's at float64 "
+                 "(> 1e-7) on a lane without a tie")
+    else:
+        b64 = LabeledBatch(*(t.double() for t in b))
+        exact = problem.solve(b64, w0.double())
+        f = problem.objective.value
+        f_plain = f(plain.x.double(), b64)
+        excess = ((f(got.x.double(), b64) - f_plain) / (1.0 + f_plain.abs()))[live]
+        dist_kernel = float(lane_rel(got.x, exact.x)[live].max())
+        dist_plain = float(lane_rel(plain.x, exact.x)[live].max())
+        row.update(objective_excess_max=float(excess.max()),
+                   objective_excess_min=float(excess.min()),
+                   x_max_rel_vs_float64=dist_kernel, plain_x_max_rel_vs_float64=dist_plain)
+        if float(excess.max()) > LANE_F32_OBJ_MARGIN:
+            fail(f"lane_lbfgs {label}: objective {float(excess.max()):.3g} above the plain "
+                 f"loop's at float32 (> {LANE_F32_OBJ_MARGIN})")
+        if dist_kernel > LANE_F32_X_FACTOR * dist_plain:
+            fail(f"lane_lbfgs {label}: x {dist_kernel:.3g} from the float64 solve, over "
+                 f"{LANE_F32_X_FACTOR}× the plain loop's {dist_plain:.3g}")
+    row.update(time_ms({"kernel_ms": lambda: lane_lbfgs.minimize_lanes(problem, b, w0)}))
+    row.update(time_ms({"plain_ms": lambda: problem.solve(b, w0)}, reps=1, rounds=3, warmup=1))
+    nbytes = sum(t.numel() * t.element_size() for t in b)
+    row["bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+    row["bound_by"] = "bytes"
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    log(json.dumps(row))
+    return row
+
+
+def lane_kernel_phase(seed):
+    """``lane_kernel_case`` on each of LANE_BUCKETS at float32 (the cell's
+    type) and float64; returns the rows by ``<bucket>.<dtype>``."""
+    import torch
+
+    rows = {}
+    for i, (label, lanes, n, d) in enumerate(LANE_BUCKETS):
+        for dtype in (torch.float32, torch.float64):
+            row = lane_kernel_case(label, lanes, n, d, dtype, seed + i)
+            rows[f"{label}.{row['dtype']}"] = row
+    return rows
+
+
+class LaneCensus:
+    """Which random-effect lane solves on the card left the fused kernel,
+    per phase: the dispatch rule that ``game.coordinate.solve_lanes`` asks
+    (``lane_lbfgs.plain_loop_reason``) is wrapped for the process, and
+    every CUDA bucket it sends to the plain lane loop is counted under the
+    current phase and its reason; the kernel's launches are
+    ``lane_lbfgs.minimize_lanes.launches``. (The registry's own
+    ``re.lanes_plain`` counts the same lanes, but every driver's telemetry
+    session zeroes the registry, so it cannot be read across a phase.)
+    Processes a phase starts are not counted."""
+
+    #: phases whose card solves may leave the kernel, and the one reason:
+    #: daily_retrain's and daily_retrain_parity's Zipf users hold up to
+    #: ~122,000 and ~8,000 rows with no active-data upper bound, over the
+    #: kernel's 4,096
+    EXPECTED = {"streaming_phases": "rows "}
+
+    def __init__(self):
+        from photon_tpu_torch.optimize import lane_lbfgs
+
+        self.lane_lbfgs = lane_lbfgs
+        self.rule = lane_lbfgs.plain_loop_reason
+        self.phase = None
+        self.plain = {}
+        self.launches = {}
+        lane_lbfgs.plain_loop_reason = self.counted
+
+    def counted(self, problem, features):
+        reason = self.rule(problem, features)
+        if reason is not None and features.device.type == "cuda":
+            row = self.plain.setdefault(self.phase, {})
+            row[reason] = row.get(reason, 0) + features.shape[0]
+        return reason
+
+    def start(self, phase):
+        self.phase = phase
+        self.n0 = self.lane_lbfgs.minimize_lanes.launches
+
+    def finish(self):
+        """Keep the phase's launches; fail if a card lane left the kernel
+        for a reason its phase does not expect."""
+        phase, self.phase = self.phase, None
+        n = self.lane_lbfgs.minimize_lanes.launches - self.n0
+        self.launches[phase] = self.launches.get(phase, 0) + n
+        allowed = self.EXPECTED.get(phase)
+        for reason, lanes in self.plain.get(phase, {}).items():
+            if allowed is None or not reason.startswith(allowed):
+                fail(f"{phase}: {lanes} random-effect lanes on the card took the plain lane "
+                     f"loop ({reason}), not the fused kernel")
 
 
 def small_parity(dtype, tol):
@@ -5203,28 +5439,32 @@ def entity_objectives(coord, model, residual=None):
 
 
 def lane_batch_probe(coord):
-    """Why a multi-chunk bucket is not bit for bit: per such bucket of the
-    streaming random effect ``coord``, its first chunk's lanes solved
-    alone (as a chunk, from zero with the data offsets) against the same
-    lanes solved in the whole bucket: the largest coefficient difference
-    and the lanes that stopped at another iteration."""
+    """A lane's solve does not depend on the lanes beside it: per
+    multi-chunk bucket of the streaming random effect ``coord`` that the
+    fused kernel takes (rows within its cap), its first chunk's lanes
+    solved alone (as a chunk, from zero with the data offsets) equal the
+    same lanes solved in the whole bucket, every field bit for bit."""
     import torch
 
     from photon_tpu_torch.game.coordinate import solve_lanes
+    from photon_tpu_torch.optimize.lane_lbfgs import MAX_ROWS
 
     rows = []
     for hb in coord.host_buckets:
-        if hb.ec == hb.num_entities:
+        if hb.ec == hb.num_entities or hb.rows > MAX_ROWS:
             continue
         blocks = [t.to("cuda") for t in (hb.features, hb.labels, hb.offsets, hb.weights)]
         w0 = torch.zeros((hb.num_entities, hb.dim), dtype=coord.dtype, device="cuda")
         whole = solve_lanes(coord.problem_config, *blocks, w0)
         part = solve_lanes(coord.problem_config, *(t[: hb.ec] for t in blocks), w0[: hb.ec])
-        rows.append({
-            "entities": hb.num_entities, "rows": hb.rows, "lanes_per_chunk": hb.ec,
-            "max_abs_diff": float((part.x - whole.x[: hb.ec]).abs().max()),
-            "iteration_mismatches": int((part.iterations != whole.iterations[: hb.ec]).sum()),
-        })
+        for field, a in zip(part._fields, part):
+            if not torch.equal(a, getattr(whole, field)[: hb.ec]):
+                fail(f"daily_retrain: a chunk's lanes solved alone differ from the same lanes "
+                     f"in the whole bucket ({field}; {hb.num_entities} entities x {hb.rows} rows)")
+        rows.append({"entities": hb.num_entities, "rows": hb.rows, "lanes_per_chunk": hb.ec,
+                     "bit_equal": True})
+    if not rows:
+        fail("daily_retrain: no multi-chunk bucket within the lane kernel's caps to probe")
     return rows
 
 
@@ -6554,6 +6794,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     cuda_build.load("windowed_rmatvec")
+    cuda_build.load("lane_lbfgs")
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "nvcc_seconds": cuda_build.build_seconds}))
 
@@ -6579,15 +6820,21 @@ def main() -> None:
         return
     walls = {}
 
+    census = LaneCensus()
+
     def timed(name, fn, *a, **kw):
-        """``fn(*a, **kw)``, its wall kept under ``name`` for the walls line."""
+        """``fn(*a, **kw)``, its wall kept under ``name`` for the walls line
+        and its lane solves in ``census``."""
         t = time.perf_counter()
+        census.start(name)
         try:
             return fn(*a, **kw)
         finally:
             walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+            census.finish()
 
     kmain, shards5 = timed("kernel_phase", kernel_phase, data)
+    klanes = timed("lane_kernel_phase", lane_kernel_phase, args.seed)
     timed("small_parity", small_parity, torch.float32, 1e-3)
     timed("small_parity", small_parity, torch.float64, 1e-9)
     launches, sweeps_s = timed("main_path", main_path, data, args.seed)
@@ -6697,6 +6944,20 @@ def main() -> None:
                 for n, row in rows.items()}
             for layout, rows in (("config5_fe", shards5), ("config3_fe", shards3))
         },
+    }, {
+        "name": "lane_lbfgs",
+        "route": "cuda",
+        "source": "photon_tpu_torch/csrc/lane_lbfgs.cu",
+        "replaces": None,
+        "plain_version": "GLMProblem.solve (the lane loop; JAX's RandomEffectCoordinate."
+                         "_solve_bucket is a vmapped lax.while_loop, photon_tpu/game/coordinate.py:883)",
+        "launches": sum(census.launches.values()),
+        "launches_by_path": {path: n for path, n in census.launches.items() if n > 0},
+        "plain_lanes_by_path": census.plain,
+        "buckets": {key: {k: row[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_share", "x_max_rel_vs_plain",
+            "decisions_equal_share")} | {k: row[k] for k in ("rounding_ties",) if k in row}
+            for key, row in klanes.items()},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -107,6 +107,7 @@ from photon_tpu_torch.ops.sparse_windows import (
     maybe_window_layout,
     windows_wanted,
 )
+from photon_tpu_torch.optimize import lane_lbfgs
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.problem import GLMProblem, GLMProblemConfig
 from photon_tpu_torch.parallel.distributed import fetch_global
@@ -188,9 +189,19 @@ def solve_lanes(problem_config: GLMProblemConfig, features: Tensor, labels: Tens
     """One lane-batched solve of independent per-entity problems:
     features [B, rows, d], the row vectors [B, rows], w0 [B, d]. A
     materialized bucket (B = E) and a streaming chunk of its entity lanes
-    (B = ec) both solve through this function."""
+    (B = ec) both solve through this function. Where
+    ``lane_lbfgs.plain_loop_reason`` finds nothing against it (L-BFGS with
+    L2 on a CUDA block within the caps) the whole solve is one launch of
+    the fused kernel, with no host sync; everything else runs the plain
+    lane loop. The lanes are counted as ``re.lanes_fused`` or
+    ``re.lanes_plain`` on the registry, telemetry on or off."""
     batch = LabeledBatch(features=features, labels=labels, offsets=offsets, weights=weights)
-    return GLMProblem.build(problem_config).solve(batch, w0)
+    problem = GLMProblem.build(problem_config)
+    fused = lane_lbfgs.plain_loop_reason(problem, features) is None
+    obs.tally("re.lanes_fused" if fused else "re.lanes_plain", w0.shape[0])
+    if fused:
+        return lane_lbfgs.minimize_lanes(problem, batch, w0)
+    return problem.solve(batch, w0)
 
 
 def score_rows(feats: Tensor, coef_rows: Tensor) -> Tensor:

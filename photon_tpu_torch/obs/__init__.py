@@ -107,6 +107,7 @@ __all__ = [
     "summary_table",
     "sync_snapshot",
     "syncs_since",
+    "tally",
     "write_chrome_trace",
     "write_memory_report",
     "write_metrics",
@@ -171,6 +172,13 @@ def counter(name: str, value: float = 1.0) -> None:
     """Bump a counter on the default registry (no-op while disabled)."""
     if _tracer.enabled:
         _registry.counter(name, value)
+
+
+def tally(name: str, value: float = 1.0) -> None:
+    """Bump a counter on the default registry whether or not telemetry is
+    on (a count that a run reads back with telemetry off, as
+    :class:`host_sync` counts its sites always)."""
+    _registry.counter(name, value)
 
 
 def gauge(name: str, value: float) -> None:
