@@ -5,8 +5,8 @@ aligned numpy arrays (CSR features plus label, offset and weight columns);
 ``to_device_*`` pad it to a row multiple and place it on a device, dense
 ([N, D]) or as a padded-ELL ``SparseBatch`` that is never densified, with
 the column-window layout for the backward pass where
-``ops/sparse_windows.maybe_build_windows`` builds one. Sample identity is
-the row position.
+``ops/sparse_windows.windows_wanted`` wants one. Sample identity is the
+row position.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from photon_tpu_torch.ops.sparse_windows import maybe_build_windows
+from photon_tpu_torch import obs
+from photon_tpu_torch.ops.sparse_windows import column_windows_from_numpy, maybe_window_layout
 from photon_tpu_torch.types import LabeledBatch, SparseBatch, numpy_dtype, resolve_device
 
 
@@ -193,27 +194,34 @@ def to_device_sparse_batch(
     """CSR → padded-ELL batch on ``device``, never densified: N·K slots of
     (int32 index, value), rows padded to a multiple of ``pad_to_multiple``
     with weight 0. The window layout is built where the policy builds it
-    (a CUDA device at d ≥ 1024) or when ``column_windows`` asks for it."""
+    (a CUDA device at d ≥ 1024) or when ``column_windows`` asks for it.
+    The single-GLM path's build stages are ``obs.stage`` spans:
+    ``glm.ell`` (the host ELL), ``glm.fe_windows`` (the host window
+    layout) and ``glm.placement`` (the copies to ``device``)."""
     dev = resolve_device(device)
     n = data.num_samples
     n_pad = _round_up(max(n, 1), pad_to_multiple)
-    indices, values = csr_to_ell(
-        data.indptr, data.indices, data.values,
-        dtype=numpy_dtype(dtype), nnz_pad_multiple=nnz_pad_multiple,
-        num_rows_padded=n_pad,
-    )
+    with obs.stage("glm.ell"):
+        indices, values = csr_to_ell(
+            data.indptr, data.indices, data.values,
+            dtype=numpy_dtype(dtype), nnz_pad_multiple=nnz_pad_multiple,
+            num_rows_padded=n_pad,
+        )
+    with obs.stage("glm.fe_windows"):
+        layout = maybe_window_layout(
+            indices, values, data.num_features, device=dev, force=column_windows
+        )
     pad = n_pad - n
-    return SparseBatch(
-        indices=torch.as_tensor(indices).to(dev),
-        values=torch.as_tensor(values).to(dev),
-        labels=_column(data.labels, pad, dtype, dev),
-        offsets=_column(data.offsets, pad, dtype, dev),
-        weights=_column(data.weights, pad, dtype, dev),
-        windows=maybe_build_windows(
-            indices, values, data.num_features,
-            device=dev, dtype=dtype, force=column_windows,
-        ),
-    )
+    with obs.stage("glm.placement"):
+        return SparseBatch(
+            indices=torch.as_tensor(indices).to(dev),
+            values=torch.as_tensor(values).to(dev),
+            labels=_column(data.labels, pad, dtype, dev),
+            offsets=_column(data.offsets, pad, dtype, dev),
+            weights=_column(data.weights, pad, dtype, dev),
+            windows=None if layout is None
+            else column_windows_from_numpy(layout, device=dev, dtype=dtype),
+        )
 
 
 def to_device_auto_batch(

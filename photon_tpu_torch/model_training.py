@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.data.dataset import (
     DataSet,
     choose_sparse,
@@ -57,12 +58,13 @@ def train_glm_grid(
 
     A ``DataSet`` is laid out dense or sparse ELL by ``choose_sparse`` and
     placed on ``device`` (a sparse one with the window layout where
-    ``maybe_build_windows`` builds it: on the card at d ≥ 1024). A
+    ``windows_wanted`` wants it: on the card at d ≥ 1024). A
     prebuilt ``LabeledBatch``/``SparseBatch`` must already lie on
     ``device``; its dtype wins, and a ``SparseBatch`` needs
     ``num_features``. Runs on the card unless ``device="cpu"``; without a
     card the default raises. Models come back in the original space, with
-    variances when the config asks for them."""
+    variances when the config asks for them. Each λ point's solve is the
+    span ``glm.fit``."""
     dev = resolve_device(device)
     if isinstance(data, (LabeledBatch, SparseBatch)):
         batch = data
@@ -106,9 +108,10 @@ def train_glm_grid(
             solve_batch = place(sampler.downsample(data))
 
         t0 = time.perf_counter()
-        result = problem.solve(solve_batch, w)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with obs.span("glm.fit", cat="solver", regularization_weight=reg_weight):
+            result = problem.solve(solve_batch, w)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         # the solve's work counters into telemetry (after its sync)
         record_optimize_metrics(result)

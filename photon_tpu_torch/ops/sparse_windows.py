@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from photon_tpu_torch import obs
+
 
 class ColumnWindows(NamedTuple):
     """rows/lcols/vals: [W_inst, L]; inst2win: [W_inst] window id per
@@ -101,7 +103,11 @@ def build_column_windows_numpy(
     the native counting sort by column (O(nnz + d), the JAX package's
     ``_native_histogram`` / ``_native_fill``); other values, a missing
     library, or ``native=False`` take numpy's stable argsort. Both give
-    the same arrays. ``last_build`` records which ran and why."""
+    the same arrays. ``last_build`` records which ran and why. Each build
+    adds its stored nonzeros, its slots (W_inst·L) and its instances to
+    the registry counters ``windows.nnz``, ``windows.slots`` and
+    ``windows.instances`` (``obs.tally``: counted whether or not
+    telemetry is on)."""
     t0 = time.perf_counter()
     phases, marks = {}, [t0]
 
@@ -191,6 +197,9 @@ def build_column_windows_numpy(
         np.full(w_inst_pad, num_windows - 1, dtype=np.int32),
     ])
     mark("finish")
+    obs.tally("windows.nnz", nnz)
+    obs.tally("windows.slots", w_inst * length)
+    obs.tally("windows.instances", w_inst)
     last_build.update(
         path="numpy" if lib is None else "native",
         reason=reason,
@@ -255,27 +264,6 @@ def windows_wanted(device, num_features: int) -> bool:
     return torch.device(device).type == "cuda" and num_features >= 1024
 
 
-def maybe_build_windows(
-    indices: np.ndarray,
-    values: np.ndarray,
-    num_features: int,
-    *,
-    device: torch.device,
-    dtype=None,
-    force: bool = False,
-    window: int = 128,
-    instance_cap: int = 4096,
-) -> ColumnWindows | None:
-    """Layout policy: windows where :func:`windows_wanted` says, and on
-    any device when ``force`` is set (the CPU tests run the plain Xᵀr
-    so)."""
-    layout = maybe_window_layout(indices, values, num_features, device=device, force=force,
-                                 window=window, instance_cap=instance_cap)
-    if layout is None:
-        return None
-    return column_windows_from_numpy(layout, device=device, dtype=dtype)
-
-
 def maybe_window_layout(
     indices: np.ndarray,
     values: np.ndarray,
@@ -286,9 +274,10 @@ def maybe_window_layout(
     window: int = 128,
     instance_cap: int = 4096,
 ) -> dict | None:
-    """The host half of :func:`maybe_build_windows`: the layout's numpy
-    arrays (:func:`build_column_windows_numpy`) where the policy wants
-    windows for ``device``, else None; nothing is placed."""
+    """Layout policy: the layout's numpy arrays
+    (:func:`build_column_windows_numpy`) where :func:`windows_wanted` says,
+    and on any device when ``force`` is set (the CPU tests run the plain
+    Xᵀr so), else None; nothing is placed."""
     if force or windows_wanted(torch.device(device), num_features):
         return build_column_windows_numpy(
             indices, values, num_features, window=window, instance_cap=instance_cap,

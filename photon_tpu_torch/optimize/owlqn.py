@@ -17,6 +17,13 @@ The solve is built from init / iteration / finalize pieces
 them in one loop, ``SegmentedOWLQN`` in bounded segments from the host.
 Both call the same pieces in the same order, so on one device they give
 the same result bit for bit.
+
+``minimize_owlqn``'s solve is the span ``owlqn.solve`` (lanes, d); in an
+iteration of either loop the direction is ``owlqn.direction`` and the
+line search ``owlqn.linesearch``. The registry counters
+``owlqn.iterations`` (one per iteration of the lane batch) and
+``owlqn.trials`` (one per line-search trial) are counted whether or not
+telemetry is on (``obs.tally``).
 """
 from __future__ import annotations
 
@@ -185,27 +192,31 @@ def _owlqn_machinery(
         )
 
     def step(s: _OWLQNState) -> _OWLQNState:
+        obs.tally("owlqn.iterations")
         x, f, g, carry = s.x, s.f, s.g, s.carry
         dtype, dev = x.dtype, x.device
         lanes = torch.arange(x.shape[0], device=dev)
         l1 = torch.full((), l1_weight, dtype=dtype, device=dev)
         active = s.reason == ConvergenceReason.NOT_CONVERGED
         s_hist, y_hist, rho, num_pairs, pos = s.s_hist, s.y_hist, s.rho, s.num_pairs, s.pos
-        pg = pseudo_gradient(x, g, l1)
-        direction = two_loop_direction(pg, s_hist, y_hist, rho, num_pairs, pos)
-        # orthant alignment: drop components that do not descend along pg;
-        # fall back to −pg when nothing is left
-        direction = torch.where(direction * pg < 0.0, direction, torch.zeros_like(direction))
-        degenerate = (direction * direction).sum(-1) == 0.0
-        direction = torch.where(degenerate.unsqueeze(-1), -pg, direction)
-        # the orthant: sign(x), or sign(−pg) where x is 0
-        xi = torch.where(x != 0.0, torch.sign(x), torch.sign(-pg))
-        pg_norm = torch.linalg.vector_norm(pg, dim=-1)
-        step_len = torch.where(
-            num_pairs == 0,
-            torch.clamp(1.0 / torch.clamp(pg_norm, min=1e-12), max=1.0),
-            torch.ones_like(pg_norm),
-        ).to(dtype)
+        with obs.span("owlqn.direction", cat="solver"):
+            pg = pseudo_gradient(x, g, l1)
+            direction = two_loop_direction(pg, s_hist, y_hist, rho, num_pairs, pos)
+            # orthant alignment: drop components that do not descend along
+            # pg; fall back to −pg when nothing is left
+            direction = torch.where(
+                direction * pg < 0.0, direction, torch.zeros_like(direction)
+            )
+            degenerate = (direction * direction).sum(-1) == 0.0
+            direction = torch.where(degenerate.unsqueeze(-1), -pg, direction)
+            # the orthant: sign(x), or sign(−pg) where x is 0
+            xi = torch.where(x != 0.0, torch.sign(x), torch.sign(-pg))
+            pg_norm = torch.linalg.vector_norm(pg, dim=-1)
+            step_len = torch.where(
+                num_pairs == 0,
+                torch.clamp(1.0 / torch.clamp(pg_norm, min=1e-12), max=1.0),
+                torch.ones_like(pg_norm),
+            ).to(dtype)
 
         # backtracking with orthant projection; Armijo on F along the
         # projected displacement (Andrew & Gao eq. 4)
@@ -214,32 +225,36 @@ def _owlqn_machinery(
         ls_ok = torch.zeros_like(active)
         x_new, f_new = x, f
         aux = carry if margin_trials else g  # accepted margins, or gradient
-        for _ in range(config.ls_max_iterations):
-            run = ~done
-            with obs.host_sync("owlqn.trial"):
-                # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
-                searching = bool(run.any())
-            if not searching:
-                break
-            x_cand = x + step_len.unsqueeze(-1) * direction
-            x_cand = torch.where(torch.sign(x_cand) == xi, x_cand, torch.zeros_like(x_cand))
-            if margin_trials:
-                f_s, aux_cand = oracle.value_margins(x_cand)
-                f_s = f_s.to(dtype)
-            else:
-                f_s, aux_cand, _ = eval_smooth(x_cand)
-            f_cand = full_value(f_s, x_cand, l1)
-            dx = x_cand - x
-            ok = (
-                (f_cand <= f + config.ls_c1 * (pg * dx).sum(-1))
-                & ((dx * dx).sum(-1) > 0.0)
-                & run
-            )
-            x_new, f_new, aux = select_lanes(ok, (x_cand, f_cand, aux_cand), (x_new, f_new, aux))
-            ls_iters = torch.where(run, ls_iters + 1, ls_iters)
-            step_len = torch.where(run, step_len * 0.5, step_len)
-            done = done | ok
-            ls_ok = ls_ok | ok
+        with obs.span("owlqn.linesearch", cat="solver"):
+            for _ in range(config.ls_max_iterations):
+                run = ~done
+                with obs.host_sync("owlqn.trial"):
+                    # phl-ok: PHL002 one sync per line-search trial on 'any lane still searching'
+                    searching = bool(run.any())
+                if not searching:
+                    break
+                obs.tally("owlqn.trials")
+                x_cand = x + step_len.unsqueeze(-1) * direction
+                x_cand = torch.where(torch.sign(x_cand) == xi, x_cand, torch.zeros_like(x_cand))
+                if margin_trials:
+                    f_s, aux_cand = oracle.value_margins(x_cand)
+                    f_s = f_s.to(dtype)
+                else:
+                    f_s, aux_cand, _ = eval_smooth(x_cand)
+                f_cand = full_value(f_s, x_cand, l1)
+                dx = x_cand - x
+                ok = (
+                    (f_cand <= f + config.ls_c1 * (pg * dx).sum(-1))
+                    & ((dx * dx).sum(-1) > 0.0)
+                    & run
+                )
+                x_new, f_new, aux = select_lanes(
+                    ok, (x_cand, f_cand, aux_cand), (x_new, f_new, aux)
+                )
+                ls_iters = torch.where(run, ls_iters + 1, ls_iters)
+                step_len = torch.where(run, step_len * 0.5, step_len)
+                done = done | ok
+                ls_ok = ls_ok | ok
 
         if not margin_trials:
             g_new, carry_new = aux, carry
@@ -337,12 +352,14 @@ def minimize_owlqn(
     make_init, step, finalize = _owlqn_machinery(
         value_and_grad, l1_weight, config, oracle=oracle, solo=solo
     )
-    s = make_init(x0.unsqueeze(0) if solo else x0)
-    for _ in range(config.max_iterations):
-        if not _any_active(s):
-            break
-        s = step(s)
-    return finalize(s)
+    lanes = 1 if solo else x0.shape[0]
+    with obs.span("owlqn.solve", cat="solver", lanes=lanes, d=x0.shape[-1]):
+        s = make_init(x0.unsqueeze(0) if solo else x0)
+        for _ in range(config.max_iterations):
+            if not _any_active(s):
+                break
+            s = step(s)
+        return finalize(s)
 
 
 class SegmentedOWLQN:

@@ -115,10 +115,10 @@ def test_kernel_entry_refuses_cpu_tensors():
 def test_window_policy():
     idx, val, d, _, _ = _case("d1024-hot0")
     cpu = torch.device("cpu")
-    assert tsw.maybe_build_windows(idx, val, d, device=cpu) is None
-    forced = tsw.maybe_build_windows(idx, val, d, device=cpu, force=True)
-    assert forced is not None and forced.window == 128
-    assert forced.rows.shape[0] % 8 == 0
+    assert tsw.maybe_window_layout(idx, val, d, device=cpu) is None
+    forced = tsw.maybe_window_layout(idx, val, d, device=cpu, force=True)
+    assert forced is not None and forced["iota"].shape == (128,)
+    assert forced["rows"].shape[0] % 8 == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.int32, torch.int64])
