@@ -16,13 +16,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the memory bound; the fused lane solve (``lane_kernel_phase``) against
    the plain lane loop on buckets of the benchmark cell's shapes (float64
    decision for decision, float32 within stated margins; no library
-   call computes it);
+   call computes it); the fused fixed-effect iteration
+   (``solo_kernel_phase``: ``solo_head`` and ``solo_search``) against the
+   plain loop on the cell's fixed effect (float64 decision for decision,
+   float32 within the cell's fixed-path limit) and on the main path's
+   (float64), with both kernels timed;
 4. main path: ``GameEstimator(device="cuda").fit`` on a GLMix model at the
    widths of bench config 5 (``game_ctr_scale``: sparse fixed effect with
    2^17 columns and 24 nonzeros per row, per-user and per-item random
    effects at d=16), depth cut to 2^20 rows / 2^19 users / 2^16 items,
    then ``GameScorer(device="cuda").score_data`` on the same rows (the
-   streaming pipeline); checks that the kernel ran, every value is finite,
+   streaming pipeline); checks that the kernel ran, that every fixed-effect
+   solve of the fit launched the fused L-BFGS kernels two times an
+   iteration and once more, every value is finite,
    grouped AUC ≥ 0.8, the scorer agrees with the fit's final scores, the
    streamed scores equal the batches scored one after another with
    blocking copies bit for bit, and a small fit on the card agrees with
@@ -264,7 +270,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    phase runs under ``LaneCensus``: the lane kernel's launches per phase
    go into the line, and a phase fails when a random-effect lane solve on
    the card left the kernel for the plain lane loop, unless its data
-   exceeds the kernel's row cap (``LaneCensus.EXPECTED``).
+   exceeds the kernel's row cap (``LaneCensus.EXPECTED``); the fused
+   fixed-effect kernels' launches per phase, and the card's one-lane
+   solves that kept the plain loop with their reasons, go in too.
 
 Room for the phases of the mesh's second half (the script must finish in
 1200 s): subprocess legs that compare answers and not walls run at the
@@ -466,6 +474,40 @@ def time_ms(fns, reps=20, rounds=5, warmup=3):
             b.record()
             b.synchronize()
             times[name].append(a.elapsed_time(b) / reps)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def launch_ms(fns, reps=20, rounds=5, warmup=3):
+    """Device time of one launch of each ``(restore, launch)`` pair in
+    ``fns`` (name → pair), in ms, for launches that update their state in
+    place: ``restore`` puts back the state each launch starts from, then
+    the launch runs between its own pair of CUDA events; the ``reps``
+    launches' times summed over ``reps``, the median of ``rounds`` such
+    runs after warm-up, the functions taking turns as in :func:`time_ms`.
+    The restores are not timed."""
+    import torch
+
+    for restore, launch in fns.values():
+        for _ in range(warmup):
+            restore()
+            launch()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for name in order if i % 2 == 0 else order[::-1]:
+            restore, launch = fns[name]
+            events = []
+            for _ in range(reps):
+                restore()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                launch()
+                b.record()
+                events.append((a, b))
+            events[-1][1].synchronize()
+            times[name].append(sum(a.elapsed_time(b) for a, b in events) / reps)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -828,6 +870,211 @@ def lane_kernel_phase(seed):
     return rows
 
 
+#: float32: the largest relative gap of a fixed-effect loss history from
+#: the plain loop's at float64, the benchmark cell's limit on
+#: ``fixed_path_rel`` (port_bench/limits/game_ctr_scale.fit.json)
+SOLO_F32_PATH_LIMIT = 1e-4
+
+
+def solo_fe_batch(seed, dtype):
+    """``game_ctr_scale``'s fixed effect on the card, as its coordinate holds
+    it: the cell's generator at the cell's size (2,500,033 rows, 20,742
+    columns, 4-6 ones a row), the ELL batch with its window layout, offsets
+    N(0, 0.8) standing in for the random effects' residual, unit weights."""
+    from port_bench.gen.movielens import movielens_arrays
+
+    with open("port_bench/configs/game_ctr_scale.json") as f:
+        spec = json.load(f)["data"]
+    a = movielens_arrays(seed, **{k: v for k, v in spec.items() if k != "generator"})
+    return fe_on_card(seed, dtype, a["indptr"], a["indices"], a["values"], a["labels"],
+                      a["fe_dim"]), a["fe_dim"]
+
+
+def main_fe_batch(data, seed, dtype):
+    """The main path's fixed effect on the card (``data``'s global shard:
+    2^20 rows, 2^17 columns, 24 nonzeros a row), as :func:`solo_fe_batch`."""
+    fe = data.feature_shards["global"]
+    return fe_on_card(seed, dtype, fe.indptr, fe.indices, fe.values, data.labels,
+                      fe.num_cols), fe.num_cols
+
+
+def fe_on_card(seed, dtype, indptr, indices, values, labels, dim):
+    import numpy as np
+
+    from photon_tpu_torch.data.dataset import DataSet, to_device_sparse_batch
+
+    n = len(labels)
+    ds = DataSet(indptr=indptr, indices=indices, values=values, labels=labels,
+                 offsets=np.random.default_rng(seed).normal(0.0, 0.8, n), weights=np.ones(n),
+                 num_features=dim)
+    return to_device_sparse_batch(ds, dtype=dtype, device="cuda", column_windows=True)
+
+
+def solo_kernel_phase(seed, data):
+    """Hold the fused fixed-effect iteration (``optimize/solo_lbfgs.py``:
+    ``solo_head`` and ``solo_search`` in ``csrc/lane_lbfgs.cu``) against
+    its plain version, ``_minimize_lbfgs`` on the margin oracle, on the
+    cell's fixed effect solved as the cell solves it (logistic, L2 λ = 1,
+    10 iterations, 10 trials, 10 pairs): a second fused solve bit-identical
+    to the first; at float64 the plain loop's decisions (iterations,
+    reason, trials, feature passes), x and the loss history within 1e-10;
+    at float32 each path's loss history within SOLO_F32_PATH_LIMIT of the
+    plain loop's at float64; and the main path's fixed effect (2^17
+    columns, 24 nonzeros a row) at float64 held to the plain loop in the
+    same way. Then time each kernel on a solve with a full
+    history (m = 10 pairs, tolerance −1 so it never stops): the head
+    against the plain two-loop recursion over the same history, the search
+    against the plain ``wolfe_search_phi`` and accept on the same margins,
+    each with its bytes bound (the head: the history once and g, x, d; the
+    search: z, z_d, labels and weights once a trial), and a whole fused
+    solve against a whole plain one. The plain search is
+    ``wolfe_search_phi``'s trials on the same margins, its syncs included;
+    the forward and backward passes around it are timed with neither."""
+    import dataclasses
+
+    import torch
+
+    from photon_tpu_torch.optimize import solo_lbfgs
+    from photon_tpu_torch.optimize.common import OptimizerConfig
+    from photon_tpu_torch.optimize.lbfgs import _minimize_lbfgs, _solo, two_loop_direction
+    from photon_tpu_torch.optimize.linesearch import wolfe_search_phi
+    from photon_tpu_torch.optimize.problem import (
+        GLMProblem,
+        GLMProblemConfig,
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    problem = GLMProblem.build(GLMProblemConfig(
+        optimizer_config=OptimizerConfig(max_iterations=10, ls_max_iterations=10),
+        regularization=RegularizationContext(RegularizationType.L2), regularization_weight=1.0))
+    cfg = problem.config.optimizer_config
+    decisions = ("iterations", "reason", "n_evals", "n_feature_passes")
+
+    def rel(a, ref):
+        return float(torch.linalg.vector_norm(a.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()).clamp_min(1e-300))
+
+    def plain(batch, w0):
+        return _minimize_lbfgs(None, w0, cfg, problem.objective.directional_oracle(batch))
+
+    def held(name, b, w0):
+        """The fused solve of ``b`` from ``w0``: run twice, bit for bit the
+        same, and beside the plain loop's (at float64: its decisions, and x
+        and the loss history within 1e-10). The row, both results."""
+        got = solo_lbfgs.minimize_solo(problem, b, w0)
+        again = solo_lbfgs.minimize_solo(problem, b, w0)
+        for field, a in zip(got._fields, got):
+            if not torch.equal(a, getattr(again, field)):
+                fail(f"solo_lbfgs {name}: {field} differs between two solves on the same input")
+        want = plain(b, w0)
+        row = {"phase": "solo_kernel", "dtype": str(w0.dtype).removeprefix("torch."),
+               "rows": b.labels.shape[0], "d": w0.shape[0], "iterations": int(got.iterations),
+               "n_evals": int(got.n_evals),
+               "decisions_equal": {f: bool(torch.equal(getattr(got, f), getattr(want, f)))
+                                   for f in decisions},
+               "x_rel_vs_plain": rel(got.x, want.x),
+               "loss_history_rel_vs_plain": rel(got.loss_history, want.loss_history)}
+        if w0.dtype == torch.float64:
+            if not all(row["decisions_equal"].values()):
+                fail(f"solo_lbfgs {name}: decisions differ from the plain loop's: {row}")
+            if row["x_rel_vs_plain"] > 1e-10 or row["loss_history_rel_vs_plain"] > 1e-10:
+                fail(f"solo_lbfgs {name}: x or the loss history over 1e-10 from the plain "
+                     f"loop's: {row}")
+        return row, got, want
+
+    b, dim = main_fe_batch(data, seed, torch.float64)
+    main_row, *_ = held("main_path float64", b,
+                        torch.zeros(dim, dtype=torch.float64, device="cuda"))
+    log(json.dumps(main_row | {"fe": "main_path"}))
+    del b
+    rows = {}
+    paths64 = None
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        b, dim = solo_fe_batch(seed, dtype)
+        w0 = torch.zeros(dim, dtype=dtype, device="cuda")
+        row, got, want = held(name, b, w0)
+        if dtype == torch.float64:
+            paths64 = want.loss_history
+        else:
+            gaps = {k: float(((h.double() - paths64) / paths64.abs()).abs().max())
+                    for k, h in (("fused", got.loss_history), ("plain", want.loss_history))}
+            row["path_rel_vs_float64"] = gaps
+            if gaps["fused"] > SOLO_F32_PATH_LIMIT:
+                fail(f"solo_lbfgs float32: loss history {gaps['fused']:.3g} from the float64 "
+                     f"plain loop's (> {SOLO_F32_PATH_LIMIT})")
+
+        # the kernels alone, on a solve with a full history that never stops
+        endless = dataclasses.replace(cfg, max_iterations=1000, tolerance=-1.0)
+        s = solo_lbfgs.SoloSolve(problem.objective, b, w0, endless)
+        s.head(first=True)
+        for k in range(cfg.num_corrections + 1):
+            if k > 0:
+                s.head()
+            s.forward()
+            s.search()
+            s.backward()
+        # the timed head's state (a search done, its gradient pass too), then
+        # the timed search's (that head done, its forward pass too)
+        state_names = ("x", "g", "d", "s_hist", "y_hist", "rho", "sc", "si", "z", "u")
+        at_head = {k: getattr(s, k).clone() for k in state_names}
+        s.head()
+        s.forward()
+        at_search = {k: getattr(s, k).clone() for k in state_names}
+        s.search()
+        state, counts = s.sc.tolist(), s.si.tolist()
+        if counts[solo_lbfgs.REASON] != 0 or counts[solo_lbfgs.PAIRS] < cfg.num_corrections:
+            fail(f"solo_lbfgs {name}: the timed head is not an active one with a full history: "
+                 f"{counts}")
+        g, x, direction = at_search["g"], at_search["x"], at_search["d"]
+        pos = torch.tensor([counts[solo_lbfgs.POS]], dtype=torch.int32, device="cuda")
+        npairs = torch.tensor([counts[solo_lbfgs.PAIRS]], dtype=torch.int32, device="cuda")
+        phi, _ = _solo(problem.objective.directional_oracle(b)).dir_setup(
+            at_search["z"], x[None], direction[None])
+
+        def restored(saved):
+            """Put the solve back in ``saved``'s state: each launch updates
+            it in place, so every timed one starts from the same state."""
+            def restore():
+                for k, v in saved.items():
+                    getattr(s, k).copy_(v)
+            return restore
+
+        def scalar(slot):
+            return torch.tensor([state[slot]], dtype=dtype, device="cuda")
+
+        def plain_two_loop():
+            two_loop_direction(g[None], at_search["s_hist"][None], at_search["y_hist"][None],
+                               at_search["rho"][None], npairs, pos)
+
+        def plain_search():
+            wolfe_search_phi(phi, scalar(solo_lbfgs.F), scalar(solo_lbfgs.DPHI0), (),
+                             initial_step=scalar(solo_lbfgs.INIT), c1=cfg.ls_c1, c2=cfg.ls_c2,
+                             max_iterations=cfg.ls_max_iterations)
+
+        row.update(launch_ms({"head_ms": (restored(at_head), s.head),
+                              "search_ms": (restored(at_search), s.search)}))
+        row.update(time_ms({"plain_head_ms": plain_two_loop, "plain_search_ms": plain_search},
+                           reps=2, rounds=3, warmup=1))
+        row.update(time_ms({"fused_solve_ms": lambda: solo_lbfgs.minimize_solo(problem, b, w0),
+                            "plain_solve_ms": lambda: plain(b, w0)},
+                           reps=1, rounds=3, warmup=1))
+        item = torch.empty((), dtype=dtype).element_size()
+        m, dim, n = cfg.num_corrections, w0.shape[0], b.labels.shape[0]
+        trials = counts[solo_lbfgs.TRIALS]
+        row["search_trials"] = trials
+        row["head_bound_ms"] = 1e3 * item * (2 * m * dim + 3 * dim) / HBM_BYTES_PER_S
+        row["search_bound_ms"] = 1e3 * item * 4 * n * trials / HBM_BYTES_PER_S
+        row["bound_by"] = "bytes"
+        row["head_bound_share"] = row["head_bound_ms"] / row["head_ms"]
+        row["search_bound_share"] = row["search_bound_ms"] / row["search_ms"]
+        log(json.dumps(row))
+        rows[name] = row
+        del b, s, got, want
+    return rows, main_row
+
+
 class LaneCensus:
     """Which random-effect lane solves on the card left the fused kernel,
     per phase: the dispatch rule that ``game.coordinate.solve_lanes`` asks
@@ -837,7 +1084,11 @@ class LaneCensus:
     ``lane_lbfgs.minimize_lanes.launches``. (The registry's own
     ``re.lanes_plain`` counts the same lanes, but every driver's telemetry
     session zeroes the registry, so it cannot be read across a phase.)
-    Processes a phase starts are not counted."""
+    The one-lane solves likewise: ``solo_lbfgs.plain_loop_reason``, which
+    ``GLMProblem.solve`` asks, is wrapped, each card solve it sends to the
+    plain loop counted under the phase and its reason, and the fused
+    kernels' launches (``solo_lbfgs.minimize_solo.launches``) kept per
+    phase. Processes a phase starts are not counted."""
 
     #: phases whose card solves may leave the kernel, and the one reason:
     #: daily_retrain's and daily_retrain_parity's Zipf users hold up to
@@ -846,14 +1097,15 @@ class LaneCensus:
     EXPECTED = {"streaming_phases": "rows "}
 
     def __init__(self):
-        from photon_tpu_torch.optimize import lane_lbfgs
+        from photon_tpu_torch.optimize import lane_lbfgs, solo_lbfgs
 
-        self.lane_lbfgs = lane_lbfgs
-        self.rule = lane_lbfgs.plain_loop_reason
+        self.lane_lbfgs, self.solo_lbfgs = lane_lbfgs, solo_lbfgs
+        self.rule, self.solo_rule = lane_lbfgs.plain_loop_reason, solo_lbfgs.plain_loop_reason
         self.phase = None
-        self.plain = {}
-        self.launches = {}
+        self.plain, self.solo_plain = {}, {}
+        self.launches, self.solo_launches = {}, {}
         lane_lbfgs.plain_loop_reason = self.counted
+        solo_lbfgs.plain_loop_reason = self.solo_counted
 
     def counted(self, problem, features):
         reason = self.rule(problem, features)
@@ -862,9 +1114,17 @@ class LaneCensus:
             row[reason] = row.get(reason, 0) + features.shape[0]
         return reason
 
+    def solo_counted(self, problem, batch, w0):
+        reason = self.solo_rule(problem, batch, w0)
+        if reason is not None and w0.device.type == "cuda":
+            row = self.solo_plain.setdefault(self.phase, {})
+            row[reason] = row.get(reason, 0) + 1
+        return reason
+
     def start(self, phase):
         self.phase = phase
         self.n0 = self.lane_lbfgs.minimize_lanes.launches
+        self.s0 = self.solo_lbfgs.minimize_solo.launches
 
     def finish(self):
         """Keep the phase's launches; fail if a card lane left the kernel
@@ -872,6 +1132,8 @@ class LaneCensus:
         phase, self.phase = self.phase, None
         n = self.lane_lbfgs.minimize_lanes.launches - self.n0
         self.launches[phase] = self.launches.get(phase, 0) + n
+        n = self.solo_lbfgs.minimize_solo.launches - self.s0
+        self.solo_launches[phase] = self.solo_launches.get(phase, 0) + n
         allowed = self.EXPECTED.get(phase)
         for reason, lanes in self.plain.get(phase, {}).items():
             if allowed is None or not reason.startswith(allowed):
@@ -1360,14 +1622,21 @@ def main_path(data, seed):
 
     from photon_tpu_torch.game import GameScorer
     from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+    from photon_tpu_torch.optimize import solo_lbfgs
 
     coords = [("user", N_USERS, RE_DIM, USER_UB), ("item", N_ITEMS, RE_DIM, ITEM_UB)]
     est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float32, seed=seed)
     windowed_rmatvec.launches = 0
+    solo0 = solo_lbfgs.minimize_solo.launches  # a difference: LaneCensus reads it too
     t0 = time.perf_counter()
     result = est.fit(data)[0]
     fit_wall = time.perf_counter() - t0
     fit_launches = windowed_rmatvec.launches
+    fe_launches = solo_lbfgs.minimize_solo.launches - solo0
+    fe_solves = [r["info"] for r in result.tracker if r.get("coordinate") == "fixed"]
+    if fe_launches != sum(2 * int(r.iterations) + 1 for r in fe_solves):
+        fail(f"the fit's {len(fe_solves)} fixed-effect solves launched the fused L-BFGS "
+             f"kernels {fe_launches} times, not two an iteration and one more a solve")
     wbuild = window_build("main_path")
     t1 = time.perf_counter()
     scorer = GameScorer(result.model, device="cuda", batch_rows=1 << 16)
@@ -1417,6 +1686,7 @@ def main_path(data, seed):
         "fe_iterations_sweep0": int(info.iterations),
         "fe_feature_passes_sweep0": int(info.n_feature_passes),
         "kernel_launches_fit": fit_launches,
+        "solo_lbfgs_launches_fit": fe_launches,
         "score_wall_s": score_wall, "score_turns_s": score_turns,
         "streamed_equals_sequential": True,
         "grouped_auc_user": auc,
@@ -6789,6 +7059,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     try:
         from photon_tpu_torch.ops import cuda_build
+        from photon_tpu_torch.optimize import solo_lbfgs
     except ImportError as e:
         fail(f"photon_tpu_torch is not importable (run from the repository root): {e}")
 
@@ -6835,6 +7106,7 @@ def main() -> None:
 
     kmain, shards5 = timed("kernel_phase", kernel_phase, data)
     klanes = timed("lane_kernel_phase", lane_kernel_phase, args.seed)
+    ksolo, ksolo_main = timed("solo_kernel_phase", solo_kernel_phase, args.seed, data)
     timed("small_parity", small_parity, torch.float32, 1e-3)
     timed("small_parity", small_parity, torch.float64, 1e-9)
     launches, sweeps_s = timed("main_path", main_path, data, args.seed)
@@ -6958,6 +7230,24 @@ def main() -> None:
             "kernel_ms", "plain_ms", "bound_ms", "bound_share", "x_max_rel_vs_plain",
             "decisions_equal_share")} | {k: row[k] for k in ("rounding_ties",) if k in row}
             for key, row in klanes.items()},
+    }, {
+        "name": "solo_lbfgs",
+        "route": "cuda",
+        "source": "photon_tpu_torch/csrc/lane_lbfgs.cu (solo_head, solo_search)",
+        "replaces": None,
+        "plain_version": "_minimize_lbfgs on the margin oracle (optimize/lbfgs.py two_loop_direction, "
+                         "optimize/linesearch.py wolfe_search_phi; JAX's fixed-effect solve is a "
+                         "lax.while_loop, photon_tpu/optimize/lbfgs.py)",
+        "launches": sum(census.solo_launches.values()),
+        "launches_by_path": {path: n for path, n in census.solo_launches.items() if n > 0},
+        "plain_solves_by_path": census.solo_plain,
+        "fixed_effect": {key: {k: row[k] for k in (
+            "head_ms", "head_bound_ms", "plain_head_ms", "search_ms", "search_bound_ms",
+            "search_trials", "plain_search_ms", "fused_solve_ms", "plain_solve_ms",
+            "x_rel_vs_plain")} for key, row in ksolo.items()},
+        "main_path_fixed_effect": {k: ksolo_main[k] for k in (
+            "dtype", "rows", "d", "iterations", "decisions_equal", "x_rel_vs_plain",
+            "loss_history_rel_vs_plain")},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

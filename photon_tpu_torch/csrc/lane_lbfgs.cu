@@ -1,4 +1,6 @@
-// Lane-batched L-BFGS for Hopper (sm_90a), plain C interface for ctypes.
+// L-BFGS for Hopper (sm_90a), plain C interface for ctypes: the lane-batched
+// solve of random-effect buckets (lane_lbfgs), and below it the one-lane
+// iteration of a fixed effect over many rows (solo_head, solo_search).
 //
 // Replaces no TPU kernel: the JAX package solves a random-effect bucket as
 // one vmapped lax.while_loop (RandomEffectCoordinate._solve_bucket,
@@ -51,6 +53,7 @@
 // - Loss values and derivatives, the iterate and the line search's
 //   scalars are computed in the lane's type, as the plain loop does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -146,6 +149,92 @@ __device__ __forceinline__ T interp(T a_lo, T phi_lo, T dphi_lo, T a_hi, T phi_h
   return bad ? bisect : quad;
 }
 
+// linesearch.py wolfe_search_phi: the strong-Wolfe search's state and its
+// transitions, one trial at a time. Every thread that needs the step keeps
+// its own copy and advances it on the same sums, so the copies agree.
+template <typename T>
+struct Wolfe {
+  T f0, dphi0, c1, neg_c2;
+  T alpha, a_prev, phi_prev, dphi_prev, a_lo, phi_lo, dphi_lo, a_hi, phi_hi;
+  T a_star, phi_star, a_best, phi_best;
+  bool success, has_best, done, in_zoom;
+  int i;  // trials so far
+
+  __device__ Wolfe(T f0_, T dphi0_, T init, T c1_, T neg_c2_)
+      : f0(f0_), dphi0(dphi0_), c1(c1_), neg_c2(neg_c2_), alpha(init), a_prev(T(0)),
+        phi_prev(f0_), dphi_prev(dphi0_), a_lo(T(0)), phi_lo(f0_), dphi_lo(dphi0_),
+        a_hi(T(0)), phi_hi(f0_), a_star(T(0)), phi_star(f0_), a_best(T(0)), phi_best(f0_),
+        success(false), has_best(false), done(false), in_zoom(false), i(0) {}
+
+  __device__ bool searching(int ls_max) const { return !done && i < ls_max; }
+
+  // the next trial's step
+  __device__ T trial() const {
+    return in_zoom ? interp(a_lo, phi_lo, dphi_lo, a_hi, phi_hi) : alpha;
+  }
+
+  // the trial at step ``at`` read φ = fv and φ′ = dphi
+  __device__ void advance(T at, T fv, T dphi) {
+    const bool armijo = fv <= f0 + c1 * at * dphi0;
+    const bool curv = ab(dphi) <= neg_c2 * dphi0;
+    const bool better = armijo && (!has_best || fv < phi_best);
+    // bracketing stage
+    const bool br_hi = !armijo || (i > 0 && fv >= phi_prev);
+    const bool br_rev = armijo && dphi >= T(0) && !br_hi;
+    const bool br_done = armijo && curv && !br_hi;
+    const bool enter_zoom = (br_hi || br_rev) && !br_done;
+    // zoom stage
+    const bool shrink_hi = !armijo || fv >= phi_lo;
+    const bool zm_done = !shrink_hi && curv;
+    const bool flip = !shrink_hi && !zm_done && dphi * (a_hi - a_lo) >= T(0);
+    const bool zm_stuck = ab(a_hi - a_lo) * at_least(ab(dphi0), T(1)) <= T(1e-12);
+    const bool star_now = in_zoom ? zm_done : br_done;
+    const bool done_now = in_zoom ? (zm_done || zm_stuck) : br_done;
+    if (in_zoom) {
+      const T n_a_hi = shrink_hi ? at : (flip ? a_lo : a_hi);
+      const T n_phi_hi = shrink_hi ? fv : (flip ? phi_lo : phi_hi);
+      if (!shrink_hi) {
+        a_lo = at;
+        phi_lo = fv;
+        dphi_lo = dphi;
+      }
+      a_hi = n_a_hi;
+      phi_hi = n_phi_hi;
+    } else {
+      if (enter_zoom) {
+        a_lo = br_hi ? a_prev : at;
+        phi_lo = br_hi ? phi_prev : fv;
+        dphi_lo = br_hi ? dphi_prev : dphi;
+        a_hi = br_hi ? at : a_prev;
+        phi_hi = br_hi ? fv : phi_prev;
+      }
+      a_prev = at;
+      phi_prev = fv;
+      dphi_prev = dphi;
+    }
+    alpha = (in_zoom || enter_zoom) ? at : at * T(2);
+    in_zoom = in_zoom || enter_zoom;
+    done = done || done_now;
+    if (star_now) {
+      a_star = at;
+      phi_star = fv;
+    }
+    success = success || star_now;
+    if (better) {
+      a_best = at;
+      phi_best = fv;
+    }
+    has_best = has_best || better;
+    ++i;
+  }
+
+  // the result: the Wolfe point, else the best Armijo point, else step 0
+  __device__ bool use_best() const { return !success && has_best; }
+  __device__ T step() const { return success ? a_star : (use_best() ? a_best : T(0)); }
+  __device__ T value() const { return success ? phi_star : (use_best() ? phi_best : f0); }
+  __device__ bool failed() const { return !(success || use_best()); }
+};
+
 // every lane of the warp ends with the same bits: each level adds the same
 // two values in either order
 __device__ __forceinline__ double warp_sum(double v) {
@@ -183,23 +272,25 @@ struct Lane {
   int rows, d;
 };
 
-// Σ over the block of K per-thread partials, broadcast to every thread.
-// Two buffers in turn: a buffer is rewritten only after the next call's
-// barrier, which every thread reaches after reading it.
-template <int K, typename T>
-__device__ __forceinline__ void block_sum(const Lane<T>& L, double (&v)[K], int& parity) {
+// Σ over the block of K per-thread partials, broadcast to every thread with
+// the same bits: a warp's xor butterfly, then the warps in order. Two
+// buffers of ``stride`` doubles (at least warps × K) in turn: a buffer is
+// rewritten only after the next call's barrier, which every thread reaches
+// after reading it.
+template <int K>
+__device__ __forceinline__ void block_sum(double (&v)[K], double* red, int stride, int& parity) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  double* buf = L.red + parity * (kMaxWarps * 2);
+  double* buf = red + parity * stride;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const double s = warp_sum(v[k]);
-    if (lane == 0) buf[warp * 2 + k] = s;
+    if (lane == 0) buf[warp * K + k] = s;
   }
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     double s = 0.0;
-    for (int i = 0; i < nw; ++i) s += buf[i * 2 + k];
+    for (int i = 0; i < nw; ++i) s += buf[i * K + k];
     v[k] = s;
   }
   parity ^= 1;
@@ -238,7 +329,7 @@ __device__ T full_eval(const Lane<T>& L, int loss, T half_l2, T l2, T* out, int&
     acc[0] += (double)(L.w[r] * l);
     L.u[r] = L.w[r] * d1;
   }
-  block_sum<1>(L, acc, parity);
+  block_sum<1>(acc, L.red, kMaxWarps * 2, parity);
   column_sums(L, out, l2, T(0), false);
   double xx = 0.0;  // every thread, the same order
   for (int j = 0; j < L.d; ++j) xx += (double)L.x[j] * (double)L.x[j];
@@ -427,14 +518,9 @@ __global__ void __launch_bounds__(kMaxThreads) lane_lbfgs_kernel(Params p) {
     }
 
     // -- the strong-Wolfe search in margin space (linesearch.py) ------------
-    const T f0 = f;
-    T alpha = init, a_prev = T(0), phi_prev = f0, dphi_prev = dphi0;
-    T a_lo = T(0), phi_lo = f0, dphi_lo = dphi0, a_hi = T(0), phi_hi = f0;
-    T a_star = T(0), phi_star = f0, a_best = T(0), phi_best = f0;
-    bool success = false, has_best = false, done = false, in_zoom = false;
-    int i = 0;
-    while (!done && i < p.ls_max) {
-      const T at = in_zoom ? interp(a_lo, phi_lo, dphi_lo, a_hi, phi_hi) : alpha;
+    Wolfe<T> ws(f, dphi0, init, c1, neg_c2);
+    while (ws.searching(p.ls_max)) {
+      const T at = ws.trial();
       double acc[2] = {0.0, 0.0};
       for (int r = tid; r < rows; r += nt) {
         const T zd = L.u[r];
@@ -443,66 +529,14 @@ __global__ void __launch_bounds__(kMaxThreads) lane_lbfgs_kernel(Params p) {
         acc[0] += (double)(L.w[r] * l);
         acc[1] += (double)(L.w[r] * d1 * zd);
       }
-      block_sum<2>(L, acc, parity);
+      block_sum<2>(acc, L.red, kMaxWarps * 2, parity);
       const T fv = T(acc[0]) + half_l2 * (xx + T(2) * at * xd + at * at * dd);
       const T dphi = T(acc[1]) + l2 * (xd + at * dd);
-
-      const bool armijo = fv <= f0 + c1 * at * dphi0;
-      const bool curv = ab(dphi) <= neg_c2 * dphi0;
-      const bool better = armijo && (!has_best || fv < phi_best);
-      // bracketing stage
-      const bool br_hi = !armijo || (i > 0 && fv >= phi_prev);
-      const bool br_rev = armijo && dphi >= T(0) && !br_hi;
-      const bool br_done = armijo && curv && !br_hi;
-      const bool enter_zoom = (br_hi || br_rev) && !br_done;
-      // zoom stage
-      const bool shrink_hi = !armijo || fv >= phi_lo;
-      const bool zm_done = !shrink_hi && curv;
-      const bool flip = !shrink_hi && !zm_done && dphi * (a_hi - a_lo) >= T(0);
-      const bool zm_stuck = ab(a_hi - a_lo) * at_least(ab(dphi0), T(1)) <= T(1e-12);
-      const bool star_now = in_zoom ? zm_done : br_done;
-      const bool done_now = in_zoom ? (zm_done || zm_stuck) : br_done;
-      if (in_zoom) {
-        const T n_a_hi = shrink_hi ? at : (flip ? a_lo : a_hi);
-        const T n_phi_hi = shrink_hi ? fv : (flip ? phi_lo : phi_hi);
-        if (!shrink_hi) {
-          a_lo = at;
-          phi_lo = fv;
-          dphi_lo = dphi;
-        }
-        a_hi = n_a_hi;
-        phi_hi = n_phi_hi;
-      } else {
-        if (enter_zoom) {
-          a_lo = br_hi ? a_prev : at;
-          phi_lo = br_hi ? phi_prev : fv;
-          dphi_lo = br_hi ? dphi_prev : dphi;
-          a_hi = br_hi ? at : a_prev;
-          phi_hi = br_hi ? fv : phi_prev;
-        }
-        a_prev = at;
-        phi_prev = fv;
-        dphi_prev = dphi;
-      }
-      alpha = (in_zoom || enter_zoom) ? at : at * T(2);
-      in_zoom = in_zoom || enter_zoom;
-      done = done || done_now;
-      if (star_now) {
-        a_star = at;
-        phi_star = fv;
-      }
-      success = success || star_now;
-      if (better) {
-        a_best = at;
-        phi_best = fv;
-      }
-      has_best = has_best || better;
-      ++i;
+      ws.advance(at, fv, dphi);
     }
-    const bool use_best = !success && has_best;
-    const T step = success ? a_star : (use_best ? a_best : T(0));
-    const T f_new = success ? phi_star : (use_best ? phi_best : f0);
-    const bool step_failed = !(success || use_best);
+    const T step = ws.step();
+    const T f_new = ws.value();
+    const bool step_failed = ws.failed();
 
     // -- the accepted point's gradient from the carried margins -------------
     for (int r = tid; r < rows; r += nt) {
@@ -570,7 +604,7 @@ __global__ void __launch_bounds__(kMaxThreads) lane_lbfgs_kernel(Params p) {
       gh[it] = gnorm_new;
     }
     f = f_new;
-    n_evals += i;
+    n_evals += ws.i;
     n_passes += 2;
   }
 
@@ -617,6 +651,437 @@ Shape shape_of(int f64, int rows, int dim, int m) {
   s.smem = (int)(s.feats_in_smem ? with_x : base);
   if (!s.feats_in_smem) s.ld = dim;
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// One problem over many rows: the fixed effect's L-BFGS iteration.
+//
+// Replaces no TPU kernel either: the JAX package runs a fixed-effect solve
+// as one lax.while_loop (photon_tpu/optimize/lbfgs.py) that XLA compiles
+// into one program. The port's plain version is the same Python loop as
+// above on one lane, over all N rows of the fixed effect, which on the
+// card issues ~800 kernels an iteration, nearly all of them [1]- and
+// [D]-shaped: the two-loop recursion over the pairs, the line search's
+// scalar state machine, the pair update and the convergence test.
+// optimize/solo_lbfgs.py keeps the two passes over the features on their
+// own kernels (z_d = X·d by the ELL gather, Xᵀr by the windowed kernel)
+// and runs everything between them in two launches an iteration:
+//
+// - solo_head_kernel, one CTA of 1024 threads: the accepted step's point
+//   x + α·d and its gradient Xᵀr + λ·x, the curvature pair (sᵀy > 1e-10),
+//   the convergence test and the histories in the plain loop's order; then,
+//   while the solve is active, the two-loop direction over the [m, D]
+//   history (fallback −g), the first step, φ′(0) and x·x, x·d, d·d. What
+//   bounds it: the chain of 2m + 4 dependent block sums over D values,
+//   ~1.7 MB of history from L2 at the cell's D = 20,742 and m = 10.
+// - solo_search_kernel, one cooperative launch of every co-resident CTA:
+//   the strong-Wolfe search on the carried margins. Each trial, every CTA
+//   sums Σw·loss(z + α·z_d) and Σw·loss′·z_d over its rows in float64 into
+//   its partial, the grid syncs, and every CTA sums the partials in the
+//   same order and advances its own copy of the same Wolfe state, so all
+//   agree with no second sync. At its end each CTA writes its rows of the
+//   accepted margins and of w·loss′ (the row vector of Xᵀr). What bounds
+//   it: bytes, z, z_d, labels and weights read once a trial (16·N at
+//   float32), and one grid sync a trial.
+//
+// State between launches lives on the card and each launch updates it in
+// place: a thread writes only the coordinates and rows it read itself, and
+// the head reads its scalars before its first barrier, thread 0 writing
+// them back at its end. The host reads one int an iteration: whether the
+// solve is active.
+
+constexpr int kHeadThreads = 1024;
+constexpr int kHeadWarps = kHeadThreads / 32;
+constexpr int kSearchThreads = 256;
+constexpr int kSearchWarps = kSearchThreads / 32;
+constexpr int kSumsMax = 5;  // the widest block_sum of the two kernels
+
+// a state slot: double[kSlots] (values of the solve's type) and int[kISlots]
+// (optimize/solo_lbfgs.py names the same indices)
+enum Slot : int {
+  kF = 0, kLossTol = 1, kGradTol = 2, kDphi0 = 3, kInit = 4, kXX = 5, kXD = 6, kDD = 7,
+  kStep = 8, kFNew = 9, kSlots = 16
+};
+enum ISlot : int {
+  kIt = 0, kReason = 1, kPos = 2, kPairs = 3, kEvals = 4, kPasses = 5, kTrials = 6,
+  kStepOk = 7, kISlots = 8
+};
+
+struct HeadParams {
+  const void* xtr;     // Xᵀ(w·loss′) at the accepted point, without λ·x
+  void* x;             // [dim]: the iterate, its gradient, the direction
+  void* g;
+  void* d;
+  void* s_hist;        // [m, dim]
+  void* y_hist;
+  void* rho;           // [m]
+  void* loss_hist;     // [max_iter + 1]
+  void* gnorm_hist;
+  const void* f_init;  // first launch: f(x0) and the tolerances, 0-d tensors
+  const void* loss_tol;
+  const void* grad_tol;
+  void* q;             // [dim]: q and then r of the two-loop
+  double* sc;          // the state's scalars
+  int* si;
+  long long dim;
+  int m, max_iter, first;
+  double l2;
+};
+
+// The head's passes over the coordinates a thread owns (j = t, t + blockDim,
+// ...: a vector a thread writes, it alone reads again; only the sums cross
+// threads). A pass is a chain of L2 reads, so each is a function whose
+// __restrict__ pointers let the compiler issue an unrolled group's loads
+// together instead of waiting out the latency of each.
+template <typename T>
+__device__ __forceinline__ double own_dot(const T* __restrict__ a, const T* __restrict__ b,
+                                          long long n) {
+  double s = 0.0;
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) s += (double)a[j] * (double)b[j];
+  return s;
+}
+
+// out = out + c·v
+template <typename T>
+__device__ __forceinline__ void own_axpy(T* __restrict__ out, T c, const T* __restrict__ v,
+                                         long long n) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) out[j] = out[j] + c * v[j];
+}
+
+template <typename T>
+__device__ __forceinline__ void own_copy(T* __restrict__ out, const T* __restrict__ in,
+                                         long long n) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) out[j] = in[j];
+}
+
+// out = c·out
+template <typename T>
+__device__ __forceinline__ void own_scale(T* __restrict__ out, T c, long long n) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) out[j] = c * out[j];
+}
+
+// the accepted point x + step·d and its gradient Xᵀr + λ·x: own_accept sums
+// s·y and g·g, own_move moves x and g there and writes (ok) the pair
+template <typename T>
+__device__ __forceinline__ void own_accept(const T* __restrict__ xi, const T* __restrict__ gi,
+                                           const T* __restrict__ di, const T* __restrict__ xtr,
+                                           T step, T l2, long long n, double (&acc)[2]) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const T xn = xi[j] + step * di[j];
+    const T gn = xtr[j] + l2 * xn;
+    acc[0] += (double)(xn - xi[j]) * (double)(gn - gi[j]);
+    acc[1] += (double)gn * (double)gn;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void own_move(T* __restrict__ x, T* __restrict__ g,
+                                         const T* __restrict__ d, const T* __restrict__ xtr,
+                                         T* __restrict__ s_slot, T* __restrict__ y_slot, T step,
+                                         T l2, bool ok, long long n) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const T xj = x[j], xn = xj + step * d[j];
+    const T gn = xtr[j] + l2 * xn;
+    if (ok) {
+      s_slot[j] = xn - xj;
+      y_slot[j] = gn - g[j];
+    }
+    x[j] = xn;
+    g[j] = gn;
+  }
+}
+
+// d = −r where it descends, else −g, and the search's sums g·d, g·g, x·d,
+// d·d, x·x
+template <typename T>
+__device__ __forceinline__ void own_direction(T* __restrict__ dir, const T* __restrict__ r,
+                                              const T* __restrict__ g, const T* __restrict__ x,
+                                              bool descent, long long n, double (&v)[5]) {
+#pragma unroll 4
+  for (long long j = threadIdx.x; j < n; j += blockDim.x) {
+    const T dj = descent ? -r[j] : -g[j];
+    dir[j] = dj;
+    v[0] += (double)g[j] * (double)dj;
+    v[1] += (double)g[j] * (double)g[j];
+    v[2] += (double)x[j] * (double)dj;
+    v[3] += (double)dj * (double)dj;
+    v[4] += (double)x[j] * (double)x[j];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHeadThreads) solo_head_kernel(HeadParams p) {
+  __shared__ double red[2 * kHeadWarps * kSumsMax];
+  const int tid = threadIdx.x, m = p.m;
+  const long long D = p.dim;
+  T* x = static_cast<T*>(p.x);
+  T* g = static_cast<T*>(p.g);
+  T* dir = static_cast<T*>(p.d);
+  T* sh = static_cast<T*>(p.s_hist);
+  T* yh = static_cast<T*>(p.y_hist);
+  T* rho = static_cast<T*>(p.rho);
+  T* lh = static_cast<T*>(p.loss_hist);
+  T* gh = static_cast<T*>(p.gnorm_hist);
+  const T l2 = T(p.l2);
+  int parity = 0;
+
+  T f, loss_tol, grad_tol;
+  int it, reason, pos, npairs, n_evals, n_passes;
+  if (p.first) {
+    f = *static_cast<const T*>(p.f_init);
+    loss_tol = *static_cast<const T*>(p.loss_tol);
+    grad_tol = *static_cast<const T*>(p.grad_tol);
+    it = 0;
+    reason = kNotConverged;
+    pos = 0;
+    npairs = 0;
+    n_evals = 2;   // the zero state and the initial point
+    n_passes = 4;  // 2 full evaluations × 2 passes
+  } else {
+    const double* sc = p.sc;
+    const int* si = p.si;
+    f = T(sc[kF]);
+    loss_tol = T(sc[kLossTol]);
+    grad_tol = T(sc[kGradTol]);
+    it = si[kIt];
+    reason = si[kReason];
+    pos = si[kPos];
+    npairs = si[kPairs];
+    n_evals = si[kEvals];
+    n_passes = si[kPasses];
+    const int trials = si[kTrials];
+    const T step = T(sc[kStep]), f_new = T(sc[kFNew]);
+    const bool step_failed = si[kStepOk] == 0;
+    const T* xtr = static_cast<const T*>(p.xtr);
+
+    // -- the accepted point, its gradient and the curvature pair ------------
+    double acc[2] = {0.0, 0.0};
+    own_accept(x, g, dir, xtr, step, l2, D, acc);
+    block_sum<2>(acc, red, kHeadWarps * kSumsMax, parity);
+    const T sy = T(acc[0]);
+    const bool ok = sy > T(1e-10);
+    const T gnorm_new = T(sqrt(acc[1]));
+    own_move(x, g, dir, xtr, sh + (size_t)pos * D, yh + (size_t)pos * D, step, l2, ok, D);
+    if (ok) {
+      if (tid == 0) rho[pos] = T(1) / sy;
+      pos = (pos + 1) % m;
+      npairs += 1;
+    }
+
+    // -- convergence (common.py convergence_check, in its order) ------------
+    it += 1;
+    if (it >= p.max_iter) {
+      reason = kMaxIterations;
+    } else if (step_failed) {
+      reason = kNotImproving;
+    } else if (ab(f_new - f) <= loss_tol) {
+      reason = kFunctionValues;
+    } else if (gnorm_new <= grad_tol) {
+      reason = kGradient;
+    }
+    if (tid == 0 && it <= p.max_iter) {
+      lh[it] = f_new;
+      gh[it] = gnorm_new;
+    }
+    f = f_new;
+    n_evals += trials;
+    n_passes += 2;  // the direction's margins and the accepted gradient
+  }
+
+  T dphi0 = T(0), init = T(0), xx = T(0), xd = T(0), dd = T(0);
+  if (reason == kNotConverged) {
+    __syncthreads();  // rho[pos − 1], written by thread 0 above, is read below
+    // -- the two-loop direction (lbfgs.py two_loop_direction): q and then r
+    // in the scratch vector q ------------------------------------------------
+    T* q = static_cast<T*>(p.q);
+    T al[kMaxCorrections];
+    const int nv = npairs < m ? npairs : m;
+    own_copy(q, g, D);
+    for (int k = 0; k < nv; ++k) {
+      const int idx = ((pos - 1 - k) % m + m) % m;
+      double a[1] = {own_dot(sh + (size_t)idx * D, q, D)};
+      block_sum<1>(a, red, kHeadWarps * kSumsMax, parity);
+      al[k] = rho[idx] * T(a[0]);
+      own_axpy(q, -al[k], yh + (size_t)idx * D, D);  // q − α·y
+    }
+    T gamma = T(1);
+    if (nv > 0) {
+      const int newest = ((pos - 1) % m + m) % m;
+      const T* y = yh + (size_t)newest * D;
+      double c[2] = {own_dot(sh + (size_t)newest * D, y, D), own_dot(y, y, D)};
+      block_sum<2>(c, red, kHeadWarps * kSumsMax, parity);
+      const T sy_n = T(c[0]), yy = T(c[1]);
+      if (yy > T(0)) gamma = sy_n / yy;
+    }
+    own_scale(q, gamma, D);
+    for (int k = nv - 1; k >= 0; --k) {
+      const int idx = ((pos - 1 - k) % m + m) % m;
+      double b[1] = {own_dot(yh + (size_t)idx * D, q, D)};
+      block_sum<1>(b, red, kHeadWarps * kSumsMax, parity);
+      const T beta = rho[idx] * T(b[0]);
+      own_axpy(q, al[k] - beta, sh + (size_t)idx * D, D);  // r + s·(α − β)
+    }
+    // −r where it descends (Σ (−r)·g < 0), else −g
+    double rg[1] = {own_dot(q, g, D)};
+    block_sum<1>(rg, red, kHeadWarps * kSumsMax, parity);
+    const bool descent = T(-rg[0]) < T(0);
+
+    // -- what the search needs: φ′(0), the first step, x·x, x·d, d·d ---------
+    double v[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
+    own_direction(dir, q, g, x, descent, D, v);
+    block_sum<5>(v, red, kHeadWarps * kSumsMax, parity);
+    const T gnorm = T(sqrt(v[1]));
+    dphi0 = T(v[0]);
+    init = npairs == 0 ? at_most(T(1) / at_least(gnorm, T(1e-12)), T(1)) : T(1);
+    xd = T(v[2]);
+    dd = T(v[3]);
+    xx = T(v[4]);
+    if (tid == 0 && p.first) {
+      lh[0] = f;
+      gh[0] = gnorm;
+    }
+  }
+  if (tid == 0) {
+    double* sc = p.sc;
+    int* si = p.si;
+    sc[kF] = f;
+    sc[kLossTol] = loss_tol;
+    sc[kGradTol] = grad_tol;
+    sc[kDphi0] = dphi0;
+    sc[kInit] = init;
+    sc[kXX] = xx;
+    sc[kXD] = xd;
+    sc[kDD] = dd;
+    sc[kStep] = 0.0;
+    sc[kFNew] = f;
+    si[kIt] = it;
+    si[kReason] = reason;
+    si[kPos] = pos;
+    si[kPairs] = npairs;
+    si[kEvals] = n_evals;
+    si[kPasses] = n_passes;
+    si[kTrials] = 0;
+    si[kStepOk] = 0;
+  }
+}
+
+struct SearchParams {
+  void* z;            // the carried margins, then the accepted ones
+  const void* zd;     // X·d
+  const void* labels;
+  const void* weights;
+  void* u;            // w·loss′ at the accepted margins
+  double* partials;   // [2][gridDim][2]
+  double* sc;         // the state: reads kF..kDD, writes kStep, kFNew
+  int* si;            // writes kTrials, kStepOk
+  long long rows;
+  int ls_max, loss;
+  double c1, c2, l2;
+};
+
+// the search's end over a thread's rows: the margins moved to the accepted
+// z + step·z_d, and w·loss′ at them
+template <typename T>
+__device__ __forceinline__ void rows_accept(T* __restrict__ z, const T* __restrict__ zd,
+                                            const T* __restrict__ y, const T* __restrict__ w,
+                                            T* __restrict__ u, T step, int loss, long long row0,
+                                            long long rows, long long stride) {
+#pragma unroll 4
+  for (long long r = row0; r < rows; r += stride) {
+    const T zn = z[r] + step * zd[r];
+    T l, d1;
+    loss_d1(loss, zn, y[r], l, d1);
+    z[r] = zn;
+    u[r] = w[r] * d1;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSearchThreads) solo_search_kernel(SearchParams p) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  __shared__ double red[2 * kSearchWarps * kSumsMax];
+  __shared__ double tot[2];
+  T* z = static_cast<T*>(p.z);
+  const T* zd = static_cast<const T*>(p.zd);
+  const T* y = static_cast<const T*>(p.labels);
+  const T* w = static_cast<const T*>(p.weights);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long row0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const T xx = T(p.sc[kXX]), xd = T(p.sc[kXD]), dd = T(p.sc[kDD]);
+  const T l2 = T(p.l2), half_l2 = T(0.5 * p.l2);
+  Wolfe<T> ws(T(p.sc[kF]), T(p.sc[kDphi0]), T(p.sc[kInit]), T(p.c1), T(-p.c2));
+  int parity = 0, turn = 0;
+  while (ws.searching(p.ls_max)) {
+    const T at = ws.trial();
+    double acc[2] = {0.0, 0.0};
+#pragma unroll 4
+    for (long long r = row0; r < p.rows; r += stride) {
+      const T zdr = zd[r];
+      T l, d1;
+      loss_d1(p.loss, z[r] + at * zdr, y[r], l, d1);
+      acc[0] += (double)(w[r] * l);
+      acc[1] += (double)(w[r] * d1 * zdr);
+    }
+    block_sum<2>(acc, red, kSearchWarps * kSumsMax, parity);
+    // the partials of two trials in turn: a CTA rewrites a turn's buffer
+    // only past the next grid sync, which every CTA reaches after reading it
+    double* part = p.partials + (size_t)turn * gridDim.x * 2;
+    if (threadIdx.x == 0) {
+      __stcg(part + 2 * blockIdx.x, acc[0]);
+      __stcg(part + 2 * blockIdx.x + 1, acc[1]);
+    }
+    grid.sync();
+    if (warp == 0) {
+      double s0 = 0.0, s1 = 0.0;
+      for (unsigned b = lane; b < gridDim.x; b += 32) {
+        s0 += __ldcg(part + 2 * b);
+        s1 += __ldcg(part + 2 * b + 1);
+      }
+      s0 = warp_sum(s0);
+      s1 = warp_sum(s1);
+      if (lane == 0) {
+        tot[0] = s0;
+        tot[1] = s1;
+      }
+    }
+    __syncthreads();
+    const T fv = T(tot[0]) + half_l2 * (xx + T(2) * at * xd + at * at * dd);
+    const T dphi = T(tot[1]) + l2 * (xd + at * dd);
+    ws.advance(at, fv, dphi);
+    turn ^= 1;
+  }
+  const T step = ws.step();
+  rows_accept(z, zd, y, w, static_cast<T*>(p.u), step, p.loss, row0, p.rows, stride);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    p.sc[kStep] = step;
+    p.sc[kFNew] = ws.value();
+    p.si[kTrials] = ws.i;
+    p.si[kStepOk] = ws.failed() ? 0 : 1;
+  }
+}
+
+template <typename T>
+int search_grid(long long rows) {
+  int dev, sms, coop, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, solo_search_kernel<T>,
+                                                        kSearchThreads, 0);
+  if (err != cudaSuccess) return -(int)err;
+  if (!coop || per_sm < 1) return -(int)cudaErrorNotSupported;
+  long long need = (rows + kSearchThreads - 1) / kSearchThreads;
+  if (need < 1) need = 1;
+  const long long co_resident = (long long)sms * per_sm;
+  return (int)(need < co_resident ? need : co_resident);
 }
 
 }  // namespace
@@ -685,6 +1150,84 @@ int lane_lbfgs(int f64, const void* features, const void* labels, const void* of
     }
     lane_lbfgs_kernel<float><<<grid, block, s.smem, st>>>(p);
   }
+  return cudaGetLastError();
+}
+
+// The head of one iteration of a one-lane solve (solo_head_kernel): one
+// CTA on ``stream``, updating x, g, d, the histories and the scalars sc / si
+// in place; ``first`` starts the solve at x and g (x0 and its gradient) with
+// the 0-d f_init / loss_tol / grad_tol (xtr, d, sc and si unread). ``q``
+// ([dim]) is the two-loop's scratch. Returns the launch's cudaError.
+int solo_head(int f64, const void* xtr, void* x, void* g, void* d, void* s_hist, void* y_hist,
+              void* rho, void* loss_hist, void* gnorm_hist, const void* f_init,
+              const void* loss_tol, const void* grad_tol, void* q, double* sc, int* si,
+              long long dim, int m, int max_iter, int first, double l2, void* stream) {
+  if (dim < 1 || m < 1 || m > kMaxCorrections || max_iter < 0) return cudaErrorInvalidValue;
+  HeadParams p;
+  p.xtr = xtr;
+  p.x = x;
+  p.g = g;
+  p.d = d;
+  p.s_hist = s_hist;
+  p.y_hist = y_hist;
+  p.rho = rho;
+  p.loss_hist = loss_hist;
+  p.gnorm_hist = gnorm_hist;
+  p.f_init = f_init;
+  p.loss_tol = loss_tol;
+  p.grad_tol = grad_tol;
+  p.q = q;
+  p.sc = sc;
+  p.si = si;
+  p.dim = dim;
+  p.m = m;
+  p.max_iter = max_iter;
+  p.first = first;
+  p.l2 = l2;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f64)
+    solo_head_kernel<double><<<1, kHeadThreads, 0, st>>>(p);
+  else
+    solo_head_kernel<float><<<1, kHeadThreads, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+// The grid of solo_search over ``rows`` rows on the current device: every
+// co-resident CTA, at most one a block of rows. Negative: −cudaError.
+int solo_search_grid(int f64, long long rows) {
+  return f64 ? search_grid<double>(rows) : search_grid<float>(rows);
+}
+
+// The margin search of one iteration (solo_search_kernel), a cooperative
+// launch of ``grid`` CTAs (solo_search_grid) on ``stream``: the margins z
+// move to the accepted step in place; ``partials`` holds 4·grid doubles.
+// Returns the launch's cudaError.
+int solo_search(int f64, void* z, const void* zd, const void* labels, const void* weights,
+                void* u, double* partials, int grid, double* sc, int* si, long long rows,
+                int ls_max, int loss, double c1, double c2, double l2, void* stream) {
+  if (rows < 0 || grid < 1 || ls_max < 0 || loss < 0 || loss > 3) return cudaErrorInvalidValue;
+  SearchParams p;
+  p.z = z;
+  p.zd = zd;
+  p.labels = labels;
+  p.weights = weights;
+  p.u = u;
+  p.partials = partials;
+  p.sc = sc;
+  p.si = si;
+  p.rows = rows;
+  p.ls_max = ls_max;
+  p.loss = loss;
+  p.c1 = c1;
+  p.c2 = c2;
+  p.l2 = l2;
+  void* args[] = {&p};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const void* fn = f64 ? (const void*)solo_search_kernel<double>
+                       : (const void*)solo_search_kernel<float>;
+  const cudaError_t err =
+      cudaLaunchCooperativeKernel(fn, dim3((unsigned)grid), dim3(kSearchThreads), args, 0, st);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -30,14 +30,13 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
 
 
-def plain_loop_reason(problem: GLMProblem, features: torch.Tensor) -> str | None:
-    """Why a lane solve of ``problem`` over ``features`` [B, rows, d] keeps
-    the plain loop, or None when the kernel takes it: L-BFGS (or L-BFGS-B
-    without bounds) with L2 or no regularization, no box, no
-    normalization, the margin line search, a dense float32 or float64
-    block within the caps, on a CUDA device."""
+def solver_reason(problem: GLMProblem) -> str | None:
+    """What in ``problem`` itself keeps its solves on the plain loop,
+    whatever their data, or None: the kernels of ``csrc/lane_lbfgs.cu``
+    compute L-BFGS (or L-BFGS-B without bounds) with L2 or no
+    regularization, no box, no normalization, on the margin line search.
+    Both dispatch rules, this module's and ``solo_lbfgs``'s, ask it first."""
     cfg = problem.config
-    opt = cfg.optimizer_config
     norm = problem.objective.normalization
     if os.environ.get("PHOTON_GLM_LINESEARCH", "margin").strip().lower() == "full":
         return "full line search"
@@ -46,10 +45,22 @@ def plain_loop_reason(problem: GLMProblem, features: torch.Tensor) -> str | None
     if cfg.regularization.regularization_type not in (RegularizationType.NONE,
                                                       RegularizationType.L2):
         return f"regularization {cfg.regularization.regularization_type.value}"
-    if opt.has_box:
+    if cfg.optimizer_config.has_box:
         return "box bounds"
     if norm.shifts is not None or norm.factors is not None:
         return "normalization"
+    return None
+
+
+def plain_loop_reason(problem: GLMProblem, features: torch.Tensor) -> str | None:
+    """Why a lane solve of ``problem`` over ``features`` [B, rows, d] keeps
+    the plain loop, or None when the kernel takes it: what
+    :func:`solver_reason` allows, a dense float32 or float64 block within
+    the caps, on a CUDA device."""
+    reason = solver_reason(problem)
+    if reason is not None:
+        return reason
+    opt = problem.config.optimizer_config
     if features.layout != torch.strided or features.dim() != 3:
         return "features not a dense [lanes, rows, d] block"
     if features.dtype not in KERNEL_DTYPES:

@@ -17,6 +17,7 @@ import os
 
 import torch
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.data.sampling import build_down_sampler
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
@@ -159,7 +160,13 @@ class GLMProblem:
         curvature pass hoisted out of its CG loop; L-BFGS and L-BFGS-B run
         with the margin-space line search. ``PHOTON_GLM_LINESEARCH=full``
         (read at each solve, as JAX reads it) gives OWL-QN and L-BFGS(-B)
-        black-box trials instead, a full value and gradient each."""
+        black-box trials instead, a full value and gradient each.
+
+        An L-BFGS(-B) solve of one lane (``w0`` [D]) runs its iterations on
+        the card's fused kernels where ``solo_lbfgs.plain_loop_reason``
+        finds nothing against it, else the plain loop; each such solve
+        counts as ``lbfgs.solo_fused`` or ``lbfgs.solo_plain`` on the
+        registry, telemetry on or off."""
         if extra_offsets is not None:
             batch = batch._replace(offsets=batch.offsets + extra_offsets)
         cfg = self.config.optimizer_config
@@ -188,6 +195,14 @@ class GLMProblem:
                 cfg,
                 hvp_factory=lambda w: objective.hessian_operator(w, batch),
             )
+        if w0.dim() == 1:
+            # imported here: solo_lbfgs imports this module
+            from photon_tpu_torch.optimize import solo_lbfgs
+
+            fused = solo_lbfgs.plain_loop_reason(self, batch, w0) is None
+            obs.tally("lbfgs.solo_fused" if fused else "lbfgs.solo_plain")
+            if fused:
+                return solo_lbfgs.minimize_solo(self, batch, w0, objective)
         if full_ls:
             return minimize_lbfgs(vg, w0, cfg)
         return minimize_lbfgs(None, w0, cfg, oracle=objective.directional_oracle(batch))
