@@ -297,6 +297,7 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -1075,20 +1076,37 @@ def solo_kernel_phase(seed, data):
     return rows, main_row
 
 
+def rmatvec_launches() -> int:
+    """The windowed Xᵀr kernel's launches in this process so far: the port
+    never resets the count, so every reader takes a difference."""
+    from photon_tpu_torch.ops import cuda_build
+
+    return cuda_build.launch_count("windowed_rmatvec")
+
+
+def solo_launches() -> int:
+    """The fused fixed-effect kernels' launches (heads and searches) in
+    this process so far, read as :func:`rmatvec_launches` is."""
+    from photon_tpu_torch.ops import cuda_build
+
+    return cuda_build.launch_count("solo_head", "solo_search")
+
+
 class LaneCensus:
-    """Which random-effect lane solves on the card left the fused kernel,
-    per phase: the dispatch rule that ``game.coordinate.solve_lanes`` asks
-    (``lane_lbfgs.plain_loop_reason``) is wrapped for the process, and
-    every CUDA bucket it sends to the plain lane loop is counted under the
-    current phase and its reason; the kernel's launches are
-    ``lane_lbfgs.minimize_lanes.launches``. (The registry's own
-    ``re.lanes_plain`` counts the same lanes, but every driver's telemetry
-    session zeroes the registry, so it cannot be read across a phase.)
-    The one-lane solves likewise: ``solo_lbfgs.plain_loop_reason``, which
-    ``GLMProblem.solve`` asks, is wrapped, each card solve it sends to the
-    plain loop counted under the phase and its reason, and the fused
-    kernels' launches (``solo_lbfgs.minimize_solo.launches``) kept per
-    phase. Processes a phase starts are not counted."""
+    """Which L-BFGS solves on the card left the fused kernels, per phase,
+    read as differences of the port's own process-lifetime records: the
+    route of every solve (``lane_lbfgs.routes``, recorded where
+    ``game.coordinate.solve_lanes`` routes a lane batch and where
+    ``GLMProblem.solve`` routes a one-lane solve, by kind, device and the
+    plain loop's reason) and the kernels' launches
+    (``cuda_build.launch_count``). Random-effect lanes on the card that
+    took the plain lane loop are kept per phase and reason in ``plain``,
+    the lane kernel's launches in ``launches``; one-lane solves on the
+    card that took the plain loop in ``solo_plain``, the fused kernels'
+    launches in ``solo_launches``. (The registry's own ``re.lanes_plain``
+    counts the same lanes, but every driver's telemetry session zeroes the
+    registry, so it cannot be read across a phase.) Processes a phase
+    starts are not counted."""
 
     #: phases whose card solves may leave the kernel, and the one reason:
     #: daily_retrain's and daily_retrain_parity's Zipf users hold up to
@@ -1097,43 +1115,33 @@ class LaneCensus:
     EXPECTED = {"streaming_phases": "rows "}
 
     def __init__(self):
-        from photon_tpu_torch.optimize import lane_lbfgs, solo_lbfgs
-
-        self.lane_lbfgs, self.solo_lbfgs = lane_lbfgs, solo_lbfgs
-        self.rule, self.solo_rule = lane_lbfgs.plain_loop_reason, solo_lbfgs.plain_loop_reason
         self.phase = None
         self.plain, self.solo_plain = {}, {}
         self.launches, self.solo_launches = {}, {}
-        lane_lbfgs.plain_loop_reason = self.counted
-        solo_lbfgs.plain_loop_reason = self.solo_counted
 
-    def counted(self, problem, features):
-        reason = self.rule(problem, features)
-        if reason is not None and features.device.type == "cuda":
-            row = self.plain.setdefault(self.phase, {})
-            row[reason] = row.get(reason, 0) + features.shape[0]
-        return reason
+    @staticmethod
+    def _read():
+        from photon_tpu_torch.ops import cuda_build
+        from photon_tpu_torch.optimize import lane_lbfgs
 
-    def solo_counted(self, problem, batch, w0):
-        reason = self.solo_rule(problem, batch, w0)
-        if reason is not None and w0.device.type == "cuda":
-            row = self.solo_plain.setdefault(self.phase, {})
-            row[reason] = row.get(reason, 0) + 1
-        return reason
+        return (collections.Counter(lane_lbfgs.routes), cuda_build.launch_count("lane_lbfgs"),
+                solo_launches())
 
     def start(self, phase):
         self.phase = phase
-        self.n0 = self.lane_lbfgs.minimize_lanes.launches
-        self.s0 = self.solo_lbfgs.minimize_solo.launches
+        self.before = self._read()
 
     def finish(self):
-        """Keep the phase's launches; fail if a card lane left the kernel
-        for a reason its phase does not expect."""
+        """Keep the phase's launches and plain card solves; fail if a card
+        lane left the kernel for a reason its phase does not expect."""
         phase, self.phase = self.phase, None
-        n = self.lane_lbfgs.minimize_lanes.launches - self.n0
-        self.launches[phase] = self.launches.get(phase, 0) + n
-        n = self.solo_lbfgs.minimize_solo.launches - self.s0
-        self.solo_launches[phase] = self.solo_launches.get(phase, 0) + n
+        (routes0, lanes0, solo0), (routes, lanes, solo) = self.before, self._read()
+        self.launches[phase] = self.launches.get(phase, 0) + lanes - lanes0
+        self.solo_launches[phase] = self.solo_launches.get(phase, 0) + solo - solo0
+        for (kind, device, route), n in (routes - routes0).items():
+            if device == "cuda" and route != "fused":
+                row = (self.plain if kind == "lanes" else self.solo_plain).setdefault(phase, {})
+                row[route] = row.get(route, 0) + n
         allowed = self.EXPECTED.get(phase)
         for reason, lanes in self.plain.get(phase, {}).items():
             if allowed is None or not reason.startswith(allowed):
@@ -1621,18 +1629,15 @@ def main_path(data, seed):
     import torch
 
     from photon_tpu_torch.game import GameScorer
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
-    from photon_tpu_torch.optimize import solo_lbfgs
 
     coords = [("user", N_USERS, RE_DIM, USER_UB), ("item", N_ITEMS, RE_DIM, ITEM_UB)]
     est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float32, seed=seed)
-    windowed_rmatvec.launches = 0
-    solo0 = solo_lbfgs.minimize_solo.launches  # a difference: LaneCensus reads it too
+    rmatvec0, solo0 = rmatvec_launches(), solo_launches()
     t0 = time.perf_counter()
     result = est.fit(data)[0]
     fit_wall = time.perf_counter() - t0
-    fit_launches = windowed_rmatvec.launches
-    fe_launches = solo_lbfgs.minimize_solo.launches - solo0
+    fit_launches = rmatvec_launches() - rmatvec0
+    fe_launches = solo_launches() - solo0
     fe_solves = [r["info"] for r in result.tracker if r.get("coordinate") == "fixed"]
     if fe_launches != sum(2 * int(r.iterations) + 1 for r in fe_solves):
         fail(f"the fit's {len(fe_solves)} fixed-effect solves launched the fused L-BFGS "
@@ -1642,7 +1647,7 @@ def main_path(data, seed):
     scorer = GameScorer(result.model, device="cuda", batch_rows=1 << 16)
     scores = scorer.score_data(data)
     score_wall = time.perf_counter() - t1
-    launches = windowed_rmatvec.launches
+    launches = rmatvec_launches() - rmatvec0
     score_turns = streamed_vs_sequential("main_path", scorer, data, scores, turns=True)
     if fit_launches <= 0:
         fail("the fit never launched the windowed Xᵀr kernel")
@@ -1798,7 +1803,6 @@ def glm_a1a(seed):
     from photon_tpu_torch.evaluation.evaluators import area_under_roc_curve
     from photon_tpu_torch.model_training import train_glm_grid
     from photon_tpu_torch.ops.normalization import NormalizationContext
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import NormalizationType
 
     data = a1a_data(seed)
@@ -1813,11 +1817,11 @@ def glm_a1a(seed):
         return train_glm_grid(data, cfg, [10.0, 1.0, 0.1], normalization=norm,
                               dtype=dtype, device=device)
 
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     t0 = time.perf_counter()
     models = fit("cuda", torch.float32)
     wall = time.perf_counter() - t0
-    launches = windowed_rmatvec.launches
+    launches = rmatvec_launches() - rmatvec0
     check_bands("glm_a1a", models)
     x = torch.as_tensor(data.to_dense(np.float32), device="cuda")
     y = torch.as_tensor(data.labels, device="cuda")
@@ -1854,7 +1858,6 @@ def glm_tron(seed):
 
     from photon_tpu_torch.model_training import train_glm_grid
     from photon_tpu_torch.ops.objective import bf16_product
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.optimize.problem import GLMProblem
     from photon_tpu_torch.types import LabeledBatch
 
@@ -1879,9 +1882,9 @@ def glm_tron(seed):
     batch = LabeledBatch(x, y, torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     (model,) = train_glm_grid(batch, cfg, [1.0], device="cuda")
-    launches = windowed_rmatvec.launches
+    launches = rmatvec_launches() - rmatvec0
     check_bands("glm_tron", [model])
     res = model.result
     passes = int(res.n_feature_passes)
@@ -2018,7 +2021,6 @@ def glm_owlqn(seed):
 
     from photon_tpu_torch.data.dataset import to_device_sparse_batch
     from photon_tpu_torch.model_training import train_glm_grid
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     cfg = owlqn_config()
     ds_small = ell_dataset(*config3_arrays(seed + 5, 8192, 2048, 16), 2048)
@@ -2038,11 +2040,11 @@ def glm_owlqn(seed):
     gen_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     t0 = time.perf_counter()
     (model,) = train_glm_grid(ds, cfg, [1e-3], device="cuda")
     wall = time.perf_counter() - t0
-    launches = windowed_rmatvec.launches
+    launches = rmatvec_launches() - rmatvec0
     wbuild = window_build("glm_owlqn")
     if launches <= 0:
         fail("glm_owlqn: the fit never launched the windowed Xᵀr kernel")
@@ -2074,17 +2076,15 @@ def recording(modules, name, sink, *, sync=True):
     function that puts the originals back."""
     import torch
 
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
-
     saved = [(m, getattr(m, name)) for m in modules]
 
     def wrap(fn):
         def rec(*a, **kw):
-            n0, t0 = windowed_rmatvec.launches, time.perf_counter()
+            n0, t0 = rmatvec_launches(), time.perf_counter()
             out = fn(*a, **kw)
             if sync:
                 torch.cuda.synchronize()
-            sink.append((time.perf_counter() - t0, windowed_rmatvec.launches - n0, out))
+            sink.append((time.perf_counter() - t0, rmatvec_launches() - n0, out))
             return out
         return rec
 
@@ -2160,7 +2160,6 @@ def glm_owlqn_diagnose(seed, ds, fit):
     import torch
 
     from photon_tpu_torch import diagnostics
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import TaskType
 
     t0 = time.perf_counter()
@@ -2168,13 +2167,13 @@ def glm_owlqn_diagnose(seed, ds, fit):
     gen_s = time.perf_counter() - t0
     fractions = (0.25, 0.5, 1.0)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-diagnose-") as tmp:
-        windowed_rmatvec.launches = 0
+        rmatvec0 = rmatvec_launches()
         report, wall, retrains, builds = diagnose_recorded(lambda: diagnostics.diagnose_models(
             [fit], valid, TaskType.POISSON_REGRESSION, output_dir=tmp, train_data=ds,
             config=owlqn_config(), best_index=0, bootstrap_replicates=8,
             fitting_fractions=fractions, seed=seed, device="cuda",
         ))
-        launches = windowed_rmatvec.launches
+        launches = rmatvec_launches() - rmatvec0
         check_report("glm_owlqn_diagnose", report, tmp, 8, logistic=False)
     if len(retrains) != len(fractions) + 1 + 8:
         fail(f"glm_owlqn_diagnose: {len(retrains)} retrains, not {len(fractions) + 9}")
@@ -2216,7 +2215,6 @@ def owlqn_segmented_and_full(seed):
     import torch
 
     from photon_tpu_torch.data.dataset import to_device_sparse_batch
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.optimize.owlqn import SegmentedOWLQN, minimize_owlqn
     from photon_tpu_torch.optimize.problem import GLMProblem
 
@@ -2225,7 +2223,7 @@ def owlqn_segmented_and_full(seed):
     problem = GLMProblem.build(owlqn_config().with_regularization_weight(1.0))
     obj, cfg = problem.objective, problem.config.optimizer_config
     x0 = torch.zeros(2048, dtype=torch.float64, device="cuda")
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     mono = minimize_owlqn(None, x0, obj.l1_weight, cfg, oracle=obj.smooth_margin_oracle(batch))
     solver = SegmentedOWLQN(None, obj.l1_weight, cfg,
                             oracle_factory=obj.smooth_margin_oracle, segment_iters=16)
@@ -2251,15 +2249,16 @@ def owlqn_segmented_and_full(seed):
              f"{float(margin.value)} (relative {rel})")
     if int(full.n_feature_passes) != 2 * int(full.n_evals):
         fail("owlqn_full_linesearch: the full line search did not take black-box trials")
+    launches = rmatvec_launches() - rmatvec0
     log(json.dumps({
         "phase": "owlqn_segmented_and_full", "n": 8192, "d": 2048, "dtype": "float64",
         "iterations": int(mono.iterations), "segments": solver.last_num_segments,
         "segmented_bit_equal": True,
         "full_n_feature_passes": int(full.n_feature_passes),
         "margin_n_feature_passes": int(margin.n_feature_passes),
-        "full_vs_margin_objective_rel": rel, "kernel_launches": windowed_rmatvec.launches,
+        "full_vs_margin_objective_rel": rel, "kernel_launches": launches,
     }))
-    return windowed_rmatvec.launches
+    return launches
 
 
 def config3_kernel_rows(idx, vals):
@@ -2455,7 +2454,6 @@ def game_glmix(seed, profile=False):
     )
     from photon_tpu_torch.game.data import slice_game_data
     from photon_tpu_torch.ops.normalization import NormalizationContext
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import NormalizationType, TaskType
 
     coords = [("user", GLMIX_USERS, GLMIX_RE_D, GLMIX_UB)]
@@ -2479,7 +2477,7 @@ def game_glmix(seed, profile=False):
             ),
         }
 
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     est = GameEstimator(task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=configs(
         "global", (1.0,)), update_sequence=["fixed", "user"], descent_iterations=3,
         seed=seed, device="cuda")
@@ -2558,6 +2556,7 @@ def game_glmix(seed, profile=False):
     locked_err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
     if not np.allclose(got, want, rtol=1e-6, atol=0):
         fail(f"game_glmix: the locked fixed effect moved (max rel err {locked_err})")
+    launches = rmatvec_launches() - rmatvec0
     log(json.dumps({
         "phase": "game_glmix", "n": GLMIX_N, "fe_dim": GLMIX_FE_D, "users": GLMIX_USERS,
         "re_dim": GLMIX_RE_D, "ub": GLMIX_UB, "sweeps": 3, "data_gen_s": gen_s,
@@ -2565,10 +2564,10 @@ def game_glmix(seed, profile=False):
         "options_fit_wall_s": opt_wall, "options": walls(est2, grid[-1]),
         "grid": per_grid,
         "retrain_wall_s": retrain_wall, "locked_fe_max_rel_err": locked_err,
-        "kernel_launches": windowed_rmatvec.launches,
+        "kernel_launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }))
-    return windowed_rmatvec.launches
+    return launches
 
 
 def make_mf_data(seed, n, d, nnz, users, items, k):
@@ -2642,14 +2641,13 @@ def game_ctr_mf(seed):
     import torch
 
     from photon_tpu_torch.game import GameEstimator, GameScorer
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import TaskType
 
     t0 = time.perf_counter()
     data = make_mf_data(6, MF_N, MF_D, MF_NNZ, MF_USERS, MF_ITEMS, MF_K)
     gen_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     est = GameEstimator(
         task=TaskType.LOGISTIC_REGRESSION, coordinate_configs=mf_configs(10, 5, 10, MF_K),
         update_sequence=["fixed", "user", "item", "mf"], descent_iterations=2, seed=seed,
@@ -2681,6 +2679,7 @@ def game_ctr_mf(seed):
                 for r in result.tracker if r.get("coordinate") == "mf"]
     per_coord = {r["coordinate"]: r["seconds"] for r in result.tracker
                  if "coordinate" in r and r["iteration"] == 1}
+    launches = rmatvec_launches() - rmatvec0
     log(json.dumps({
         "phase": "game_ctr_mf", "n": MF_N, "d": MF_D, "nnz": MF_NNZ, "users": MF_USERS,
         "items": MF_ITEMS, "k": MF_K, "sweeps": 2, "data_gen_s": gen_s,
@@ -2689,10 +2688,10 @@ def game_ctr_mf(seed):
         "rows_per_s": MF_N / score_wall, "sequential_score_wall_s": sequential_wall,
         "streamed_equals_sequential": True, "host_score_wall_s": host_wall,
         "scorer_vs_fit_max_rel": fit_err, "scorer_vs_host_f64_max_rel": host_rel,
-        "grouped_auc_user": auc, "kernel_launches": windowed_rmatvec.launches,
+        "grouped_auc_user": auc, "kernel_launches": launches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }))
-    return windowed_rmatvec.launches
+    return launches
 
 
 # --- the streaming scorer and the feature cache at bench config 6 ----------------
@@ -3250,7 +3249,6 @@ def windowed_variance_parity(seed):
     )
     from photon_tpu_torch.ops.normalization import NormalizationContext
     from photon_tpu_torch.ops.objective import GLMObjective
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import NormalizationType, TaskType
 
     data = make_ctr_data(seed + 13, 1 << 13, 1 << 11, 8, [("user", 256, 8, 32)])
@@ -3269,9 +3267,9 @@ def windowed_variance_parity(seed):
     hessian_diagonal = GLMObjective.hessian_diagonal
 
     def counting(self, coef, batch):
-        n0 = windowed_rmatvec.launches
+        n0 = rmatvec_launches()
         out = hessian_diagonal(self, coef, batch)
-        counted["launches"] += windowed_rmatvec.launches - n0
+        counted["launches"] += rmatvec_launches() - n0
         return out
 
     out = {}
@@ -3500,7 +3498,6 @@ def cli_game(seed, tmp):
     from photon_tpu_torch.cli import game_scoring, game_training
     from photon_tpu_torch.game.data import slice_game_data
     from photon_tpu_torch.io.avro import read_avro_dir
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
     t0 = time.perf_counter()
@@ -3512,13 +3509,13 @@ def cli_game(seed, tmp):
     write_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     t0 = time.perf_counter()
     res = game_training.run(
         cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/training"), device="cuda"
     )
     train_wall = time.perf_counter() - t0
-    launches = windowed_rmatvec.launches
+    launches = rmatvec_launches() - rmatvec0
     wbuild = window_build("cli_game")
     if launches <= 0:
         fail("cli_game: the training driver's fit never launched the windowed Xᵀr kernel")
@@ -3725,14 +3722,11 @@ def grid0_args(ctx, out, *extra):
     return [a.replace("reg.weights=1|10", "reg.weights=1") for a in cli_args(ctx, out, *extra)]
 
 
-def launches_since_zero(fn):
-    """``fn()`` with the kernel's launch count set to 0 just before; returns
-    (its result, the launches it made)."""
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
-
-    windowed_rmatvec.launches = 0
+def launches_during(fn):
+    """``fn()``'s result and the windowed kernel's launches while it ran."""
+    rmatvec0 = rmatvec_launches()
     out = fn()
-    return out, windowed_rmatvec.launches
+    return out, rmatvec_launches() - rmatvec0
 
 
 def cli_game_resume(ctx):
@@ -3747,13 +3741,12 @@ def cli_game_resume(ctx):
     import os
 
     from photon_tpu_torch.cli import game_training
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.util import faults
 
     argv = grid0_args(ctx, "resume", "--checkpoint-sweeps")
     out = f"{ctx['tmp']}/resume"
     t0 = time.perf_counter()
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     # the driver installs its fault plan from the environment at start
     os.environ["PHOTON_FAULTS"] = "descent.sweep@2=crash"
     try:
@@ -3764,14 +3757,14 @@ def cli_game_resume(ctx):
         fail("cli_game_resume: the fault plan's crash did not propagate out of the driver")
     finally:
         del os.environ["PHOTON_FAULTS"]
-    crash_launches = windowed_rmatvec.launches
+    crash_launches = rmatvec_launches() - rmatvec0
     crash_s = time.perf_counter() - t0
     if not os.path.isfile(f"{out}/checkpoints/descent-checkpoint.json"):
         fail("cli_game_resume: the checkpoint is not on disk after the crash")
     if os.path.exists(f"{out}/models/0"):
         fail("cli_game_resume: models/0 is on disk although grid 0 never finished")
     t0 = time.perf_counter()
-    res, resume_launches = launches_since_zero(lambda: game_training.run(argv, device="cuda"))
+    res, resume_launches = launches_during(lambda: game_training.run(argv, device="cuda"))
     resume_s = time.perf_counter() - t0
     if res["fit_stats"]["resumed_from"] != (0, 0):
         fail(f"cli_game_resume: resumed from {res['fit_stats']['resumed_from']}, not (0, 0)")
@@ -3858,7 +3851,7 @@ def cli_game_restart(ctx, train, valid, settings):
             return e
         fail("cli_game_restart: the injected NaN did not raise DivergenceError")
 
-    err, raise_launches = launches_since_zero(raising)
+    err, raise_launches = launches_during(raising)
     if (err.coordinate, err.iteration) != ("fixed", 1):
         fail(f"cli_game_restart: {err}")
     raise_s = time.perf_counter() - t0
@@ -3870,7 +3863,7 @@ def cli_game_restart(ctx, train, valid, settings):
             return est.fit(train, validation_data=valid,
                            checkpoint_dir=f"{ctx['tmp']}/restart-checkpoints")
 
-    results, restart_launches = launches_since_zero(restarting)
+    results, restart_launches = launches_during(restarting)
     restart_s = time.perf_counter() - t0
     stats = est.last_fit_stats
     if len(stats["restarts"]) != 1 or not stats["restarts"][0].startswith("DivergenceError"):
@@ -3917,7 +3910,7 @@ def cli_game_warm(ctx, train):
                           "1", *extra)
 
     t0 = time.perf_counter()
-    res, save_launches = launches_since_zero(lambda: game_training.run(
+    res, save_launches = launches_during(lambda: game_training.run(
         argv("warm-0", "--model-checkpoint-directory", snap_dir), device="cuda"))
     save_s = time.perf_counter() - t0
     loaded = ModelCheckpointStore(snap_dir).load_latest()
@@ -3940,7 +3933,7 @@ def cli_game_warm(ctx, train):
     estimator_mod.run_coordinate_descent = capturing
     t0 = time.perf_counter()
     try:
-        warm, warm_launches = launches_since_zero(lambda: game_training.run(
+        warm, warm_launches = launches_during(lambda: game_training.run(
             argv("warm-1", "--warm-start-input-directory", snap_dir), device="cuda"))
     finally:
         estimator_mod.run_coordinate_descent = descent
@@ -3976,22 +3969,21 @@ def cli_game_tuning(ctx):
     from photon_tpu_torch.cli import game_training
     from photon_tpu_torch.game import tuning
     from photon_tpu_torch.hyperparameter.serialization import priors_from_json
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     obs_path = f"{ctx['tmp']}/observations.json"
     per_fit = []
     evaluate = tuning.GameEstimatorEvaluationFunction.__call__
 
     def counting(self, candidate):
-        n0 = windowed_rmatvec.launches
+        n0 = rmatvec_launches()
         out = evaluate(self, candidate)
-        per_fit.append(windowed_rmatvec.launches - n0)
+        per_fit.append(rmatvec_launches() - n0)
         return out
 
     tuning.GameEstimatorEvaluationFunction.__call__ = counting
     t0 = time.perf_counter()
     try:
-        res, launches = launches_since_zero(lambda: game_training.run(cli_args(
+        res, launches = launches_during(lambda: game_training.run(cli_args(
             ctx, "tuning", "--output-mode", "NONE", "--hyper-parameter-tuning", "BAYESIAN",
             "--hyper-parameter-tuning-iter", "2", "--coordinate-descent-iterations", "1",
             "--hyper-parameter-save-observations", obs_path), device="cuda"))
@@ -4071,7 +4063,7 @@ def cli_game_cache(ctx):
         cache_bytes[name] = sum(c["bytes"] for c in manifest["columns"].values())
 
     t0 = time.perf_counter()
-    res, launches = launches_since_zero(lambda: game_training.run(cli_args(
+    res, launches = launches_during(lambda: game_training.run(cli_args(
         ctx, "cache-train", "--feature-cache", "require", "--output-mode", "NONE"),
         device="cuda"))
     train_s = time.perf_counter() - t0
@@ -4136,7 +4128,6 @@ def cli_game_parity(seed):
 
     from photon_tpu_torch.cli import game_training
     from photon_tpu_torch.game.data import slice_game_data
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     n, n_valid = 1 << 13, 1 << 11
     coords = [("user", n // 2, RE_DIM, USER_UB), ("item", n // 16, RE_DIM, ITEM_UB)]
@@ -4150,12 +4141,12 @@ def cli_game_parity(seed):
             write_ctr_avro((slice_game_data(both, 0, n), f"{tmp}/train", 2, 0),
                            (slice_game_data(both, n, n + n_valid), f"{tmp}/valid", 1, n))
             for i, dev in enumerate(("cuda", "cpu")):
-                windowed_rmatvec.launches = 0
+                rmatvec0 = rmatvec_launches()
                 fits.append(game_training.run(
                     cli_train_argv(f"{tmp}/train", f"{tmp}/valid", f"{tmp}/fit-{i}"), device=dev
                 ))
                 if i == 0:
-                    launches = windowed_rmatvec.launches
+                    launches = rmatvec_launches() - rmatvec0
     finally:
         game_training.GameEstimator = estimator
     if launches <= 0:
@@ -4356,7 +4347,7 @@ def mesh_two_rank(seed):
     data, coords = two_rank_data(seed)
     est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float64, seed=seed,
                         windows=True)
-    base, launches = launches_since_zero(lambda: est.fit(data)[0])
+    base, launches = launches_during(lambda: est.fit(data)[0])
     if launches <= 0:
         fail("mesh_two_rank: the card's unmeshed fit never launched the windowed Xᵀr kernel")
     want = keyed_arrays(base.model)
@@ -5994,12 +5985,11 @@ def daily_retrain(seed, again, profile=False):
 
     from photon_tpu_torch.game.descent import run_coordinate_descent
     from photon_tpu_torch.game.streaming import StreamConfig
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     t0 = time.perf_counter()
     day0, day1 = daily_retrain_days(seed, DR_N, DR_USERS)
     gen_s = time.perf_counter() - t0
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     ckpt = tempfile.mkdtemp(prefix="chip-smoke-daily-")
 
     def streamed(data, **kw):
@@ -6070,7 +6060,7 @@ def daily_retrain(seed, again, profile=False):
     cold_steady, _ = steady(cold)
     warm_steady, _ = steady(warm)
     solve_chunks = [r["info"]["chunks"] for r in cold.tracker if r.get("coordinate")]
-    if windowed_rmatvec.launches:
+    if rmatvec_launches() - rmatvec0:
         fail("daily_retrain: the streaming path launched the windowed Xᵀr kernel")
     log(json.dumps({
         "phase": "daily_retrain", "n": DR_N, "users": DR_USERS, "d_re": DR_D,
@@ -6202,7 +6192,6 @@ def game_glmix_stream(seed):
         RandomEffectCoordinateConfig,
     )
     from photon_tpu_torch.game.streaming import StreamConfig
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
     from photon_tpu_torch.types import TaskType
 
     coords = [("user", GLMIX_USERS, GLMIX_RE_D, GLMIX_UB)]
@@ -6224,7 +6213,7 @@ def game_glmix_stream(seed):
             locked_coordinates=frozenset({"fixed"}) if locked else frozenset(),
             seed=seed, device="cuda", **kw)
 
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     t0 = time.perf_counter()
     base = estimator(False).fit(data)[0].model
     base_s = time.perf_counter() - t0
@@ -6288,7 +6277,7 @@ def game_glmix_stream(seed):
     del mc, sc, warm
     if not np.all(np.isfinite(got.scores)):
         fail("game_glmix_stream: streamed scores are not finite")
-    if windowed_rmatvec.launches:
+    if rmatvec_launches() - rmatvec0:
         fail("game_glmix_stream: the path launched the windowed Xᵀr kernel (its FE is dense)")
     log(json.dumps({
         "phase": "game_glmix_stream", "n": GLMIX_N, "fe_dim": GLMIX_FE_D,
@@ -6457,15 +6446,18 @@ PRECOMPILE_DRIVER = r"""
 import json, pickle, sys
 from photon_tpu_torch.cli import game_training
 from photon_tpu_torch.game import estimator
-from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+from photon_tpu_torch.ops import cuda_build
 
 seen = {}
 warm = estimator.precompile_coordinates
 
+def launches():
+    return cuda_build.launch_count("windowed_rmatvec")
+
 def spied(coordinates, **kw):
-    n0 = windowed_rmatvec.launches
+    n0 = launches()
     report = warm(coordinates, **kw)
-    seen.update(coordinates=coordinates, launches=windowed_rmatvec.launches - n0)
+    seen.update(coordinates=coordinates, launches=launches() - n0)
     return report
 
 estimator.precompile_coordinates = spied
@@ -6478,7 +6470,7 @@ with open(sys.argv[1], "w") as f:
     json.dump({
         "precompile": stats["precompile"],
         "fit_wall_s": stats["wall_s"], "warmup_launches": seen.get("launches", 0),
-        "fit_launches": windowed_rmatvec.launches,
+        "fit_launches": launches(),
         "dispatched_keys": sum(len(c.programs.dispatched) for c in coords),
         "unwarmed_keys": [repr(k) for c in coords for k in c.programs.dispatched - c.programs.warmed],
         "sweeps": [[{"compiles": t["compiles"], "sweep_seconds": t["sweep_seconds"]}
@@ -6561,7 +6553,7 @@ import json, pickle, sys
 import torch.distributed
 from photon_tpu_torch.cli import game_training
 from photon_tpu_torch.game import coordinate, estimator
-from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.util import EventEmitter
 
 from photon_tpu_torch.analysis import spmd
@@ -6611,7 +6603,8 @@ with open(sys.argv[1] + ".model", "wb") as f:
 with open(sys.argv[1], "w") as f:
     json.dump({
         "mesh": stats["mesh"], "fingerprint": seen["fingerprint"], "backend": seen["backend"],
-        "fit_launches": windowed_rmatvec.launches, "fit_wall_s": stats["wall_s"],
+        "fit_launches": cuda_build.launch_count("windowed_rmatvec"),
+        "fit_wall_s": stats["wall_s"],
         "walls": res["walls"], "collectives": seen["collectives"],
         "sweep_collectives": seen["sweep_collectives"], "sweep_bytes": seen["sweep_bytes"],
         "census": seen["census"], "contract_findings": seen["findings"],
@@ -6757,7 +6750,6 @@ def cli_game_stream(seed, tmp, train_dir=None):
     from photon_tpu_torch.cli import game_training
     from photon_tpu_torch.game import GameEstimator
     from photon_tpu_torch.io.model_io import load_game_model
-    from photon_tpu_torch.ops.sparse_windows import windowed_rmatvec
 
     if train_dir is None:
         coords = [("user", CLI_USERS, RE_DIM, USER_UB), ("item", CLI_ITEMS, RE_DIM, ITEM_UB)]
@@ -6791,7 +6783,7 @@ def cli_game_stream(seed, tmp, train_dir=None):
             "--model-sparsity-threshold", "0", "--stream-chunk-rows", str(DR_CHUNK), *extra,
         ]
 
-    windowed_rmatvec.launches = 0
+    rmatvec0 = rmatvec_launches()
     game_training.GameEstimator = Recording
     runs = {}
     try:
@@ -6834,7 +6826,7 @@ def cli_game_stream(seed, tmp, train_dir=None):
                       "residency": st.get("residency")}
         del data
     fits.clear()
-    if windowed_rmatvec.launches:
+    if rmatvec_launches() - rmatvec0:
         fail("cli_game_stream: the streaming driver launched the windowed Xᵀr kernel")
     torch.cuda.empty_cache()
     log(json.dumps({"phase": "cli_game_stream", "chunk_rows": DR_CHUNK, **rows,
@@ -7059,13 +7051,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     try:
         from photon_tpu_torch.ops import cuda_build
-        from photon_tpu_torch.optimize import solo_lbfgs
     except ImportError as e:
         fail(f"photon_tpu_torch is not importable (run from the repository root): {e}")
 
     t0 = time.perf_counter()
-    cuda_build.load("windowed_rmatvec")
-    cuda_build.load("lane_lbfgs")
+    for name in cuda_build.SIGNATURES:
+        cuda_build.load(name)
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "nvcc_seconds": cuda_build.build_seconds}))
 

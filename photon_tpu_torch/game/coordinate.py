@@ -193,13 +193,13 @@ def solve_lanes(problem_config: GLMProblemConfig, features: Tensor, labels: Tens
     ``lane_lbfgs.plain_loop_reason`` finds nothing against it (L-BFGS with
     L2 on a CUDA block within the caps) the whole solve is one launch of
     the fused kernel, with no host sync; everything else runs the plain
-    lane loop. The lanes are counted as ``re.lanes_fused`` or
-    ``re.lanes_plain`` on the registry, telemetry on or off."""
+    lane loop. The lanes are recorded by their route
+    (``lane_lbfgs.record_route``: the tally ``re.lanes_fused`` or
+    ``re.lanes_plain`` on the registry, telemetry on or off)."""
     batch = LabeledBatch(features=features, labels=labels, offsets=offsets, weights=weights)
     problem = GLMProblem.build(problem_config)
-    fused = lane_lbfgs.plain_loop_reason(problem, features) is None
-    obs.tally("re.lanes_fused" if fused else "re.lanes_plain", w0.shape[0])
-    if fused:
+    reason = lane_lbfgs.plain_loop_reason(problem, features)
+    if lane_lbfgs.record_route("lanes", features.device.type, reason, w0.shape[0]):
         return lane_lbfgs.minimize_lanes(problem, batch, w0)
     return problem.solve(batch, w0)
 

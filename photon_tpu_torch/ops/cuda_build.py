@@ -5,6 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 then loaded with ctypes. The hash covers the source and the flags, so an
 edited kernel rebuilds and an unchanged one is reused. Nothing is built or
 loaded when a module is imported: the first launch on a CUDA tensor does it.
+Each library's C signatures are declared here (:data:`SIGNATURES`), as
+are the check of a tensor handed to a kernel and the launch counts.
 """
 from __future__ import annotations
 
@@ -26,10 +28,34 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+_I, _LL, _PTR, _DBL = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_double
+#: each library's C entry points, name → (restype, argtypes), set on the
+#: library at load: without argtypes ctypes would pass each pointer as a
+#: 32-bit int
+SIGNATURES = {
+    "windowed_rmatvec": {
+        "windowed_rmatvec_grid": (_I, [_I, _LL, _LL, _I, ctypes.POINTER(_I)]),
+        "windowed_rmatvec": (_I, [_I] + [_PTR] * 7 + [_LL, _LL, _I, _LL, _I, _PTR]),
+        "windowed_rmatvec_probe": (_I, [_I, _I] + [_PTR] * 7 + [_LL, _LL, _I, _LL, _LL, _I, _PTR]),
+    },
+    "lane_lbfgs": {
+        "lane_lbfgs": (_I, [_I] + [_PTR] * 15 + [_LL] + [_I] * 6 + [_DBL] * 4 + [_PTR]),
+        "solo_head": (_I, [_I] + [_PTR] * 15 + [_LL] + [_I] * 3 + [_DBL, _PTR]),
+        "solo_search_grid": (_I, [_I, _LL]),
+        "solo_search": (_I, [_I] + [_PTR] * 6 + [_I, _PTR, _PTR, _LL, _I, _I] + [_DBL] * 3
+                        + [_PTR]),
+    },
+}
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 #: name → seconds the last nvcc build took (0.0 when the library was reused)
 build_seconds: dict[str, float] = {}
+#: launches of each kernel entry since the process started, counted where
+#: each is issued (a probe's launches are not); never reset, so every
+#: reader takes a difference
+_launches = dict.fromkeys(("windowed_rmatvec", "lane_lbfgs", "solo_head", "solo_search"), 0)
+_launches_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -78,5 +104,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
+            for entry, (restype, argtypes) in SIGNATURES[name].items():
+                fn = getattr(lib, entry)
+                fn.restype, fn.argtypes = restype, argtypes
             _loaded[name] = lib
         return lib
+
+
+def count_launch(entry: str) -> None:
+    """One launch of the kernel entry ``entry`` issued."""
+    with _launches_lock:
+        _launches[entry] += 1
+
+
+def launch_count(*entries: str) -> int:
+    """The launches of ``entries`` since the process started, summed."""
+    return sum(_launches[e] for e in entries)
+
+
+def check_tensor(kernel: str, name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` (argument ``name`` of ``kernel``) has ``dtype``
+    (TypeError), ``shape`` and ``device`` and is contiguous (ValueError)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")

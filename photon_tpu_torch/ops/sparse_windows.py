@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch import obs
+from photon_tpu_torch.ops import cuda_build
 
 
 class ColumnWindows(NamedTuple):
@@ -359,47 +360,12 @@ def fixup_plan(tile_win: np.ndarray, bounds: np.ndarray) -> tuple[np.ndarray, di
     return dest, split
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"windowed_rmatvec: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"windowed_rmatvec: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
-        )
-    if t.device != device:
-        raise ValueError(f"windowed_rmatvec: {name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"windowed_rmatvec: {name} must be contiguous")
-
-
 #: widest window the kernel's shared-memory accumulator takes
 MAX_KERNEL_WINDOW = 8192
 #: value types the kernel takes (it sums in the same type)
 KERNEL_DTYPES = (torch.float32, torch.float64)
 #: what :func:`windowed_rmatvec_probe` leaves of the kernel's work
 PROBE_MODES = {"stream": 1, "stream_gather": 2, "gather": 3}
-
-
-def _kernel_lib():
-    from photon_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("windowed_rmatvec")
-    if lib.windowed_rmatvec.argtypes is None:
-        # without argtypes ctypes would pass each pointer as a 32-bit int
-        ll, ptr = ctypes.c_longlong, ctypes.c_void_p
-        lib.windowed_rmatvec_grid.restype = ctypes.c_int
-        lib.windowed_rmatvec_grid.argtypes = [
-            ctypes.c_int, ll, ll, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.windowed_rmatvec.restype = ctypes.c_int
-        lib.windowed_rmatvec.argtypes = [ctypes.c_int] + [ptr] * 7 + [
-            ll, ll, ctypes.c_int, ll, ctypes.c_int, ptr,
-        ]
-        lib.windowed_rmatvec_probe.restype = ctypes.c_int
-        lib.windowed_rmatvec_probe.argtypes = [ctypes.c_int, ctypes.c_int] + [ptr] * 7 + [
-            ll, ll, ctypes.c_int, ll, ll, ctypes.c_int, ptr,
-        ]
-    return lib
 
 
 def _launch(windows: ColumnWindows, per_row: torch.Tensor, dim: int, probe: int = 0):
@@ -423,15 +389,16 @@ def _launch(windows: ColumnWindows, per_row: torch.Tensor, dim: int, probe: int 
     if dev.type != "cuda":
         raise ValueError(f"windowed_rmatvec_cuda needs CUDA tensors, got {dev}")
     dtype = per_row.dtype
-    _check("per_row", per_row, dtype, per_row.shape, dev)
-    _check("rows", windows.rows, torch.int32, (w_inst, length), dev)
-    _check("lcols", windows.lcols, torch.int32, (w_inst, length), dev)
-    _check("vals", windows.vals, dtype, (w_inst, length), dev)
-    _check("inst2win", windows.inst2win, torch.int32, (w_inst,), dev)
+    check = cuda_build.check_tensor
+    check("windowed_rmatvec", "per_row", per_row, dtype, per_row.shape, dev)
+    check("windowed_rmatvec", "rows", windows.rows, torch.int32, (w_inst, length), dev)
+    check("windowed_rmatvec", "lcols", windows.lcols, torch.int32, (w_inst, length), dev)
+    check("windowed_rmatvec", "vals", windows.vals, dtype, (w_inst, length), dev)
+    check("windowed_rmatvec", "inst2win", windows.inst2win, torch.int32, (w_inst,), dev)
     if any(t.data_ptr() % 16 for t in (windows.rows, windows.lcols, windows.vals)):
         raise ValueError("windowed_rmatvec: rows, lcols and vals must be 16-byte aligned")
     f64 = int(dtype == torch.float64)
-    lib = _kernel_lib()
+    lib = cuda_build.load("windowed_rmatvec")
     with torch.cuda.device(dev):
         g = ctypes.c_int(0)
         rc = lib.windowed_rmatvec_grid(f64, w_inst, length, w, ctypes.byref(g))
@@ -464,7 +431,7 @@ def windowed_rmatvec_cuda(
     then the fix-up of windows split across CTAs) on the current stream.
     float32 or float64; anything the kernel cannot take raises."""
     out = _launch(windows, per_row, dim)
-    windowed_rmatvec.launches += 1
+    cuda_build.count_launch("windowed_rmatvec")
     return out
 
 
@@ -474,8 +441,8 @@ def windowed_rmatvec_probe(
     """The kernel with part of its work left out, to time on the card what
     bounds it (``mode`` in :data:`PROBE_MODES`: the triple stream alone;
     the stream and the r[rows] reads without the scan; r read at uniformly
-    random rows alone). It computes nothing useful and is not counted in
-    ``windowed_rmatvec.launches``."""
+    random rows alone). It computes nothing useful and is not counted among
+    the kernel's launches (``cuda_build.launch_count``)."""
     _launch(windows, per_row, dim, probe=PROBE_MODES[mode])
 
 
@@ -487,8 +454,3 @@ def windowed_rmatvec(
     if per_row.device.type == "cpu":
         return windowed_rmatvec_plain(windows, per_row, dim)
     return windowed_rmatvec_cuda(windows, per_row, dim)
-
-
-#: kernel launches through the wrapper (one per call: the partials kernel
-#: and its fix-up)
-windowed_rmatvec.launches = 0

@@ -10,17 +10,20 @@ to, decision for decision. :func:`plain_loop_reason` is the dispatch rule
 that ``game.coordinate.solve_lanes`` applies: the kernel takes a solve
 exactly when it returns None. On that path :func:`minimize_lanes`
 launches the kernel or raises.
+It also loads the library for ``solo_lbfgs`` and keeps the record that
+both dispatch sites, ``solve_lanes`` and ``GLMProblem.solve``, make of
+every L-BFGS solve they route (:func:`record_route`).
 """
 from __future__ import annotations
 
-import ctypes
-import os
+import collections
+import threading
 
 import torch
 
+from photon_tpu_torch import obs
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.optimize.common import OptimizeResult
-from photon_tpu_torch.optimize.problem import GLMProblem, RegularizationType
-from photon_tpu_torch.types import OptimizerType
 
 #: the kernel's caps (kMaxDim, kMaxCorrections, kMaxRows in csrc/lane_lbfgs.cu)
 MAX_DIM, MAX_CORRECTIONS, MAX_ROWS = 64, 32, 4096
@@ -29,35 +32,35 @@ KERNEL_DTYPES = (torch.float32, torch.float64)
 #: loss codes of the kernel, by ``PointwiseLoss.name``
 LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
 
-
-def solver_reason(problem: GLMProblem) -> str | None:
-    """What in ``problem`` itself keeps its solves on the plain loop,
-    whatever their data, or None: the kernels of ``csrc/lane_lbfgs.cu``
-    compute L-BFGS (or L-BFGS-B without bounds) with L2 or no
-    regularization, no box, no normalization, on the margin line search.
-    Both dispatch rules, this module's and ``solo_lbfgs``'s, ask it first."""
-    cfg = problem.config
-    norm = problem.objective.normalization
-    if os.environ.get("PHOTON_GLM_LINESEARCH", "margin").strip().lower() == "full":
-        return "full line search"
-    if cfg.optimizer not in (OptimizerType.LBFGS, OptimizerType.LBFGSB):
-        return f"optimizer {cfg.optimizer.value}"
-    if cfg.regularization.regularization_type not in (RegularizationType.NONE,
-                                                      RegularizationType.L2):
-        return f"regularization {cfg.regularization.regularization_type.value}"
-    if cfg.optimizer_config.has_box:
-        return "box bounds"
-    if norm.shifts is not None or norm.factors is not None:
-        return "normalization"
-    return None
+#: the registry tallies of each kind of routed solve: (fused, plain)
+ROUTE_TALLIES = {"lanes": ("re.lanes_fused", "re.lanes_plain"),
+                 "solo": ("lbfgs.solo_fused", "lbfgs.solo_plain")}
+#: every routed solve since the process started, by (kind, device type,
+#: route), the route "fused" or the plain loop's reason; a lane batch
+#: counts its lanes. ``obs.reset()`` leaves it: readers take differences
+routes: collections.Counter = collections.Counter()
+_routes_lock = threading.Lock()
 
 
-def plain_loop_reason(problem: GLMProblem, features: torch.Tensor) -> str | None:
-    """Why a lane solve of ``problem`` over ``features`` [B, rows, d] keeps
-    the plain loop, or None when the kernel takes it: what
-    :func:`solver_reason` allows, a dense float32 or float64 block within
-    the caps, on a CUDA device."""
-    reason = solver_reason(problem)
+def record_route(kind: str, device_type: str, reason: str | None, n: int = 1) -> bool:
+    """Record ``n`` solves of ``kind`` ("lanes": lanes of one batch;
+    "solo": a one-lane solve) on ``device_type`` by their route
+    (``reason``: the dispatch rule's answer, None for the fused kernels)
+    in :data:`routes` and as the kind's registry tally, telemetry on or
+    off. Returns whether the route is fused."""
+    fused = reason is None
+    obs.tally(ROUTE_TALLIES[kind][0 if fused else 1], n)
+    with _routes_lock:
+        routes[(kind, device_type, "fused" if fused else reason)] += n
+    return fused
+
+
+def plain_loop_reason(problem, features: torch.Tensor) -> str | None:
+    """Why a lane solve of ``problem`` (a ``GLMProblem``) over ``features``
+    [B, rows, d] keeps the plain loop, or None when the kernel takes it:
+    what ``problem.solver_reason()`` allows, a dense float32 or float64
+    block within the caps, on a CUDA device."""
+    reason = problem.solver_reason()
     if reason is not None:
         return reason
     opt = problem.config.optimizer_config
@@ -77,35 +80,16 @@ def plain_loop_reason(problem: GLMProblem, features: torch.Tensor) -> str | None
     return None
 
 
-def _kernel_lib():
-    from photon_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("lane_lbfgs")
-    if lib.lane_lbfgs.argtypes is None:
-        # without argtypes ctypes would pass each pointer as a 32-bit int
-        i, ptr, dbl = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-        lib.lane_lbfgs.restype = i
-        lib.lane_lbfgs.argtypes = (
-            [i] + [ptr] * 15 + [ctypes.c_longlong] + [i] * 6 + [dbl] * 4 + [ptr]
-        )
-    return lib
+def kernel_library():
+    """The loaded ``csrc/lane_lbfgs.cu`` (its entries declared), built on
+    first use."""
+    return cuda_build.load("lane_lbfgs")
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"lane_lbfgs: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"lane_lbfgs: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"lane_lbfgs: {name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"lane_lbfgs: {name} must be contiguous")
-
-
-def minimize_lanes(problem: GLMProblem, batch, w0: torch.Tensor) -> OptimizeResult:
+def minimize_lanes(problem, batch, w0: torch.Tensor) -> OptimizeResult:
     """Every lane of ``batch`` (features [B, rows, d], labels, offsets and
-    weights [B, rows]) solved from ``w0`` [B, d] by the kernel, one launch
-    on the current stream, no sync. Raises on a solve the kernel does not
+    weights [B, rows]) of ``problem`` (a ``GLMProblem``) solved from ``w0``
+    [B, d] by the kernel, one launch on the current stream, no sync. Raises on a solve the kernel does not
     take (:func:`plain_loop_reason`) and on a row vector or ``w0`` of
     another type, shape or device than the features, or not contiguous."""
     reason = plain_loop_reason(problem, batch.features)
@@ -114,10 +98,10 @@ def minimize_lanes(problem: GLMProblem, batch, w0: torch.Tensor) -> OptimizeResu
     f = batch.features
     dev, dtype = f.device, f.dtype
     b, rows, d = f.shape
-    _check("features", f, dtype, (b, rows, d), dev)
+    cuda_build.check_tensor("lane_lbfgs", "features", f, dtype, (b, rows, d), dev)
     for name in ("labels", "offsets", "weights"):
-        _check(name, getattr(batch, name), dtype, (b, rows), dev)
-    _check("w0", w0, dtype, (b, d), dev)
+        cuda_build.check_tensor("lane_lbfgs", name, getattr(batch, name), dtype, (b, rows), dev)
+    cuda_build.check_tensor("lane_lbfgs", "w0", w0, dtype, (b, d), dev)
     cfg = problem.config.optimizer_config
     m, t = cfg.num_corrections, cfg.max_iterations
     loss = LOSS_CODES[problem.objective.loss.name]
@@ -134,7 +118,7 @@ def minimize_lanes(problem: GLMProblem, batch, w0: torch.Tensor) -> OptimizeResu
     )
     if b == 0:
         return res
-    lib = _kernel_lib()
+    lib = kernel_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.lane_lbfgs(
@@ -147,9 +131,5 @@ def minimize_lanes(problem: GLMProblem, batch, w0: torch.Tensor) -> OptimizeResu
         )
     if rc != 0:
         raise RuntimeError(f"lane_lbfgs kernel launch failed: cudaError {rc}")
-    minimize_lanes.launches += 1
+    cuda_build.count_launch("lane_lbfgs")
     return res
-
-
-#: kernel launches through the wrapper (one per solve)
-minimize_lanes.launches = 0

@@ -17,11 +17,11 @@ import os
 
 import torch
 
-from photon_tpu_torch import obs
 from photon_tpu_torch.data.sampling import build_down_sampler
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import GLMObjective
+from photon_tpu_torch.optimize import lane_lbfgs, solo_lbfgs
 from photon_tpu_torch.optimize.common import OptimizeResult, OptimizerConfig
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.owlqn import minimize_owlqn
@@ -93,6 +93,13 @@ class GLMProblemConfig:
         return dataclasses.replace(self, regularization_weight=w)
 
 
+def full_line_search() -> bool:
+    """``PHOTON_GLM_LINESEARCH=full``: OWL-QN and L-BFGS(-B) take black-box
+    trials, a full value and gradient each, instead of the margin-space
+    line search. Read at each solve, as JAX reads it."""
+    return os.environ.get("PHOTON_GLM_LINESEARCH", "margin").strip().lower() == "full"
+
+
 def _untouched(cfg: OptimizerConfig) -> bool:
     """Every field at its default (bounds unset): TRON then runs with its
     own defaults. Compared field by field, since bounds may be arrays."""
@@ -134,6 +141,29 @@ class GLMProblem:
         )
         return GLMProblem(config=config, objective=objective)
 
+    def solver_reason(self) -> str | None:
+        """What in this problem itself keeps its L-BFGS solves off the
+        hand-written kernels of ``csrc/lane_lbfgs.cu``, whatever their
+        data, or None: the kernels compute L-BFGS (or L-BFGS-B without
+        bounds) with L2 or no regularization, no box, no normalization, on
+        the margin line search. Both dispatch rules,
+        ``lane_lbfgs.plain_loop_reason`` and
+        ``solo_lbfgs.plain_loop_reason``, ask it first."""
+        cfg = self.config
+        norm = self.objective.normalization
+        if full_line_search():
+            return "full line search"
+        if cfg.optimizer not in (OptimizerType.LBFGS, OptimizerType.LBFGSB):
+            return f"optimizer {cfg.optimizer.value}"
+        if cfg.regularization.regularization_type not in (RegularizationType.NONE,
+                                                          RegularizationType.L2):
+            return f"regularization {cfg.regularization.regularization_type.value}"
+        if cfg.optimizer_config.has_box:
+            return "box bounds"
+        if norm.shifts is not None or norm.factors is not None:
+            return "normalization"
+        return None
+
     def objective_for_weight(self, reg_weight) -> GLMObjective:
         """The objective with l1/l2 recomputed from λ (None: as built)."""
         if reg_weight is None:
@@ -158,15 +188,15 @@ class GLMProblem:
         L1 or elastic net (or OWLQN) runs OWL-QN with value-only trials
         and the accepted gradient from carried margins; TRON runs with the
         curvature pass hoisted out of its CG loop; L-BFGS and L-BFGS-B run
-        with the margin-space line search. ``PHOTON_GLM_LINESEARCH=full``
-        (read at each solve, as JAX reads it) gives OWL-QN and L-BFGS(-B)
-        black-box trials instead, a full value and gradient each.
+        with the margin-space line search (:func:`full_line_search`: with
+        black-box trials).
 
         An L-BFGS(-B) solve of one lane (``w0`` [D]) runs its iterations on
         the card's fused kernels where ``solo_lbfgs.plain_loop_reason``
-        finds nothing against it, else the plain loop; each such solve
-        counts as ``lbfgs.solo_fused`` or ``lbfgs.solo_plain`` on the
-        registry, telemetry on or off."""
+        finds nothing against it, else the plain loop; each such solve is
+        recorded by its route (``lane_lbfgs.record_route``: the tally
+        ``lbfgs.solo_fused`` or ``lbfgs.solo_plain`` on the registry,
+        telemetry on or off)."""
         if extra_offsets is not None:
             batch = batch._replace(offsets=batch.offsets + extra_offsets)
         cfg = self.config.optimizer_config
@@ -176,7 +206,7 @@ class GLMProblem:
             RegularizationType.L1,
             RegularizationType.ELASTIC_NET,
         )
-        full_ls = os.environ.get("PHOTON_GLM_LINESEARCH", "margin").strip().lower() == "full"
+        full_ls = full_line_search()
         vg = lambda w: objective.value_and_gradient(w, batch)  # noqa: E731
         if has_l1 or opt == OptimizerType.OWLQN:
             if full_ls:
@@ -196,12 +226,8 @@ class GLMProblem:
                 hvp_factory=lambda w: objective.hessian_operator(w, batch),
             )
         if w0.dim() == 1:
-            # imported here: solo_lbfgs imports this module
-            from photon_tpu_torch.optimize import solo_lbfgs
-
-            fused = solo_lbfgs.plain_loop_reason(self, batch, w0) is None
-            obs.tally("lbfgs.solo_fused" if fused else "lbfgs.solo_plain")
-            if fused:
+            reason = solo_lbfgs.plain_loop_reason(self, batch, w0)
+            if lane_lbfgs.record_route("solo", w0.device.type, reason):
                 return solo_lbfgs.minimize_solo(self, batch, w0, objective)
         if full_ls:
             return minimize_lbfgs(vg, w0, cfg)

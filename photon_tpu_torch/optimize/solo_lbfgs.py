@@ -24,11 +24,10 @@ applies; on its path :func:`minimize_solo` launches the kernels or raises.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from photon_tpu_torch import obs
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops.objective import matvec, rmatvec
 from photon_tpu_torch.optimize import lane_lbfgs
 from photon_tpu_torch.optimize.common import OptimizeResult, OptimizerConfig
@@ -43,12 +42,12 @@ IT, REASON, POS, PAIRS, EVALS, PASSES, TRIALS = 0, 1, 2, 3, 4, 5, 6
 def plain_loop_reason(problem, batch, w0: torch.Tensor) -> str | None:
     """Why the solve of ``problem`` (a ``GLMProblem``) from ``w0`` keeps
     the plain loop, or None when the kernels take it: what
-    ``lane_lbfgs.solver_reason`` allows, on no mesh of more than one rank
+    ``problem.solver_reason()`` allows, on no mesh of more than one rank
     (a trial's sums would need an all-reduce inside the search; a world of
     one's collectives hand back their input), one lane ([D]) of float32 or
     float64 with row vectors [N], a loss of the kernels, at most
     MAX_CORRECTIONS pairs, on a CUDA device."""
-    reason = lane_lbfgs.solver_reason(problem)
+    reason = problem.solver_reason()
     if reason is not None:
         return reason
     objective = problem.objective
@@ -68,30 +67,6 @@ def plain_loop_reason(problem, batch, w0: torch.Tensor) -> str | None:
     return None
 
 
-def _kernel_lib():
-    from photon_tpu_torch.ops import cuda_build
-
-    lib = cuda_build.load("lane_lbfgs")
-    if lib.solo_head.argtypes is None:
-        # without argtypes ctypes would pass each pointer as a 32-bit int
-        i, ptr, dbl, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_double, ctypes.c_longlong
-        lib.solo_head.restype = i
-        lib.solo_head.argtypes = [i] + [ptr] * 15 + [ll] + [i] * 3 + [dbl, ptr]
-        lib.solo_search_grid.restype = i
-        lib.solo_search_grid.argtypes = [i, ll]
-        lib.solo_search.restype = i
-        lib.solo_search.argtypes = [i] + [ptr] * 6 + [i, ptr, ptr, ll, i, i] + [dbl] * 3 + [ptr]
-    return lib
-
-
-def _row_vector(name: str, t: torch.Tensor, n: int, dtype, device) -> torch.Tensor:
-    if tuple(t.shape) != (n,):
-        raise ValueError(f"solo_lbfgs: {name} has shape {tuple(t.shape)}, expected ({n},)")
-    if t.device != device:
-        raise ValueError(f"solo_lbfgs: {name} is on {t.device}, expected {device}")
-    return t.to(dtype).contiguous()
-
-
 class SoloSolve:
     """One fused solve: the start-up evaluations at construction, the
     state the kernels share on the card (x, g, d, the histories, the
@@ -105,10 +80,12 @@ class SoloSolve:
         d, n = w0.shape[0], batch.labels.shape[0]
         self.dim, self.rows = d, n
         m, t = config.num_corrections, config.max_iterations
-        self.labels = _row_vector("labels", batch.labels, n, dtype, dev)
-        self.weights = _row_vector("weights", batch.weights, n, dtype, dev)
+        self.labels = batch.labels.to(dtype).contiguous()
+        self.weights = batch.weights.to(dtype).contiguous()
+        for name in ("labels", "weights"):
+            cuda_build.check_tensor("solo_lbfgs", name, getattr(self, name), dtype, (n,), dev)
         self.loss = lane_lbfgs.LOSS_CODES[objective.loss.name]
-        self.lib = _kernel_lib()
+        self.lib = lane_lbfgs.kernel_library()
         grid = self.lib.solo_search_grid(self._f64, n)
         if grid < 1:
             raise RuntimeError(f"solo_lbfgs: no cooperative grid on {dev}: cudaError {-grid}")
@@ -164,7 +141,7 @@ class SoloSolve:
             )
         if rc != 0:
             raise RuntimeError(f"solo_head kernel launch failed: cudaError {rc}")
-        minimize_solo.launches += 1
+        cuda_build.count_launch("solo_head")
 
     def search(self) -> None:
         """The margin search along ``self.zd``: the margins move to the
@@ -179,7 +156,7 @@ class SoloSolve:
             )
         if rc != 0:
             raise RuntimeError(f"solo_search kernel launch failed: cudaError {rc}")
-        minimize_solo.launches += 1
+        cuda_build.count_launch("solo_search")
 
     def forward(self) -> None:
         """z_d = X·d of the head's direction."""
@@ -245,8 +222,3 @@ def minimize_solo(problem, batch, w0: torch.Tensor, objective=None) -> OptimizeR
     objective = problem.objective if objective is None else objective
     with obs.span("lbfgs.solve", cat="solver", lanes=1, d=w0.shape[-1]):
         return SoloSolve(objective, batch, w0, problem.config.optimizer_config).run()
-
-
-#: the kernels' launches (heads and searches), counted where each is issued
-#: (:meth:`SoloSolve.head`, :meth:`SoloSolve.search`)
-minimize_solo.launches = 0

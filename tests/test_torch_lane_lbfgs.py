@@ -25,6 +25,7 @@ from photon_tpu_torch.game import (
 )
 from photon_tpu_torch.game.coordinate import solve_lanes
 from photon_tpu_torch.game.descent import run_coordinate_descent
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize import lane_lbfgs
 from photon_tpu_torch.optimize.common import OptimizerConfig
@@ -194,7 +195,7 @@ def test_solve_lanes_on_the_cpu_is_the_plain_loop_and_counts_its_lanes(task):
     b = _bucket(7, 9, 4, task, seed=3, pad_lanes=2)
     w0 = torch.zeros((7, 4), dtype=torch.float64)
     cfg = _config(task)
-    launches = lane_lbfgs.minimize_lanes.launches
+    launches = cuda_build.launch_count("lane_lbfgs")
     got = solve_lanes(cfg, *b, w0)
     want = GLMProblem.build(cfg).solve(b, w0)
     for f in FIELDS:
@@ -206,7 +207,27 @@ def test_solve_lanes_on_the_cpu_is_the_plain_loop_and_counts_its_lanes(task):
         obs.disable()
     counters = obs.get_registry().snapshot()["counters"]
     assert counters["re.lanes_plain"] == 14 and "re.lanes_fused" not in counters
-    assert lane_lbfgs.minimize_lanes.launches == launches
+    assert cuda_build.launch_count("lane_lbfgs") == launches
+
+
+@pytest.mark.parametrize("reg,reason", [(RegularizationType.L2, "on cpu"),
+                                        (RegularizationType.L1, "regularization L1")])
+def test_a_cpu_lane_solve_lands_in_the_route_record(reg, reason):
+    """Each lane of a CPU lane solve is recorded under ("lanes", "cpu",
+    its plain reason) in the process-lifetime route record, which an
+    ``obs.reset()`` between two solves leaves counting both; the registry
+    tally still counts each solve's lanes from the reset on."""
+    b = _bucket(5, 6, 3, seed=7)
+    w0 = torch.zeros((5, 3), dtype=torch.float64)
+    key = ("lanes", "cpu", reason)
+    before = lane_lbfgs.routes[key]
+    solve_lanes(_config(reg=reg), *b, w0)
+    assert obs.get_registry().snapshot()["counters"]["re.lanes_plain"] == 5
+    obs.reset()
+    solve_lanes(_config(reg=reg), *b, w0)
+    assert lane_lbfgs.routes[key] - before == 10
+    counters = obs.get_registry().snapshot()["counters"]
+    assert counters["re.lanes_plain"] == 5 and "re.lanes_fused" not in counters
 
 
 def test_the_wrapper_raises_before_the_card():
@@ -446,9 +467,9 @@ def test_a_fit_on_the_card_takes_the_kernel_for_every_lane(monkeypatch):
     lanes = sum(db.features.shape[0] for c in ("user", "item")
                 for db in coords[c].device_buckets)
     buckets = sum(len(coords[c].device_buckets) for c in ("user", "item"))
-    launches = lane_lbfgs.minimize_lanes.launches
+    launches = cuda_build.launch_count("lane_lbfgs")
     got = run_coordinate_descent(coords, ["fixed", "user", "item"], 2)
-    assert lane_lbfgs.minimize_lanes.launches - launches == 2 * buckets
+    assert cuda_build.launch_count("lane_lbfgs") - launches == 2 * buckets
     counters = obs.get_registry().snapshot()["counters"]
     assert counters["re.lanes_fused"] == 2 * lanes and "re.lanes_plain" not in counters
     monkeypatch.setattr(lane_lbfgs, "plain_loop_reason", lambda problem, features: "forced")

@@ -8,7 +8,9 @@ keeps the same rows with the same weights.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,6 +145,43 @@ def test_tron_untouched_config_takes_tron_defaults():
             assert int(getattr(tres, name)) == int(getattr(jres, name)), name
         np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x), rtol=1e-8)
     assert int(tres.iterations) == 2
+
+
+def _imported(path):
+    """Every module an ``import`` statement of ``path`` (a module of
+    ``optimize/``) names, with its line: ``from a import b`` names a and
+    a.b, a relative import its absolute name."""
+    pkg = tp.__name__.rpartition(".")[0]
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            out += [(a.name, node.lineno) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module
+            if node.level:
+                base = ".".join(filter(None, [pkg.rsplit(".", node.level - 1)[0], base]))
+            out += [(base, node.lineno)] + [(f"{base}.{a.name}", node.lineno)
+                                            for a in node.names]
+    return out
+
+
+@pytest.mark.parametrize("module", ["lane_lbfgs", "solo_lbfgs"])
+def test_the_kernel_modules_import_nothing_of_the_problem(module):
+    """The dispatch rules ask the problem for its half
+    (``GLMProblem.solver_reason``), so the kernel modules need nothing of
+    ``optimize.problem`` and ``problem`` imports them at module level."""
+    path = Path(tp.__file__).with_name(f"{module}.py")
+    bad = [(name, line) for name, line in _imported(path)
+           if name == tp.__name__ or name.startswith(tp.__name__ + ".")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_problem_module_imports_nothing_inside_a_function():
+    path = Path(tp.__file__)
+    nested = [(node.lineno, fn.name) for fn in ast.walk(ast.parse(path.read_text()))
+              if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+              for node in ast.walk(fn) if isinstance(node, (ast.Import, ast.ImportFrom))]
+    assert not nested, f"{path.name} imports inside functions at {nested}"
 
 
 def test_solve_with_reg_weight_and_extra_offsets():

@@ -21,8 +21,9 @@ import torch
 from photon_tpu_torch import obs
 from photon_tpu_torch.data.dataset import DataSet, to_device_sparse_batch
 from photon_tpu_torch.game.descent import run_coordinate_descent
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops.normalization import NormalizationContext
-from photon_tpu_torch.optimize import solo_lbfgs
+from photon_tpu_torch.optimize import lane_lbfgs, solo_lbfgs
 from photon_tpu_torch.optimize.common import OptimizerConfig
 from photon_tpu_torch.optimize.lbfgs import _minimize_lbfgs
 from photon_tpu_torch.optimize.problem import (
@@ -158,7 +159,7 @@ def test_a_one_lane_solve_on_the_cpu_is_the_plain_loop_and_counts_as_plain(task)
     b = _fixed_effect(300, 20, task, seed=2)
     w0 = torch.zeros(20, dtype=torch.float64)
     problem = GLMProblem.build(_config(task))
-    launches = solo_lbfgs.minimize_solo.launches
+    launches = cuda_build.launch_count("solo_head", "solo_search")
     got = problem.solve(b, w0)
     want = _minimize_lbfgs(None, w0, problem.config.optimizer_config,
                            problem.objective.directional_oracle(b))
@@ -171,7 +172,29 @@ def test_a_one_lane_solve_on_the_cpu_is_the_plain_loop_and_counts_as_plain(task)
         obs.disable()
     counters = obs.get_registry().snapshot()["counters"]
     assert counters["lbfgs.solo_plain"] == 2 and "lbfgs.solo_fused" not in counters
-    assert solo_lbfgs.minimize_solo.launches == launches
+    assert cuda_build.launch_count("solo_head", "solo_search") == launches
+
+
+@pytest.mark.parametrize("kw,reason", [({}, "on cpu"),
+                                       ({"optimizer": OptimizerType.LBFGSB,
+                                         "upper_bounds": np.full(20, 10.0)}, "box bounds")])
+def test_a_cpu_one_lane_solve_lands_in_the_route_record(kw, reason):
+    """A CPU one-lane L-BFGS(-B) solve is recorded under ("solo", "cpu",
+    its plain reason) in the process-lifetime route record, which an
+    ``obs.reset()`` between two solves leaves counting both; the registry
+    tally still counts each solve from the reset on."""
+    b = _fixed_effect(200, 20, seed=6)
+    w0 = torch.zeros(20, dtype=torch.float64)
+    problem = GLMProblem.build(_config(**kw))
+    key = ("solo", "cpu", reason)
+    before = lane_lbfgs.routes[key]
+    problem.solve(b, w0)
+    assert obs.get_registry().snapshot()["counters"]["lbfgs.solo_plain"] == 1
+    obs.reset()
+    problem.solve(b, w0)
+    assert lane_lbfgs.routes[key] - before == 2
+    counters = obs.get_registry().snapshot()["counters"]
+    assert counters["lbfgs.solo_plain"] == 1 and "lbfgs.solo_fused" not in counters
 
 
 def test_only_one_lane_lbfgs_solves_are_counted():
@@ -354,7 +377,7 @@ def test_a_solve_repeats_bit_for_bit_and_each_launch_repeats_its_work():
         assert torch.equal(first[f], again[f]), f
     # a head and a search issued again from the same state write the same
     # bits, and each launch counts where it is issued
-    launches = solo_lbfgs.minimize_solo.launches
+    launches = cuda_build.launch_count("solo_head", "solo_search")
     solve = solo_lbfgs.SoloSolve(problem.objective, b, w0, problem.config.optimizer_config)
     names = ("x", "g", "d", "s_hist", "y_hist", "rho", "loss_hist", "gnorm_hist", "sc", "si",
              "z", "u")
@@ -376,7 +399,7 @@ def test_a_solve_repeats_bit_for_bit_and_each_launch_repeats_its_work():
     twice(solve.head)
     solve.forward()
     twice(solve.search)
-    assert solo_lbfgs.minimize_solo.launches - launches == 6
+    assert cuda_build.launch_count("solo_head", "solo_search") - launches == 6
 
 
 @pytest.mark.cuda
@@ -403,10 +426,10 @@ def test_a_fit_on_the_card_takes_the_kernels_for_every_fixed_effect_solve(monkey
     float64."""
     dev = _card()
     coords = _estimator(device=dev)._build_coordinates(_game_data(seed=2))
-    launches = solo_lbfgs.minimize_solo.launches
+    launches = cuda_build.launch_count("solo_head", "solo_search")
     got = run_coordinate_descent(coords, ["fixed", "user", "item"], 2)
     fixed = [r["info"] for r in got.tracker if r.get("coordinate") == "fixed"]
-    assert solo_lbfgs.minimize_solo.launches - launches == \
+    assert cuda_build.launch_count("solo_head", "solo_search") - launches == \
         sum(2 * int(r.iterations) + 1 for r in fixed)
     counters = obs.get_registry().snapshot()["counters"]
     assert counters["lbfgs.solo_fused"] == 2 and "lbfgs.solo_plain" not in counters

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from photon_tpu.ops import sparse_windows as jsw
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops import sparse_windows as tsw
 
 # the JAX layout's ``bounds`` feeds only its prefix lowering; the port
@@ -100,9 +101,9 @@ def test_column_windows_from_jax_arrays():
 def test_cpu_tensor_does_not_launch_the_kernel():
     idx, val, d, r, kw = _case("d64-hot1")
     tw = tsw.build_column_windows(idx, val, d, **kw)
-    before = tsw.windowed_rmatvec.launches
+    before = cuda_build.launch_count("windowed_rmatvec")
     tsw.windowed_rmatvec(tw, torch.as_tensor(r), d)
-    assert tsw.windowed_rmatvec.launches == before == 0
+    assert cuda_build.launch_count("windowed_rmatvec") == before == 0
 
 
 def test_kernel_entry_refuses_cpu_tensors():
@@ -433,11 +434,11 @@ def test_kernel_matches_plain_on_card(dtype):
         idx, val, d, r, kw = _layout_inputs(name, dtype=np.float32)
         tw = tsw.build_column_windows(idx, val, d, dtype=dtype, device=dev, **kw)
         rt = torch.as_tensor(r, device=dev).to(dtype)
-        before = tsw.windowed_rmatvec.launches
+        before = cuda_build.launch_count("windowed_rmatvec")
         got = tsw.windowed_rmatvec(tw, rt, d)
         again = tsw.windowed_rmatvec(tw, rt, d)
         torch.cuda.synchronize()
-        assert tsw.windowed_rmatvec.launches == before + 2
+        assert cuda_build.launch_count("windowed_rmatvec") == before + 2
         assert got.dtype == dtype
         assert torch.equal(got, again), name
         t64 = tw._replace(vals=tw.vals.to(f64))
