@@ -20,7 +20,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``solo_kernel_phase``: ``solo_head`` and ``solo_search``) against the
    plain loop on the cell's fixed effect (float64 decision for decision,
    float32 within the cell's fixed-path limit) and on the main path's
-   (float64), with both kernels timed;
+   (float64), with both kernels timed; the ELL forward pass
+   (``ell_kernel_phase``: ``csrc/ell_matvec.cu``) against its plain gather
+   and row sum at both benchmark cells' blocks (the GAME fixed effect at
+   K = 8, ``glm_kdd2010a``'s block from the cell's own generator at K = 40
+   over 20.2M columns) and at the main path's fixed effect (K = 24), bit
+   for bit across two launches and within the row summation bound, timed
+   beside ``torch.mv`` on the block as CSR;
 4. main path: ``GameEstimator(device="cuda").fit`` on a GLMix model at the
    widths of bench config 5 (``game_ctr_scale``: sparse fixed effect with
    2^17 columns and 24 nonzeros per row, per-user and per-item random
@@ -28,7 +34,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    then ``GameScorer(device="cuda").score_data`` on the same rows (the
    streaming pipeline); checks that the kernel ran, that every fixed-effect
    solve of the fit launched the fused L-BFGS kernels two times an
-   iteration and once more, every value is finite,
+   iteration and once more, that every ELL forward pass of the fit
+   launched the ELL kernel, every value is finite,
    grouped AUC ≥ 0.8, the scorer agrees with the fit's final scores, the
    streamed scores equal the batches scored one after another with
    blocking copies bit for bit, and a small fit on the card agrees with
@@ -272,7 +279,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the card left the kernel for the plain lane loop, unless its data
    exceeds the kernel's row cap (``LaneCensus.EXPECTED``); the fused
    fixed-effect kernels' launches per phase, and the card's one-lane
-   solves that kept the plain loop with their reasons, go in too.
+   solves that kept the plain loop with their reasons, go in too, as do
+   the ELL kernel's launches per phase and the card's ELL passes that
+   kept the plain gather, with their reasons.
 
 Room for the phases of the mesh's second half (the script must finish in
 1200 s): subprocess legs that compare answers and not walls run at the
@@ -1076,6 +1085,149 @@ def solo_kernel_phase(seed, data):
     return rows, main_row
 
 
+def kdda_ell(seed):
+    """``glm_kdd2010a``'s ELL block on the card, as the cell builds it: the
+    cell's own generator (``port_bench/gen/kdd2010.kdd2010_arrays`` with the
+    configuration's data and ``seed`` as the row permutation, as
+    ``port_bench/entries/glm_fit.py`` calls it) and the port's host ELL
+    (``csr_to_ell``, rows padded to 8, as ``to_device_sparse_batch`` makes
+    it: K = 40), placed without the window layout, which this pass does not
+    read. Returns int32 indices, float32 values and the columns."""
+    import torch
+
+    from photon_tpu_torch.data.dataset import csr_to_ell
+    from port_bench.gen.kdd2010 import kdd2010_arrays
+
+    with open("port_bench/configs/glm_kdd2010a.json") as f:
+        spec = json.load(f)["data"]
+    a = kdd2010_arrays(spec["seed"], permutation_seed=seed, device="cuda",
+                       **{k: v for k, v in spec.items() if k not in ("generator", "seed")})
+    n = len(a["labels"])
+    idx, val = csr_to_ell(a["indptr"], a["indices"], a["values"],
+                          num_rows_padded=-(-n // 8) * 8)
+    del a["indices"], a["values"]
+    return torch.as_tensor(idx).to("cuda"), torch.as_tensor(val).to("cuda"), a["columns"]
+
+
+def ell_case(label, indices, values, dim, seed):
+    """Hold the ELL forward-pass kernel (``csrc/ell_matvec.cu``) against its
+    plain version on one block, as :func:`kernel_case` holds the windowed
+    kernel: bit-identical across two launches, and within the summation
+    bound of the plain version computed in float64 from the same inputs.
+    Then time the kernel, the plain version (in the working type) and
+    ``torch.mv`` on the block as a CSR matrix (the library yardstick, timed
+    only), beside the pass's byte floor (port_bench's ``work.sparse_pass``:
+    each nonzero's id and value, v's rows and z once)."""
+    import torch
+
+    from photon_tpu_torch.ops import ell_matvec as em
+
+    dev = indices.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    v = torch.randn(dim, generator=gen, device=dev, dtype=values.dtype)
+    got = em.ell_matvec_cuda(indices, values, v)
+    again = em.ell_matvec_cuda(indices, values, v)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"ell_matvec {label}: kernel result differs between two launches on the same input")
+    # a row's K products summed in any order, one rounding a slot: |error| ≤
+    # γ·Σ|w·x| with γ ≈ K·u (Higham, §3.1); the float64 reference adds K·2⁻⁵³
+    f64 = torch.float64
+    n, k = indices.shape
+    want = em.ell_matvec_plain(indices, values.to(f64), v.to(f64))
+    u = torch.finfo(v.dtype).eps / 2
+    tol = 1.01 * k * (u + 2.0**-53) * em.ell_matvec_plain(indices, values.to(f64).abs(),
+                                                          v.to(f64).abs())
+    diff = (got.to(f64) - want).abs()
+    if not bool((diff <= tol).all()):
+        fail(f"ell_matvec {label}: kernel vs float64 plain max_abs_err={float(diff.max())}, "
+             f"{float((diff / tol.clamp_min(1e-300)).max()):.3g}× the row bound 1.01·K·(u+2⁻⁵³)·Σ|w·x|")
+    plain = em.ell_matvec_plain(indices, values, v)
+    keep = values != 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = keep.sum(1).cumsum(0)
+    csr = torch.sparse_csr_tensor(crow, indices[keep].to(torch.int64), values[keep], (n, dim))
+    lib = torch.mv(csr, v)
+    nnz = int(crow[-1])
+    row = {
+        "phase": "ell_kernel",
+        "layout": label,
+        "dtype": str(v.dtype).removeprefix("torch."),
+        "values_dtype": str(values.dtype).removeprefix("torch."),
+        "rows": int(n), "k": int(k), "dim": int(dim), "nnz": nnz,
+        "launch_shape": list(em.launch_shape(k)),
+        "max_abs_err": float(diff.max()),
+        "err_over_bound": float((diff / tol.clamp_min(1e-300)).max()),
+        "plain_max_abs_err": float((plain.to(f64) - want).abs().max()),
+        "library_max_abs_err": float((lib.to(f64) - want).abs().max()),
+    }
+    del plain, lib, want, diff, tol
+    row.update(time_ms({
+        "kernel_ms": lambda: em.ell_matvec_cuda(indices, values, v),
+        "plain_ms": lambda: em.ell_matvec_plain(indices, values, v),
+        "library_ms": lambda: torch.mv(csr, v),
+    }))
+    item = v.element_size()
+    bytes_min = nnz * (4 + item) + (n + dim) * item
+    flops = 2 * nnz
+    peak = FP32_FLOPS if v.dtype == torch.float32 else FP64_FLOPS
+    row["bound_ms"] = 1e3 * max(bytes_min / HBM_BYTES_PER_S, flops / peak)
+    row["bound_by"] = "bytes" if bytes_min / HBM_BYTES_PER_S >= flops / peak else "operations"
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    log(json.dumps(row))
+    del csr
+    return row
+
+
+def ell_kernel_phase(seed, data):
+    """:func:`ell_case` at the ELL blocks the port's fits pass through the
+    kernel, float32: the ``game_ctr_scale`` fixed effect (2,500,033 rows,
+    K = 8, 20,742 columns: 2 lanes a row), the main path's fixed effect
+    (``data``'s global shard as its coordinate holds it: 2^20 rows, K = 24
+    over 2^17 columns, 4 lanes a row) and ``glm_kdd2010a``'s block
+    (:func:`kdda_ell`: 4,203,876 rows, K = 40, Zipf over 20,216,830
+    columns, β 81 MB past the 50 MB L2; 8 lanes a row). Returns the rows by
+    layout."""
+    import numpy as np
+    import torch
+
+    batch, dim = solo_fe_batch(seed, torch.float32)
+    rows = {"game_ctr_scale_fe": ell_case("game_ctr_scale_fe", batch.indices, batch.values, dim,
+                                          seed)}
+    del batch
+    fe = data.feature_shards["global"]
+    idx, val = (torch.as_tensor(a).to("cuda") for a in fe.to_ell(dtype=np.float32))
+    rows["main_path_fe"] = ell_case("main_path_fe", idx, val, fe.num_cols, seed)
+    del idx, val
+    indices, values, columns = kdda_ell(seed)
+    rows["glm_kdd2010a"] = ell_case("glm_kdd2010a", indices, values, columns, seed)
+    del indices, values
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ell_launches() -> int:
+    """The ELL forward-pass kernel's launches in this process so far, read
+    as :func:`rmatvec_launches` is."""
+    from photon_tpu_torch.ops import cuda_build
+
+    return cuda_build.launch_count("ell_matvec")
+
+
+def ell_passes() -> tuple[int, int]:
+    """The port's ELL forward passes on the card so far by route (fused,
+    plain), from its route record (``cuda_build.routes``, kind "ell"),
+    read as differences."""
+    from photon_tpu_torch.ops import cuda_build
+
+    fused = plain = 0
+    for (kind, device, route), n in list(cuda_build.routes.items()):
+        if kind == "ell" and device == "cuda":
+            fused, plain = (fused + n, plain) if route == "fused" else (fused, plain + n)
+    return fused, plain
+
+
 def rmatvec_launches() -> int:
     """The windowed Xᵀr kernel's launches in this process so far: the port
     never resets the count, so every reader takes a difference."""
@@ -1095,15 +1247,18 @@ def solo_launches() -> int:
 class LaneCensus:
     """Which L-BFGS solves on the card left the fused kernels, per phase,
     read as differences of the port's own process-lifetime records: the
-    route of every solve (``lane_lbfgs.routes``, recorded where
-    ``game.coordinate.solve_lanes`` routes a lane batch and where
-    ``GLMProblem.solve`` routes a one-lane solve, by kind, device and the
-    plain loop's reason) and the kernels' launches
+    route of every solve and ELL pass (``cuda_build.routes``, recorded
+    where ``game.coordinate.solve_lanes`` routes a lane batch, where
+    ``GLMProblem.solve`` routes a one-lane solve and where
+    ``ops.ell_matvec`` routes a pass, by kind, device and the plain
+    version's reason) and the kernels' launches
     (``cuda_build.launch_count``). Random-effect lanes on the card that
     took the plain lane loop are kept per phase and reason in ``plain``,
     the lane kernel's launches in ``launches``; one-lane solves on the
     card that took the plain loop in ``solo_plain``, the fused kernels'
-    launches in ``solo_launches``. (The registry's own ``re.lanes_plain``
+    launches in ``solo_launches``; ELL forward passes on the card that
+    took the plain gather in ``ell_plain``, the ELL kernel's launches in
+    ``ell_launches``. (The registry's own ``re.lanes_plain``
     counts the same lanes, but every driver's telemetry session zeroes the
     registry, so it cannot be read across a phase.) Processes a phase
     starts are not counted."""
@@ -1116,16 +1271,15 @@ class LaneCensus:
 
     def __init__(self):
         self.phase = None
-        self.plain, self.solo_plain = {}, {}
-        self.launches, self.solo_launches = {}, {}
+        self.plain, self.solo_plain, self.ell_plain = {}, {}, {}
+        self.launches, self.solo_launches, self.ell_launches = {}, {}, {}
 
     @staticmethod
     def _read():
         from photon_tpu_torch.ops import cuda_build
-        from photon_tpu_torch.optimize import lane_lbfgs
 
-        return (collections.Counter(lane_lbfgs.routes), cuda_build.launch_count("lane_lbfgs"),
-                solo_launches())
+        return (collections.Counter(cuda_build.routes), cuda_build.launch_count("lane_lbfgs"),
+                solo_launches(), ell_launches())
 
     def start(self, phase):
         self.phase = phase
@@ -1135,12 +1289,14 @@ class LaneCensus:
         """Keep the phase's launches and plain card solves; fail if a card
         lane left the kernel for a reason its phase does not expect."""
         phase, self.phase = self.phase, None
-        (routes0, lanes0, solo0), (routes, lanes, solo) = self.before, self._read()
+        (routes0, lanes0, solo0, ell0), (routes, lanes, solo, ell) = self.before, self._read()
         self.launches[phase] = self.launches.get(phase, 0) + lanes - lanes0
         self.solo_launches[phase] = self.solo_launches.get(phase, 0) + solo - solo0
+        self.ell_launches[phase] = self.ell_launches.get(phase, 0) + ell - ell0
+        by_kind = {"lanes": self.plain, "solo": self.solo_plain, "ell": self.ell_plain}
         for (kind, device, route), n in (routes - routes0).items():
             if device == "cuda" and route != "fused":
-                row = (self.plain if kind == "lanes" else self.solo_plain).setdefault(phase, {})
+                row = by_kind[kind].setdefault(phase, {})
                 row[route] = row.get(route, 0) + n
         allowed = self.EXPECTED.get(phase)
         for reason, lanes in self.plain.get(phase, {}).items():
@@ -1633,11 +1789,17 @@ def main_path(data, seed):
     coords = [("user", N_USERS, RE_DIM, USER_UB), ("item", N_ITEMS, RE_DIM, ITEM_UB)]
     est = ctr_estimator(coords, 10, 5, device="cuda", dtype=torch.float32, seed=seed)
     rmatvec0, solo0 = rmatvec_launches(), solo_launches()
+    ell0, (fused0, plain0) = ell_launches(), ell_passes()
     t0 = time.perf_counter()
     result = est.fit(data)[0]
     fit_wall = time.perf_counter() - t0
     fit_launches = rmatvec_launches() - rmatvec0
     fe_launches = solo_launches() - solo0
+    ell_fit = ell_launches() - ell0
+    fused, plain = (a - b for a, b in zip(ell_passes(), (fused0, plain0)))
+    if plain or not ell_fit or ell_fit != fused:
+        fail(f"the fit's ELL forward passes: {fused} fused ({ell_fit} launches of ell_matvec), "
+             f"{plain} on the plain version; every pass should launch the kernel")
     fe_solves = [r["info"] for r in result.tracker if r.get("coordinate") == "fixed"]
     if fe_launches != sum(2 * int(r.iterations) + 1 for r in fe_solves):
         fail(f"the fit's {len(fe_solves)} fixed-effect solves launched the fused L-BFGS "
@@ -1692,13 +1854,14 @@ def main_path(data, seed):
         "fe_feature_passes_sweep0": int(info.n_feature_passes),
         "kernel_launches_fit": fit_launches,
         "solo_lbfgs_launches_fit": fe_launches,
+        "ell_matvec_launches_fit": ell_fit,
         "score_wall_s": score_wall, "score_turns_s": score_turns,
         "streamed_equals_sequential": True,
         "grouped_auc_user": auc,
         "scorer_vs_fit_max_abs_err": score_err,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }))
-    return launches, sum(r["sweep_seconds"] for r in sweeps)
+    return launches, sum(r["sweep_seconds"] for r in sweeps), ell_fit
 
 
 # --- the single-GLM path (bench configs 1-3) ---------------------------------
@@ -7098,9 +7261,10 @@ def main() -> None:
     kmain, shards5 = timed("kernel_phase", kernel_phase, data)
     klanes = timed("lane_kernel_phase", lane_kernel_phase, args.seed)
     ksolo, ksolo_main = timed("solo_kernel_phase", solo_kernel_phase, args.seed, data)
+    kell = timed("ell_kernel_phase", ell_kernel_phase, args.seed, data)
     timed("small_parity", small_parity, torch.float32, 1e-3)
     timed("small_parity", small_parity, torch.float64, 1e-9)
-    launches, sweeps_s = timed("main_path", main_path, data, args.seed)
+    launches, sweeps_s, ell_main = timed("main_path", main_path, data, args.seed)
     if args.profile:
         profile_sweeps(data, args.seed, sweeps_s)
         sync_census(data, args.seed)
@@ -7239,6 +7403,19 @@ def main() -> None:
         "main_path_fixed_effect": {k: ksolo_main[k] for k in (
             "dtype", "rows", "d", "iterations", "decisions_equal", "x_rel_vs_plain",
             "loss_history_rel_vs_plain")},
+    }, {
+        "name": "ell_matvec",
+        "route": "cuda",
+        "source": "photon_tpu_torch/csrc/ell_matvec.cu",
+        "replaces": None,
+        "plain_version": "ops/ell_matvec.ell_matvec_plain (the gather and row sum; JAX's ELL "
+                         "forward pass is an XLA gather, photon_tpu/ops/objective.py:43)",
+        "launches": sum(census.ell_launches.values()),
+        "launches_by_path": {path: n for path, n in census.ell_launches.items() if n > 0},
+        "main_path_fit_launches": ell_main,
+        "plain_passes_by_path": census.ell_plain,
+        "layouts": {label: {**timings(row), "bound_share": row["bound_share"]}
+                    for label, row in kell.items()},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -99,6 +99,7 @@ from photon_tpu_torch.game.model import (
     RandomEffectModel,
 )
 from photon_tpu_torch.obs.health import sweep_health
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops.losses import POSITIVE_RESPONSE_THRESHOLD, loss_for_task
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import matvec
@@ -194,12 +195,12 @@ def solve_lanes(problem_config: GLMProblemConfig, features: Tensor, labels: Tens
     L2 on a CUDA block within the caps) the whole solve is one launch of
     the fused kernel, with no host sync; everything else runs the plain
     lane loop. The lanes are recorded by their route
-    (``lane_lbfgs.record_route``: the tally ``re.lanes_fused`` or
+    (``cuda_build.record_route``: the tally ``re.lanes_fused`` or
     ``re.lanes_plain`` on the registry, telemetry on or off)."""
     batch = LabeledBatch(features=features, labels=labels, offsets=offsets, weights=weights)
     problem = GLMProblem.build(problem_config)
     reason = lane_lbfgs.plain_loop_reason(problem, features)
-    if lane_lbfgs.record_route("lanes", features.device.type, reason, w0.shape[0]):
+    if cuda_build.record_route("lanes", features.device.type, reason, w0.shape[0]):
         return lane_lbfgs.minimize_lanes(problem, batch, w0)
     return problem.solve(batch, w0)
 
@@ -408,7 +409,7 @@ class FixedEffectCoordinate(Coordinate):
                     windows = column_windows_from_numpy(layout, device=device, dtype=dtype)
                 batch = SparseBatch(
                     # phl-ok: PHL007 on a mesh ``device`` is the CPU here and shard_batch below keeps this rank's rows
-                    indices=torch.as_tensor(ell_idx).to(device=device, dtype=torch.int64),
+                    indices=torch.as_tensor(ell_idx).to(device=device),
                     values=values,
                     labels=col(data.labels),
                     offsets=col(data.offsets),

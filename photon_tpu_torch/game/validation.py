@@ -182,7 +182,7 @@ class DeviceValidationScorer:
                 ):
                     idx, val = shard.to_ell(dtype=np_dtype)
                     batch = SparseBatch(
-                        indices=torch.as_tensor(idx).to(device=dev, dtype=torch.int64),
+                        indices=torch.as_tensor(idx).to(device=dev),
                         values=torch.as_tensor(val).to(dev),
                         labels=zeros, offsets=zeros, weights=ones,
                     )

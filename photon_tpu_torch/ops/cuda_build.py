@@ -6,10 +6,13 @@ then loaded with ctypes. The hash covers the source and the flags, so an
 edited kernel rebuilds and an unchanged one is reused. Nothing is built or
 loaded when a module is imported: the first launch on a CUDA tensor does it.
 Each library's C signatures are declared here (:data:`SIGNATURES`), as
-are the check of a tensor handed to a kernel and the launch counts.
+are the check of a tensor handed to a kernel, the launch counts and the
+record of each dispatch rule's choice between a kernel and its plain
+version (:func:`record_route`).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -19,6 +22,7 @@ import threading
 import time
 from pathlib import Path
 
+from photon_tpu_torch import obs
 from photon_tpu_torch.util import compile_watch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -45,6 +49,9 @@ SIGNATURES = {
         "solo_search": (_I, [_I] + [_PTR] * 6 + [_I, _PTR, _PTR, _LL, _I, _I] + [_DBL] * 3
                         + [_PTR]),
     },
+    "ell_matvec": {
+        "ell_matvec": (_I, [_I] * 4 + [_PTR] * 4 + [_LL, _I, _PTR]),
+    },
 }
 
 _lock = threading.Lock()
@@ -54,8 +61,34 @@ build_seconds: dict[str, float] = {}
 #: launches of each kernel entry since the process started, counted where
 #: each is issued (a probe's launches are not); never reset, so every
 #: reader takes a difference
-_launches = dict.fromkeys(("windowed_rmatvec", "lane_lbfgs", "solo_head", "solo_search"), 0)
+_launches = dict.fromkeys(
+    ("windowed_rmatvec", "lane_lbfgs", "solo_head", "solo_search", "ell_matvec"), 0)
 _launches_lock = threading.Lock()
+
+
+#: the registry tallies of each kind of routed work: (fused, plain)
+ROUTE_TALLIES = {"lanes": ("re.lanes_fused", "re.lanes_plain"),
+                 "solo": ("lbfgs.solo_fused", "lbfgs.solo_plain"),
+                 "ell": ("ell.passes_fused", "ell.passes_plain")}
+#: every routed solve or pass since the process started, by (kind, device
+#: type, route), the route "fused" or the plain version's reason; a lane
+#: batch counts its lanes. ``obs.reset()`` leaves it: readers take
+#: differences
+routes: collections.Counter = collections.Counter()
+_routes_lock = threading.Lock()
+
+
+def record_route(kind: str, device_type: str, reason: str | None, n: int = 1) -> bool:
+    """Record ``n`` units of ``kind`` ("lanes": lanes of one batch; "solo":
+    a one-lane solve; "ell": an ELL forward pass) on ``device_type`` by
+    their route (``reason``: the dispatch rule's answer, None for the
+    kernel) in :data:`routes` and as the kind's registry tally, telemetry
+    on or off. Returns whether the route is the kernel."""
+    fused = reason is None
+    obs.tally(ROUTE_TALLIES[kind][0 if fused else 1], n)
+    with _routes_lock:
+        routes[(kind, device_type, "fused" if fused else reason)] += n
+    return fused
 
 
 def _nvcc() -> str:

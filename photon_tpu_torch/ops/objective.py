@@ -27,7 +27,7 @@ import dataclasses
 
 import torch
 
-from photon_tpu_torch.ops.gather import take_1d
+from photon_tpu_torch.ops.ell_matvec import ell_matvec
 from photon_tpu_torch.ops.losses import PointwiseLoss
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.optimize.common import DirectionalOracle, SmoothMarginOracle
@@ -60,12 +60,14 @@ def bf16_product(x: Tensor, v: Tensor) -> Tensor:
 
 
 def matvec(batch, v: Tensor) -> Tensor:
-    """X·v. Sparse ELL: gather the K coefficient slots per row and row-sum
-    (padding slots hold value 0; bfloat16 values are widened, as JAX's
-    promotion does). Dense: a batched matrix-vector product; a bfloat16
-    block goes through :func:`bf16_product` (float32 result)."""
+    """X·v. Sparse ELL: the K coefficient slots of each row gathered,
+    multiplied and summed (padding slots hold value 0; bfloat16 values are
+    widened, as JAX's promotion does) by :func:`ops.ell_matvec.ell_matvec`,
+    the CUDA kernel on the card where its rule takes the pass, else the
+    plain gather and row sum. Dense: a batched matrix-vector product; a
+    bfloat16 block goes through :func:`bf16_product` (float32 result)."""
     if isinstance(batch, SparseBatch):
-        return (take_1d(v, batch.indices) * batch.values.to(v.dtype)).sum(-1)
+        return ell_matvec(batch.indices, batch.values, v)
     if batch.features.dtype == torch.bfloat16:
         return bf16_product(batch.features, v)
     return torch.matmul(batch.features.to(v.dtype), v.unsqueeze(-1)).squeeze(-1)

@@ -10,19 +10,17 @@ to, decision for decision. :func:`plain_loop_reason` is the dispatch rule
 that ``game.coordinate.solve_lanes`` applies: the kernel takes a solve
 exactly when it returns None. On that path :func:`minimize_lanes`
 launches the kernel or raises.
-It also loads the library for ``solo_lbfgs`` and keeps the record that
-both dispatch sites, ``solve_lanes`` and ``GLMProblem.solve``, make of
-every L-BFGS solve they route (:func:`record_route`).
+It also loads the library for ``solo_lbfgs``. Both dispatch sites,
+``solve_lanes`` and ``GLMProblem.solve``, record every L-BFGS solve they
+route with ``ops.cuda_build.record_route``; :data:`routes` and
+:func:`record_route` here are that record, re-exported for its readers.
 """
 from __future__ import annotations
 
-import collections
-import threading
-
 import torch
 
-from photon_tpu_torch import obs
 from photon_tpu_torch.ops import cuda_build
+from photon_tpu_torch.ops.cuda_build import ROUTE_TALLIES, record_route, routes  # noqa: F401
 from photon_tpu_torch.optimize.common import OptimizeResult
 
 #: the kernel's caps (kMaxDim, kMaxCorrections, kMaxRows in csrc/lane_lbfgs.cu)
@@ -31,29 +29,6 @@ MAX_DIM, MAX_CORRECTIONS, MAX_ROWS = 64, 32, 4096
 KERNEL_DTYPES = (torch.float32, torch.float64)
 #: loss codes of the kernel, by ``PointwiseLoss.name``
 LOSS_CODES = {"logistic": 0, "squared": 1, "poisson": 2, "smoothed_hinge": 3}
-
-#: the registry tallies of each kind of routed solve: (fused, plain)
-ROUTE_TALLIES = {"lanes": ("re.lanes_fused", "re.lanes_plain"),
-                 "solo": ("lbfgs.solo_fused", "lbfgs.solo_plain")}
-#: every routed solve since the process started, by (kind, device type,
-#: route), the route "fused" or the plain loop's reason; a lane batch
-#: counts its lanes. ``obs.reset()`` leaves it: readers take differences
-routes: collections.Counter = collections.Counter()
-_routes_lock = threading.Lock()
-
-
-def record_route(kind: str, device_type: str, reason: str | None, n: int = 1) -> bool:
-    """Record ``n`` solves of ``kind`` ("lanes": lanes of one batch;
-    "solo": a one-lane solve) on ``device_type`` by their route
-    (``reason``: the dispatch rule's answer, None for the fused kernels)
-    in :data:`routes` and as the kind's registry tally, telemetry on or
-    off. Returns whether the route is fused."""
-    fused = reason is None
-    obs.tally(ROUTE_TALLIES[kind][0 if fused else 1], n)
-    with _routes_lock:
-        routes[(kind, device_type, "fused" if fused else reason)] += n
-    return fused
-
 
 def plain_loop_reason(problem, features: torch.Tensor) -> str | None:
     """Why a lane solve of ``problem`` (a ``GLMProblem``) over ``features``

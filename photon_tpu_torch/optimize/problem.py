@@ -19,9 +19,10 @@ import torch
 
 from photon_tpu_torch.data.sampling import build_down_sampler
 from photon_tpu_torch.ops.losses import loss_for_task
+from photon_tpu_torch.ops import cuda_build
 from photon_tpu_torch.ops.normalization import NormalizationContext
 from photon_tpu_torch.ops.objective import GLMObjective
-from photon_tpu_torch.optimize import lane_lbfgs, solo_lbfgs
+from photon_tpu_torch.optimize import solo_lbfgs
 from photon_tpu_torch.optimize.common import OptimizeResult, OptimizerConfig
 from photon_tpu_torch.optimize.lbfgs import minimize_lbfgs
 from photon_tpu_torch.optimize.owlqn import minimize_owlqn
@@ -194,7 +195,7 @@ class GLMProblem:
         An L-BFGS(-B) solve of one lane (``w0`` [D]) runs its iterations on
         the card's fused kernels where ``solo_lbfgs.plain_loop_reason``
         finds nothing against it, else the plain loop; each such solve is
-        recorded by its route (``lane_lbfgs.record_route``: the tally
+        recorded by its route (``cuda_build.record_route``: the tally
         ``lbfgs.solo_fused`` or ``lbfgs.solo_plain`` on the registry,
         telemetry on or off)."""
         if extra_offsets is not None:
@@ -227,7 +228,7 @@ class GLMProblem:
             )
         if w0.dim() == 1:
             reason = solo_lbfgs.plain_loop_reason(self, batch, w0)
-            if lane_lbfgs.record_route("solo", w0.device.type, reason):
+            if cuda_build.record_route("solo", w0.device.type, reason):
                 return solo_lbfgs.minimize_solo(self, batch, w0, objective)
         if full_ls:
             return minimize_lbfgs(vg, w0, cfg)
